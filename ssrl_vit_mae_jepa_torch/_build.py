@@ -1,0 +1,103 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The library is
+named by a hash of the sources and flags, built at first use into
+``build/torch_kernels/`` beside the package, and loaded with ``ctypes``.
+Every entry point returns a ``cudaError_t``; :func:`check` raises on any
+code other than 0, so a refused launch never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# name -> (restype, argtypes); every pointer and the stream are c_void_p, so
+# ctypes never narrows a 64-bit address to a 32-bit int
+_SIGNATURES = {
+    "ssrl_attn_branch_fwd_workspace": (_LL, [_I] * 4),
+    "ssrl_attn_branch_fwd": (_I, [_P] * 10 + [_I] * 4 + [_F, _P]),
+    "ssrl_attn_branch_bwd_workspace": (_LL, [_I] * 3),
+    "ssrl_attn_branch_bwd": (_I, [_P] * 14 + [_I] * 4 + [_F, _P]),
+    "ssrl_mlp_branch_fwd_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_branch_fwd": (_I, [_P] * 9 + [_I] * 3 + [_P]),
+    "ssrl_mlp_branch_bwd_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_branch_bwd": (_I, [_P] * 13 + [_I] * 3 + [_P]),
+    "ssrl_error_string": (ctypes.c_char_p, [_I]),
+}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def sources() -> list[Path]:
+    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libssrl_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError(
+            "the CUDA kernels need nvcc: install the CUDA toolkit or set CUDA_HOME"
+        )
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in sources() if p.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc exited with {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and typed from _SIGNATURES."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = load().ssrl_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
