@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per source
+all started together, and links them into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The library is
 named by a hash of the sources and flags, built at first use into
 ``build/torch_kernels/`` beside the package, and loaded with ``ctypes``.
@@ -14,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -21,7 +23,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -36,6 +38,10 @@ _SIGNATURES = {
     "ssrl_mlp_branch_fwd": (_I, [_P] * 9 + [_I] * 3 + [_P]),
     "ssrl_mlp_branch_bwd_workspace": (_LL, [_I] * 3),
     "ssrl_mlp_branch_bwd": (_I, [_P] * 13 + [_I] * 3 + [_P]),
+    "ssrl_mha_fits": (_I, [_I] * 2),
+    # pointers, in strides (b, h, row), out strides, B, H, L, d, scale, post, stream
+    "ssrl_mha_fwd": (_I, [_P] * 4 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
+    "ssrl_mha_bwd": (_I, [_P] * 7 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -65,21 +71,30 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc exited with {p.returncode}:\n{' '.join(cmd)}\n{err}")
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc exited with {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{p.stem}.o" for p in sources() if p.suffix == ".cu"]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(_CSRC / f"{o.stem}.cu"), "-o", str(o)]
+                  for o in objs])
+        tmp = Path(tmpdir) / out.name
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
     return out
 
 

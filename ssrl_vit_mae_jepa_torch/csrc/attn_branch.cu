@@ -18,11 +18,11 @@
 // reading bf16 and writing bf16 only once --
 //   1. LayerNorm (warp per row, f32 statistics) -> y1;
 //   2. tiled WMMA GEMM with the bias in the epilogue -> qkv;
-//   3. attention with one block per (image, head): q, k, v, the
-//      probabilities and dS stay in shared memory as bf16 tiles, so the
-//      L x L scores never reach device memory, and QK^T, PV and the
-//      backward's products run as WMMA tensor-core tiles (L padded to 16,
-//      the head dim to 16 or 32);
+//   3. attention through the core of mha.cu (one block per (image, head);
+//      q, k, v, the probabilities and dS stay in shared memory as bf16
+//      tiles, so the L x L scores never reach device memory), reading q, k
+//      and v straight out of the qkv buffer; its backward also writes the
+//      per-image dbqkv partials;
 //   4. tiled GEMM with bias and residual in the epilogue -> out.
 // The backward recomputes LN1 and qkv (one GEMM) instead of storing them, as
 // the TPU kernel does; weight gradients use split-K GEMMs into f32 partials
@@ -38,386 +38,30 @@
 // rowsum(dP o P)) from the f32 P, rounded to bf16; dbqkv summed from the f32
 // dqkv while dWqkv uses its bf16 form; all weight and bias gradients in f32.
 #include "common.cuh"
+#include "mha.cuh"
 
 namespace {
 
-// Attention core on tensor cores. One block of ATT_WARPS warps (BWD_WARPS in
-// the backward) per (image, head); q, k, v (and dO) live in shared memory as
-// bf16 tiles zero-padded to LP = L rounded up to 16 rows and DP = d rounded up to 16
-// columns. Each warp owns 16-row query strips: S = Q K^T and the products
-// with P and dS are WMMA 16x16x16 bf16 tiles with f32 accumulation; the
-// softmax and dS run in f32 on the strip's scores in shared memory. Leading
-// dimensions are padded (DP + 8, LP + 8, LP + 4, 20) so that the eight rows a
-// fragment load or store touches at once fall in distinct banks.
-constexpr int ATT_WARPS = 4;
-// the backward's strips: 5 warps split the decoder's 10 evenly (2 each)
-constexpr int BWD_WARPS = 5;
-constexpr int SMEM_MAX = 232448;  // per-block dynamic shared memory on sm_90
-
-using namespace nvcuda;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
-constexpr int TLD = 20;  // leading dimension of a warp's 16x16 f32 tile
-
-// per-warp scratch: an f32 score strip [16][LP + 4], then (fwd) a bf16
-// probability strip [16][LP + 8] or (bwd) a [16][TLD] f32 tile + column sums
-__host__ __device__ inline size_t strip_bytes(int LP) { return (size_t)16 * (LP + 4) * 4; }
-
-inline size_t attn_fwd_smem(int L, int DP) {
-  const int LP = pad16(L);
-  return (size_t)3 * LP * (DP + 8) * 2 +
-         ATT_WARPS * (strip_bytes(LP) + (size_t)16 * (LP + 8) * 2);
-}
-
-inline size_t attn_bwd_smem(int L, int DP) {
-  const int LP = pad16(L);
-  return (size_t)4 * LP * (DP + 8) * 2 + (size_t)2 * LP * (LP + 8) * 2 +
-         BWD_WARPS * (strip_bytes(LP) + 16 * TLD * 4 + (size_t)3 * DP * 4);
-}
-
-// S strip (16 x LP, f32) = Qs[strip] K^T into Sw (ld LP + 4)
-template <int DP>
-__device__ __forceinline__ void score_strip(const bf16* Qs, const bf16* K, float* Sw,
-                                            int strip, int LP) {
-  FragA fq[DP / 16];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], Qs + strip * 16 * (DP + 8) + kk * 16, DP + 8);
-  for (int n = 0; n < LP / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      FragBT fk;
-      wmma::load_matrix_sync(fk, K + n * 16 * (DP + 8) + kk * 16, DP + 8);
-      wmma::mma_sync(acc, fq[kk], fk, acc);
-    }
-    wmma::store_matrix_sync(Sw + n * 16, acc, LP + 4, wmma::mem_row_major);
-  }
-}
-
-// In-place row softmax of the strip (rows i >= L and columns j >= L give 0):
-// Sw keeps the f32 P, and P (ld pld) gets its bf16 rounding. Two lanes per
-// row, each over every other column, so the 16 rows proceed together.
-__device__ __forceinline__ void softmax_strip(float* Sw, bf16* P, int pld, int strip,
-                                              int L, int LP, int lane) {
-  const int r = lane >> 1, h = lane & 1;
-  float* s = Sw + r * (LP + 4);
-  bf16* p = P + r * pld;
-  const bool live = strip * 16 + r < L;
-  float mx = -INFINITY;
-  for (int j = h; j < L; j += 2) mx = fmaxf(mx, s[j]);
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  float sum = 0.f;
-  for (int j = h; j < L; j += 2) {
-    const float e = expf(s[j] - mx);
-    s[j] = e;
-    sum += e;
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  for (int j = h; j < LP; j += 2) {
-    const float v = (live && j < L) ? s[j] / sum : 0.f;
-    s[j] = v;
-    p[j] = tobf(v);
-  }
-}
-
-// Stage q (scaled in f32, rounded to bf16), k, v (and dO) for (b, h), zero
-// outside [0, L) x [0, d). With d and D multiples of 8 every row segment is
-// 16-byte aligned and moves as uint4 loads, several in flight per thread;
-// otherwise element by element.
-template <int DP>
-__device__ __forceinline__ void load_head(const bf16* qkv, const bf16* da, bf16* Qs,
-                                          bf16* K, bf16* V, bf16* dO, int b, int h,
-                                          int L, int LP, int D, int d, float scale) {
-  const size_t ld = 3 * (size_t)D;
-  union Chunk {
-    uint4 u;
-    bf16 e[8];
-  };
-  if ((d & 7) == 0 && (D & 7) == 0) {
-    constexpr int CPR = DP / 8;  // 16-byte chunks per padded row
-    for (int idx = threadIdx.x; idx < LP * CPR; idx += blockDim.x) {
-      const int i = idx / CPR, c = (idx - (idx / CPR) * CPR) * 8;
-      Chunk q, k, v, g;
-      q.u = k.u = v.u = g.u = make_uint4(0, 0, 0, 0);
-      if (i < L && c < d) {
-        const bf16* r = qkv + ((size_t)b * L + i) * ld + h * d + c;
-        q.u = *reinterpret_cast<const uint4*>(r);
-        k.u = *reinterpret_cast<const uint4*>(r + D);
-        v.u = *reinterpret_cast<const uint4*>(r + 2 * D);
-        if (da) g.u = *reinterpret_cast<const uint4*>(da + ((size_t)b * L + i) * D + h * d + c);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) q.e[e] = tobf(bf(q.e[e]) * scale);
-      }
-      const int o = i * (DP + 8) + c;
-      *reinterpret_cast<uint4*>(Qs + o) = q.u;
-      *reinterpret_cast<uint4*>(K + o) = k.u;
-      *reinterpret_cast<uint4*>(V + o) = v.u;
-      if (dO) *reinterpret_cast<uint4*>(dO + o) = g.u;
-    }
-    return;
-  }
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int idx = threadIdx.x; idx < LP * DP; idx += blockDim.x) {
-    const int i = idx / DP, c = idx - (idx / DP) * DP;
-    bf16 q = zero, k = zero, v = zero, g = zero;
-    if (i < L && c < d) {
-      const bf16* r = qkv + ((size_t)b * L + i) * ld + h * d + c;
-      q = tobf(bf(r[0]) * scale);
-      k = r[D];
-      v = r[2 * D];
-      if (da) g = da[((size_t)b * L + i) * D + h * d + c];
-    }
-    const int o = i * (DP + 8) + c;
-    Qs[o] = q;
-    K[o] = k;
-    V[o] = v;
-    if (dO) dO[o] = g;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(32 * ATT_WARPS)
-    attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ a, int L,
-                    int D, int H, int d, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const int LP = pad16(L), PLD = LP + 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* K = Qs + LP * (DP + 8);
-  bf16* V = K + LP * (DP + 8);
-  unsigned char* mine = reinterpret_cast<unsigned char*>(V + LP * (DP + 8)) +
-                        warp * (strip_bytes(LP) + (size_t)16 * PLD * 2);
-  float* Sw = reinterpret_cast<float*>(mine);
-  bf16* Pw = reinterpret_cast<bf16*>(mine + strip_bytes(LP));
-  load_head<DP>(qkv, nullptr, Qs, K, V, nullptr, b, h, L, LP, D, d, scale);
-  __syncthreads();
-
-  for (int strip = warp; strip < LP / 16; strip += ATT_WARPS) {
-    score_strip<DP>(Qs, K, Sw, strip, LP);
-    __syncwarp();
-    softmax_strip(Sw, Pw, PLD, strip, L, LP, lane);
-    __syncwarp();
-    // O strip = P V, into the first DP columns of Sw
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < LP / 16; ++kk) {
-        FragA fp;
-        FragB fv;
-        wmma::load_matrix_sync(fp, Pw + kk * 16, PLD);
-        wmma::load_matrix_sync(fv, V + kk * 16 * (DP + 8) + n * 16, DP + 8);
-        wmma::mma_sync(acc, fp, fv, acc);
-      }
-      wmma::store_matrix_sync(Sw + n * 16, acc, LP + 4, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int e = lane; e < 16 * DP; e += 32) {
-      const int r = e / DP, c = e - (e / DP) * DP, i = strip * 16 + r;
-      if (i < L && c < d) a[((size_t)b * L + i) * D + h * d + c] = tobf(Sw[r * (LP + 4) + c]);
-    }
-    __syncwarp();
-  }
-}
-
-// dqkv (bf16, the rounded gradient the GEMMs consume) and colpart[b][3D], the
-// f32 column sums of this image's dq | dk | dv (the dbqkv partials).
-template <int DP>
-__global__ void __launch_bounds__(32 * BWD_WARPS)
-    attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ da,
-                    bf16* __restrict__ dqkv, float* __restrict__ colpart,
-                    int L, int D, int H, int d, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
-  const int LP = pad16(L), PLD = LP + 8, NS = LP / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* K = Qs + LP * (DP + 8);
-  bf16* V = K + LP * (DP + 8);
-  bf16* dO = V + LP * (DP + 8);
-  bf16* P = dO + LP * (DP + 8);  // [LP][PLD], bf16 probabilities
-  bf16* dS = P + LP * PLD;  // [LP][PLD]
-  unsigned char* w0 = reinterpret_cast<unsigned char*>(dS + LP * PLD);
-  const size_t wbytes = strip_bytes(LP) + 16 * TLD * 4 + (size_t)3 * DP * 4;
-  float* Sw = reinterpret_cast<float*>(w0 + warp * wbytes);
-  float* tile = Sw + 16 * (LP + 4);  // [16][TLD]
-  float* cs = tile + 16 * TLD;       // [3][DP] column sums of this warp
-  load_head<DP>(qkv, da, Qs, K, V, dO, b, h, L, LP, D, d, scale);
-  for (int c = lane; c < 3 * DP; c += 32) cs[c] = 0.f;
-  __syncthreads();
-
-  const size_t ld = 3 * (size_t)D;
-  bf16* dbase = dqkv + (size_t)b * L * ld + h * d;
-  const int tr = lane >> 1, tc = (lane & 1) * 8;  // 8 elements of a tile row
-
-  // phase 1, per query strip: P, dS = P o (dP - rowsum(dP o P)), dQ = dS K
-  for (int strip = warp; strip < NS; strip += BWD_WARPS) {
-    score_strip<DP>(Qs, K, Sw, strip, LP);
-    __syncwarp();
-    softmax_strip(Sw, P + strip * 16 * PLD, PLD, strip, L, LP, lane);
-    __syncwarp();
-    FragA fo[DP / 16];
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      wmma::load_matrix_sync(fo[kk], dO + strip * 16 * (DP + 8) + kk * 16, DP + 8);
-    // two passes over the key tiles: dP = dO V^T is recomputed rather than
-    // kept, once for the row sums and once for dS
-    float rs = 0.f;
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int n = 0; n < NS; ++n) {
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          FragBT fv;
-          wmma::load_matrix_sync(fv, V + n * 16 * (DP + 8) + kk * 16, DP + 8);
-          wmma::mma_sync(acc, fo[kk], fv, acc);
-        }
-        wmma::store_matrix_sync(tile, acc, TLD, wmma::mem_row_major);
-        __syncwarp();
-        const float* p = Sw + tr * (LP + 4) + n * 16 + tc;
-        const float* g = tile + tr * TLD + tc;
-        if (pass == 0) {
-#pragma unroll
-          for (int c = 0; c < 8; ++c) rs += g[c] * p[c];
-        } else {
-          bf16* o = dS + (strip * 16 + tr) * PLD + n * 16 + tc;
-#pragma unroll
-          for (int c = 0; c < 8; ++c) o[c] = tobf(p[c] * (g[c] - rs));
-        }
-        __syncwarp();
-      }
-      if (pass == 0) rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    }
-    __syncwarp();
-    // dQ strip = dS K (then times the scale), into Sw's first DP columns
-#pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < NS; ++kk) {
-        FragA fs;
-        FragB fk;
-        wmma::load_matrix_sync(fs, dS + strip * 16 * PLD + kk * 16, PLD);
-        wmma::load_matrix_sync(fk, K + kk * 16 * (DP + 8) + n * 16, DP + 8);
-        wmma::mma_sync(acc, fs, fk, acc);
-      }
-      wmma::store_matrix_sync(Sw + n * 16, acc, LP + 4, wmma::mem_row_major);
-    }
-    __syncwarp();
-    if (lane < d) {
-      float s = 0.f;
-      for (int r = 0; r < 16; ++r) {
-        const int i = strip * 16 + r;
-        if (i >= L) break;
-        const float v = Sw[r * (LP + 4) + lane] * scale;
-        dbase[(size_t)i * ld + lane] = tobf(v);
-        s += v;
-      }
-      cs[lane] += s;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // phase 2, over (key tile, column tile): dK = dS^T Qs and dV = P^T dO
-  const int per = NS * (DP / 16);
-  for (int t = warp; t < 2 * per; t += BWD_WARPS) {
-    const int which = t / per;  // 0: dK, 1: dV
-    const int jt = (t % per) / (DP / 16), ct = (t % per) % (DP / 16);
-    const bf16* A = which ? P : dS;
-    const bf16* Bm = which ? dO : Qs;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < NS; ++kk) {
-      FragAT fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, A + kk * 16 * PLD + jt * 16, PLD);
-      wmma::load_matrix_sync(fb, Bm + kk * 16 * (DP + 8) + ct * 16, DP + 8);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(tile, acc, TLD, wmma::mem_row_major);
-    __syncwarp();
-    const int c16 = lane & 15, half = lane >> 4, c = ct * 16 + c16;
-    float s = 0.f;
-    if (c < d) {
-      for (int r = half * 8; r < half * 8 + 8; ++r) {
-        const int j = jt * 16 + r;
-        if (j >= L) break;
-        const float v = tile[r * TLD + c16];
-        dbase[(size_t)j * ld + (which + 1) * D + c] = tobf(v);
-        s += v;
-      }
-    }
-    s += __shfl_xor_sync(0xffffffffu, s, 16);
-    if (half == 0 && c < d) cs[(which + 1) * DP + c] += s;
-    __syncwarp();
-  }
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < 3 * d; t += blockDim.x) {
-    const int part = t / d, c = t - (t / d) * d;
-    float s = 0.f;
-    for (int w = 0; w < BWD_WARPS; ++w)
-      s += reinterpret_cast<const float*>(w0 + w * wbytes + strip_bytes(LP) +
-                                          16 * TLD * 4)[part * DP + c];
-    colpart[(size_t)b * ld + part * D + h * d + c] = s;
-  }
-}
-
-template <typename Kern>
-cudaError_t allow_smem(Kern kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-template <int DP>
-cudaError_t attn_fwd_launch(const bf16* qkv, bf16* a, int B, int L, int D, int H,
-                            float scale, cudaStream_t st) {
-  const size_t smem = attn_fwd_smem(L, DP);
-  cudaError_t e = allow_smem(attn_fwd_kernel<DP>, smem);
-  if (e != cudaSuccess) return e;
-  attn_fwd_kernel<DP><<<B * H, 32 * ATT_WARPS, smem, st>>>(qkv, a, L, D, H, D / H, scale);
-  return cudaGetLastError();
-}
-
-template <int DP>
-cudaError_t attn_bwd_launch(const bf16* qkv, const bf16* da, bf16* dqkv, float* colpart,
-                            int B, int L, int D, int H, float scale, cudaStream_t st) {
-  const size_t smem = attn_bwd_smem(L, DP);
-  cudaError_t e = allow_smem(attn_bwd_kernel<DP>, smem);
-  if (e != cudaSuccess) return e;
-  attn_bwd_kernel<DP><<<B * H, 32 * BWD_WARPS, smem, st>>>(qkv, da, dqkv, colpart, L, D,
-                                                         H, D / H, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t attn_fwd(const bf16* qkv, bf16* a, int B, int L, int D, int H, float scale,
-                     cudaStream_t st) {
-  return D / H <= 16 ? attn_fwd_launch<16>(qkv, a, B, L, D, H, scale, st)
-                     : attn_fwd_launch<32>(qkv, a, B, L, D, H, scale, st);
-}
-
-cudaError_t attn_bwd(const bf16* qkv, const bf16* da, bf16* dqkv, float* colpart, int B,
-                     int L, int D, int H, float scale, cudaStream_t st) {
-  return D / H <= 16
-             ? attn_bwd_launch<16>(qkv, da, dqkv, colpart, B, L, D, H, scale, st)
-             : attn_bwd_launch<32>(qkv, da, dqkv, colpart, B, L, D, H, scale, st);
-}
-
-// head dim <= 32; L bounded by the backward's shared memory (L <= 160 at d = 32)
+// head dim <= 32; L bounded by the attention backward's shared memory
+// (L <= 160 at d = 32, ssrl::mha_fits)
 bool shape_ok(int B, int L, int D, int H) {
   if (B < 1 || L < 1 || D < 8 || D > 256 || H < 1 || D % H || D / H > 32) return false;
-  return attn_bwd_smem(L, pad16(D / H)) <= SMEM_MAX;
+  return ssrl::mha_fits(L, D / H);
+}
+
+// The attention core's view of the fused (B*L, 3D) qkv buffer: q | k | v
+// along the features, the attention output `a` and its gradient (B*L, D).
+ssrl::MhaArgs qkv_args(const bf16* qkv, int B, int L, int D, int H, float scale) {
+  ssrl::MhaArgs m{};
+  m.q = qkv;
+  m.k = qkv + D;
+  m.v = qkv + 2 * D;
+  m.in_b = (long long)L * 3 * D; m.in_h = D / H; m.in_r = 3 * D;
+  m.out_b = (long long)L * D; m.out_h = D / H; m.out_r = D;
+  m.B = B; m.H = H; m.L = L; m.d = D / H;
+  m.scale = scale;
+  m.post = ssrl::kPreScaled;
+  return m;
 }
 
 // Scratch of the forward: y1, qkv and, without a stash, the attention output.
@@ -497,7 +141,9 @@ int ssrl_attn_branch_fwd(const void* x, const void* ln_s, const void* ln_b,
   g.bias = static_cast<const bf16*>(bqkv);
   launch_gemm<false, true, EPI_BIAS_BF16>(g, 1, st);
 
-  cudaError_t e = attn_fwd(qkv, abuf, B, L, D, H, scale, st);
+  ssrl::MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
+  m.o = abuf;
+  cudaError_t e = ssrl::mha_fwd(m, st);
   if (e != cudaSuccess) return (int)e;
 
   GemmArgs o{};
@@ -567,7 +213,13 @@ int ssrl_attn_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
   launch_gemm<false, false, EPI_BF16>(d, 1, st);
 
   // attention backward -> dqkv (bf16) and dbqkv
-  cudaError_t e = attn_bwd(qkv, da, dqkv, part, B, L, D, H, scale, st);
+  ssrl::MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
+  m.dO = da;
+  m.dq = dqkv;
+  m.dk = dqkv + D;
+  m.dv = dqkv + 2 * D;
+  m.colpart = part;
+  cudaError_t e = ssrl::mha_bwd(m, st);
   if (e != cudaSuccess) return (int)e;
   reduce_rows(part, B, 3 * D, static_cast<float*>(dbqkv), tmp, st);
 

@@ -51,7 +51,8 @@ class MAEDecoder(nn.Module):
 
     def __init__(self, num_patches: int, patch_size: int, embed_dim: int,
                  decoder_embed_dim: int, decoder_depth: int, decoder_num_heads: int,
-                 in_chans: int = 3, mlp_ratio: float = 4.0, dtype=torch.bfloat16):
+                 in_chans: int = 3, mlp_ratio: float = 4.0, dtype=torch.bfloat16,
+                 attn_impl: str = "auto"):
         super().__init__()
         dd = decoder_embed_dim
         self.dtype = dtype
@@ -59,7 +60,8 @@ class MAEDecoder(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, 1, dd))
         self.decoder_pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1, dd))
         self.decoder_blocks = nn.ModuleList(
-            Block(dd, decoder_num_heads, mlp_ratio, dtype) for _ in range(decoder_depth)
+            Block(dd, decoder_num_heads, mlp_ratio, dtype, attn_impl)
+            for _ in range(decoder_depth)
         )
         self.decoder_norm = nn.LayerNorm(dd, eps=LN_EPS)
         self.decoder_pred = nn.Linear(dd, patch_size**2 * in_chans)
@@ -91,20 +93,22 @@ class MaskedAutoencoder(nn.Module):
     def __init__(self, image_size: int = 96, patch_size: int = 8, in_chans: int = 3,
                  embed_dim: int = 144, depth: int = 4, num_heads: int = 6,
                  decoder_embed_dim: int = 192, decoder_depth: int = 2,
-                 decoder_num_heads: int = 6, dtype=torch.bfloat16):
+                 decoder_num_heads: int = 6, dtype=torch.bfloat16,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.image_size = image_size
         self.patch_size = patch_size
         self.in_chans = in_chans
         self.dtype = dtype
         vit = VisionTransformer(image_size, patch_size, in_chans, embed_dim, depth,
-                                num_heads, dtype=dtype)
+                                num_heads, dtype=dtype, attn_impl=attn_impl)
         self.num_patches = vit.num_patches
         self.sequence_length = vit.sequence_length
         self.encoder = MaskedVisionTransformer(vit)
         self.decoder = MAEDecoder(
             self.num_patches, patch_size, embed_dim, decoder_embed_dim,
             decoder_depth, decoder_num_heads, in_chans, dtype=dtype,
+            attn_impl=attn_impl,
         )
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -137,7 +141,8 @@ class MaskedAutoencoder(nn.Module):
         return x_pred, target
 
 
-def mae_from_config(model_cfg: dict, dtype=torch.bfloat16) -> MaskedAutoencoder:
+def mae_from_config(model_cfg: dict, dtype=torch.bfloat16,
+                    attn_impl: str = "auto") -> MaskedAutoencoder:
     """Build a MaskedAutoencoder from the reference YAML ``model`` section."""
     general = model_cfg.get("general", {})
     enc = model_cfg.get("encoder", {})
@@ -153,4 +158,5 @@ def mae_from_config(model_cfg: dict, dtype=torch.bfloat16) -> MaskedAutoencoder:
         decoder_depth=dec.get("decoder_depth", 2),
         decoder_num_heads=dec.get("decoder_num_heads", 6),
         dtype=dtype,
+        attn_impl=attn_impl,
     )

@@ -12,9 +12,16 @@ of ``utils/torch_interop.py`` and the reference's ``.pt`` files load with
 ``strict=True``. Parameters are f32; the forward computes in ``dtype``
 (bf16 by default) with LayerNorm statistics in f32.
 
-A ``Block`` runs its two residual branches through
-``ops/block_fused.py``: the CUDA kernels for a CUDA tensor, the plain
-versions for a CPU tensor. There is no other route.
+A ``Block`` takes one of two routes, chosen by ``attn_impl`` as the JAX
+package's ``block_impl`` chooses (``block_impl`` below):
+
+- the branch route (auto, split, split_pad): the two residual branches
+  through ``ops/block_fused.py``;
+- the sub-layer route (xla, pallas, packed, stacked): LN, ``Attention``, LN,
+  ``Mlp`` as separate modules, with attention dispatched by
+  ``ops/attention.py`` to ``mha_xla`` or to an attention kernel.
+
+Each kernel runs on a CUDA tensor and its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,8 +29,17 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ssrl_vit_mae_jepa_torch.ops.attention import (
+    mha_natural,
+    mha_natural_qkv,
+    multi_head_attention,
+    use_packed,
+    use_stacked_split,
+    validate_impl,
+)
 from ssrl_vit_mae_jepa_torch.ops.block_fused import (
     LN_EPS,
     fused_attn_branch,
@@ -48,40 +64,83 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
 
 
 class Mlp(nn.Module):
-    """fc1/fc2 parameters of the MLP branch (timm names)."""
+    """fc1 → exact-erf GELU → fc2 (timm names); the JAX package computes it
+    in XLA, outside any Pallas kernel (``models/vit.py:78-98``)."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(F.gelu(dense(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+
 
 class Attention(nn.Module):
-    """qkv/proj parameters of the attention branch (timm names)."""
+    """qkv projection → multi-head attention → proj (timm names), with the
+    JAX package's dispatch (``models/vit.py:101-143``): the fused-qkv kernel
+    where ``use_packed`` says so, the three-input kernel where
+    ``use_stacked_split`` does, else ``multi_head_attention`` on (B, H, L, d)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
+        self.attn_impl = validate_impl(attn_impl)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, L, D = x.shape
+        h, impl = self.num_heads, self.attn_impl
+        qkv = dense(x, self.qkv, self.dtype)
+        if use_packed(B, L, D, h, qkv.dtype, impl, qkv.device):
+            out = mha_natural_qkv(qkv, h)
+        elif use_stacked_split(B, L, D, h, qkv.dtype, impl, qkv.device):
+            out = mha_natural(qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:], h)
+        else:
+            q, k, v = qkv.reshape(B, L, 3, h, D // h).permute(2, 0, 3, 1, 4)
+            out = multi_head_attention(q, k, v, impl).transpose(1, 2).reshape(B, L, D)
+        return dense(out, self.proj, self.dtype)
+
+
+def block_impl(impl: str) -> Optional[str]:
+    """The block's route for ``attn_impl``: ``"split"`` (the branch kernels)
+    or None (the sub-layer route), as ``ops/block_pallas.py::block_impl``
+    decides. The whole-block and chained-block kernels are not ported."""
+    validate_impl(impl)
+    if impl in ("block", "chain"):
+        item = 8 if impl == "block" else 9
+        raise NotImplementedError(
+            f"attn_impl={impl!r} needs a kernel that is not ported yet "
+            f"(ROADMAP queue 2 item {item})"
+        )
+    return "split" if impl in ("auto", "split", "split_pad") else None
 
 
 class Block(nn.Module):
     """Pre-LN transformer block: x + attn(norm1(x)), then + mlp(norm2(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, attn_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
+        self.route = block_impl(attn_impl)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         a, m = self.attn, self.mlp
+        if self.route is None:
+            x = x + a(norm(x, self.norm1, self.dtype))
+            return x + m(norm(x, self.norm2, self.dtype))
         x = fused_attn_branch(
-            x.to(self.dtype), self.norm1.weight, self.norm1.bias,
+            x, self.norm1.weight, self.norm1.bias,
             a.qkv.weight, a.qkv.bias, a.proj.weight, a.proj.bias, a.num_heads,
         )
         return fused_mlp_branch(
@@ -125,7 +184,7 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, img_size: int = 96, patch_size: int = 8, in_chans: int = 3,
                  embed_dim: int = 144, depth: int = 4, num_heads: int = 6,
-                 mlp_ratio: float = 4.0, dtype=torch.bfloat16):
+                 mlp_ratio: float = 4.0, dtype=torch.bfloat16, attn_impl: str = "auto"):
         super().__init__()
         self.img_size = img_size
         self.patch_size = patch_size
@@ -138,7 +197,7 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, self.sequence_length, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, dtype) for _ in range(depth)
+            Block(embed_dim, num_heads, mlp_ratio, dtype, attn_impl) for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
@@ -164,3 +223,20 @@ class VisionTransformer(nn.Module):
             x = get_at_index(x, idx_keep)
         x = run_block_stack(x, self.blocks)
         return norm(x, self.norm, dt)
+
+
+def vit_from_config(model_cfg: dict, dtype=torch.bfloat16,
+                    attn_impl: str = "auto") -> VisionTransformer:
+    """Build a VisionTransformer from the reference YAML ``model`` section."""
+    general = model_cfg.get("general", {})
+    enc = model_cfg.get("encoder", {})
+    return VisionTransformer(
+        img_size=general.get("image_size", 96),
+        patch_size=general.get("patch_size", 8),
+        in_chans=general.get("in_chans", 3),
+        embed_dim=enc.get("embed_dim", 144),
+        depth=enc.get("depth", 4),
+        num_heads=enc.get("num_heads", 6),
+        dtype=dtype,
+        attn_impl=attn_impl,
+    )

@@ -96,12 +96,14 @@ class Task:
 class MAETask(Task):
     """MAE pretraining (reference ``src/training/mae.py:14-83``): per-sample
     random masking, MSE on the masked patches, AdamW at lr·batch/256 with
-    warmup×cosine, and the per-epoch mask-ratio ramp."""
+    warmup×cosine, and the per-epoch mask-ratio ramp. ``attn_impl`` picks the
+    blocks' route as in the JAX ``MAETask``; the step runs on the card unless
+    ``device`` says otherwise."""
 
     def __init__(self, model_cfg: dict, training_cfg: dict, dtype=torch.bfloat16,
-                 device="cpu"):
+                 device="cuda", attn_impl: str = "auto"):
         super().__init__(device)
-        self.model = mae_from_config(model_cfg, dtype=dtype)
+        self.model = mae_from_config(model_cfg, dtype=dtype, attn_impl=attn_impl)
         self.mask_start = float(training_cfg.get("mask_ratio_start", 0.5))
         self.mask_end = float(training_cfg.get("mask_ratio_end", 0.85))
         self.ramp_epochs = int(training_cfg.get("mask_ramp_epochs", 200))

@@ -1,16 +1,117 @@
 """Weights from the JAX package into the port.
 
-The JAX package's ``utils/torch_interop.py`` already writes its params in
-the reference's torch names and layouts; the port's modules use those names,
-so crossing over is one export and one strict ``load_state_dict``.
+The JAX package's params are a nested dict of arrays in flax names and
+layouts; the port's modules use the reference's torch (timm/lightly) names,
+so crossing over is one export and one strict ``load_state_dict``. The
+export is this module's own numpy copy of
+``ssrl_vit_mae_jepa_tpu/utils/torch_interop.py::mae_params_to_state`` and
+the tables it walks (:89-106, :209-305); the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
 
+from typing import Dict, List
+
 import numpy as np
 import torch
 
-from ssrl_vit_mae_jepa_tpu.utils.torch_interop import mae_params_to_state
+
+def _block_entries(i: int, torch_prefix: str, flax_name: str):
+    """(torch key, flax path, layout transform) for one transformer block."""
+    tb = f"{torch_prefix}.{i}."
+    fb = [flax_name]
+    return [
+        (tb + "norm1.weight", fb + ["norm1", "scale"], None),
+        (tb + "norm1.bias", fb + ["norm1", "bias"], None),
+        (tb + "attn.qkv.weight", fb + ["attn", "qkv", "kernel"], "T"),
+        (tb + "attn.qkv.bias", fb + ["attn", "qkv", "bias"], None),
+        (tb + "attn.proj.weight", fb + ["attn", "proj", "kernel"], "T"),
+        (tb + "attn.proj.bias", fb + ["attn", "proj", "bias"], None),
+        (tb + "norm2.weight", fb + ["norm2", "scale"], None),
+        (tb + "norm2.bias", fb + ["norm2", "bias"], None),
+        (tb + "mlp.fc1.weight", fb + ["mlp", "fc1", "kernel"], "T"),
+        (tb + "mlp.fc1.bias", fb + ["mlp", "fc1", "bias"], None),
+        (tb + "mlp.fc2.weight", fb + ["mlp", "fc2", "kernel"], "T"),
+        (tb + "mlp.fc2.bias", fb + ["mlp", "fc2", "bias"], None),
+    ]
+
+
+def _vit_entries(depth: int):
+    entries = [
+        ("cls_token", ["cls_token"], None),
+        ("pos_embed", ["pos_embed"], None),
+        ("patch_embed.proj.weight", ["patch_embed", "kernel"], "patch"),
+        ("patch_embed.proj.bias", ["patch_embed", "bias"], None),
+        ("norm.weight", ["norm", "scale"], None),
+        ("norm.bias", ["norm", "bias"], None),
+    ]
+    for i in range(depth):
+        entries += _block_entries(i, "blocks", f"blocks_{i}")
+    return entries
+
+
+def _decoder_entries(depth: int):
+    entries = [
+        ("decoder_embed.weight", ["decoder_embed", "kernel"], "T"),
+        ("decoder_embed.bias", ["decoder_embed", "bias"], None),
+        ("mask_token", ["mask_token"], None),
+        ("decoder_pos_embed", ["decoder_pos_embed"], None),
+        ("decoder_norm.weight", ["decoder_norm", "scale"], None),
+        ("decoder_norm.bias", ["decoder_norm", "bias"], None),
+        ("decoder_pred.weight", ["decoder_pred", "kernel"], "T"),
+        ("decoder_pred.bias", ["decoder_pred", "bias"], None),
+    ]
+    for i in range(depth):
+        entries += _block_entries(i, "decoder_blocks", f"decoder_blocks_{i}")
+    return entries
+
+
+def _get(tree: dict, path: List[str]):
+    node = tree
+    for p in path:
+        if not isinstance(node, dict) or p not in node:
+            return None
+        node = node[p]
+    return node
+
+
+def _export_entries(params: dict, entries, in_chans: int = 3) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for torch_key, flax_path, tform in entries:
+        v = _get(params, flax_path)
+        if v is None:
+            raise KeyError(
+                f"export: flax param {'/'.join(flax_path)} (→ {torch_key}) missing"
+            )
+        v = np.asarray(v, dtype=np.float32)
+        if tform == "T":
+            v = np.ascontiguousarray(v.T)
+        elif tform == "patch":
+            # invert the C-major flatten of the patchify-matmul kernel:
+            # (p*p*C, D) → (D, C, p, p)
+            p2c, D = v.shape
+            p = int(round((p2c // in_chans) ** 0.5))
+            v = np.ascontiguousarray(v.T.reshape(D, in_chans, p, p))
+        out[torch_key] = v
+    return out
+
+
+def _depth(params: dict, block_prefix: str) -> int:
+    return sum(1 for k in params if k.startswith(block_prefix))
+
+
+def mae_params_to_state(params: dict, in_chans: int = 3) -> Dict[str, np.ndarray]:
+    """MaskedAutoencoder params → the reference's ``vit-mae.pt`` names: timm
+    keys under ``encoder.vit.``, lightly's unused encoder ``mask_token`` as
+    zeros, ``MAEDecoderTIMM`` keys under ``decoder.``."""
+    enc_p, dec_p = params["encoder"], params["decoder"]
+    enc = _export_entries(enc_p, _vit_entries(_depth(enc_p, "blocks_")), in_chans)
+    dec = _export_entries(dec_p, _decoder_entries(_depth(dec_p, "decoder_blocks_")))
+    out = {f"encoder.vit.{k}": v for k, v in enc.items()}
+    out["encoder.mask_token"] = np.zeros((1, 1, enc["cls_token"].shape[-1]), np.float32)
+    out.update({f"decoder.{k}": v for k, v in dec.items()})
+    return out
 
 
 def mae_params_from_jax(params: dict, model: torch.nn.Module) -> torch.nn.Module:

@@ -4,7 +4,8 @@ The plain versions ``attn_branch_ref``/``mlp_branch_ref`` against the
 JAX Pallas kernels ``fused_attn_branch``/``fused_mlp_branch`` run in
 interpret mode (as ``tests/test_block_kernel.py`` runs them), forward and
 every gradient, and the port's ``Block`` against the flax
-``Block(attn_impl="xla")``. The CUDA kernels are held to these plain
+``Block(attn_impl="xla")`` on its branch route and against the flax
+``Block`` with the same attn_impl on its sub-layer route. The CUDA kernels are held to these plain
 versions on the card by ``tests/test_torch_cuda.py``. Tolerances are those of
 ``tests/test_block_kernel.py``: f32 differs by accumulation order only; in
 bf16 the two sides round activations at different points of their
@@ -128,6 +129,42 @@ def test_block_matches_flax_block(B, L, D, H, dtype):
     out = tblk(xt)
     (t_dx,) = torch.autograd.grad((out.float() * torch.from_numpy(g)).sum(), [xt])
     assert all(v == 0 for v in bf.LAUNCHES.values())  # CPU never launches
+    np.testing.assert_allclose(
+        out.detach().float().numpy(), np.asarray(j_out, np.float32),
+        atol=FWD_ATOL[dtype], rtol=0,
+    )
+    atol, rtol = BWD_TOL[dtype]
+    np.testing.assert_allclose(
+        t_dx.float().numpy(), np.asarray(j_dx, np.float32), atol=atol, rtol=rtol
+    )
+
+
+@pytest.mark.parametrize("impl", ["xla", "stacked", "packed", "pallas"])
+@pytest.mark.parametrize("B,L,D,H", SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sublayer_block_matches_flax_block(impl, B, L, D, H, dtype):
+    """The sub-layer route (LN, Attention, LN, Mlp) ≡ the flax Block with the
+    same attn_impl (its Pallas attention in interpret mode), output and
+    input gradient; on the CPU "stacked" is the plain path on both sides."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(B, L, D)).astype(np.float32)
+    g = rng.normal(size=(B, L, D)).astype(np.float32)
+    jblk = JBlock(D, H, dtype=jdt, attn_impl=impl)
+
+    def loss(x):
+        out = jblk.apply(params, x)
+        return jnp.sum(out.astype(jnp.float32) * g), out
+
+    with pltpu.force_tpu_interpret_mode():
+        params = jblk.init(jax.random.PRNGKey(2), jnp.asarray(x, jdt))
+        (_, j_out), j_dx = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(x, jdt))
+    tblk = TBlock(D, H, dtype=tdt, attn_impl=impl)
+    assert tblk.route is None
+    _flax_block_to_torch(params, tblk)
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    out = tblk(xt)
+    (t_dx,) = torch.autograd.grad((out.float() * torch.from_numpy(g)).sum(), [xt])
     np.testing.assert_allclose(
         out.detach().float().numpy(), np.asarray(j_out, np.float32),
         atol=FWD_ATOL[dtype], rtol=0,

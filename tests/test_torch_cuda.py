@@ -1,4 +1,5 @@
-"""The CUDA branch kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+two branch kernels and the four attention entries of ``csrc/mha.cu``.
 
 Marked ``cuda`` and skipped without a GPU. The file imports no JAX, so it
 also runs where JAX is not installed; ``tests/conftest.py`` does import JAX,
@@ -11,13 +12,26 @@ tolerance of ``tests/test_block_kernel.py``). In the backward both sides
 round to bf16 at different points (the plain version's autograd rounds dW,
 dP and dy1 to bf16, the kernels keep them in f32), so each of the seven
 outputs is held to 2% of its largest magnitude: far below the O(1)
-relative error of a layout or indexing fault.
+relative error of a layout or indexing fault. The attention entries are
+held to the same bounds against their ``*_ref`` versions, which round at
+the kernel's own points.
 """
 
 import pytest
 import torch
 
+from ssrl_vit_mae_jepa_torch import _build
+from ssrl_vit_mae_jepa_torch.ops import attention_core as core
 from ssrl_vit_mae_jepa_torch.ops import block_fused as bf
+from ssrl_vit_mae_jepa_torch.ops.attention_core import heads_of
+from ssrl_vit_mae_jepa_torch.ops.attention_heads import mha_pallas, mha_pallas_ref
+from ssrl_vit_mae_jepa_torch.ops.attention_packed import mha_packed, mha_packed_ref
+from ssrl_vit_mae_jepa_torch.ops.attention_stacked import (
+    mha_stacked,
+    mha_stacked_qkv,
+    mha_stacked_qkv_ref,
+    mha_stacked_ref,
+)
 
 # (B, L, D, H): the MAE encoder and decoder at B=768, a head dim of 12 with
 # ragged L, and the longest sequence the attention backward takes at d=32
@@ -79,3 +93,84 @@ def test_cuda_rejects_float32(cuda):
     x, _, params = _inputs("mlp", 2, 5, 16, cuda)
     with pytest.raises(TypeError):
         bf.fused_mlp_branch(x.float(), *params)
+
+
+# entry -> (kernel wrapper, plain version); each called as in _attention_run
+ATTENTION = {
+    "mha_stacked_qkv": (mha_stacked_qkv, mha_stacked_qkv_ref),
+    "mha_stacked": (mha_stacked, mha_stacked_ref),
+    "mha_packed": (mha_packed, mha_packed_ref),
+    "mha_pallas": (mha_pallas, mha_pallas_ref),
+}
+# (B, L, D, H): encoder, decoder, JEPA predictor at B=768; ragged small
+# shapes at head dims 12 and 8; the longest L that fits at d=32
+ATTN_SHAPES = [(768, 37, 144, 6), (768, 145, 192, 6), (768, 145, 96, 6),
+               (3, 17, 48, 4), (2, 23, 16, 2), (2, 160, 64, 2)]
+
+
+def _attention_inputs(entry, B, L, D, H, device, dtype=torch.bfloat16):
+    """The entry's leaves (q, k, v; or one fused qkv) and dO, on the card."""
+    g = torch.Generator().manual_seed(B + L + D)
+    q, k, v, do = (torch.randn(B, L, D, generator=g).to(dtype).to(device) for _ in range(4))
+    if entry == "mha_stacked_qkv":
+        return [torch.cat([q, k, v], dim=-1)], do
+    if entry == "mha_pallas":
+        return [heads_of(t, H).contiguous() for t in (q, k, v)], heads_of(do, H).contiguous()
+    return [q, k, v], do
+
+
+def _attention_call(entry, fn, leaves, H):
+    return fn(*leaves) if entry == "mha_pallas" else fn(*leaves, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H", ATTN_SHAPES)
+@pytest.mark.parametrize("entry", list(ATTENTION))
+def test_attention_kernel_matches_plain(cuda, entry, B, L, D, H):
+    kern, ref = ATTENTION[entry]
+    leaves, do = _attention_inputs(entry, B, L, D, H, cuda)
+
+    def run(fn):
+        xs = [t.clone().requires_grad_() for t in leaves]
+        out = _attention_call(entry, fn, xs, H)
+        return out.detach(), torch.autograd.grad(out, xs, do)
+
+    before = dict(core.LAUNCHES)
+    out_k, grads_k = run(kern)
+    assert core.LAUNCHES[f"{entry}_fwd"] == before[f"{entry}_fwd"] + 1
+    assert core.LAUNCHES[f"{entry}_bwd"] == before[f"{entry}_bwd"] + 1
+    out_r, grads_r = run(ref)
+    with torch.no_grad():
+        out_ng = _attention_call(entry, kern, leaves, H)
+    torch.cuda.synchronize()
+    assert torch.equal(out_ng, out_k)
+    assert out_k.dtype == torch.bfloat16 and out_k.shape == out_r.shape
+    torch.testing.assert_close(out_k.float(), out_r.float(), atol=6e-2, rtol=0)
+    for a, b in zip(grads_k, grads_r):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        bound = 2e-2 * b.float().abs().max().item() + 1e-3
+        torch.testing.assert_close(a.float(), b.float(), atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", list(ATTENTION))
+def test_attention_rejects_float32(cuda, entry):
+    leaves, _ = _attention_inputs(entry, 2, 17, 48, 4, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        _attention_call(entry, ATTENTION[entry][0], leaves, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", list(ATTENTION))
+def test_attention_refuses_shapes_beyond_the_fit(cuda, entry):
+    leaves, _ = _attention_inputs(entry, 2, 161, 64, 2, cuda)  # d=32, L > 160
+    with pytest.raises(ValueError, match="shared-memory fit"):
+        _attention_call(entry, ATTENTION[entry][0], leaves, 2)
+
+
+@pytest.mark.cuda
+def test_fit_matches_the_library(cuda):
+    lib = _build.load()
+    for d in (1, 8, 12, 16, 17, 24, 32, 33):
+        for L in (1, 16, 37, 145, 160, 161, 200, 300, 400):
+            assert bool(lib.ssrl_mha_fits(L, d)) == core.fits(L, d), (L, d)

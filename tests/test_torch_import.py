@@ -1,5 +1,5 @@
-"""The PyTorch port imports neither JAX nor flax, and its chip smoke refuses
-to run without a GPU.
+"""The PyTorch port imports neither JAX, flax, optax nor anything of the JAX
+package, and its chip smoke refuses to run without a GPU.
 
 Both checks run in a subprocess: this test process has JAX loaded already
 (``tests/conftest.py``)."""
@@ -21,7 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "optax", "ssrl_vit_mae_jepa_tpu"))
 assert not bad, bad
 print(len(names))
 """
@@ -62,3 +63,17 @@ def test_chip_smoke_model_config_is_the_default():
     cfg = yaml.safe_load((REPO / "configs" / "mae.yaml").read_text())["model"]
     for section in ("general", "encoder", "decoder"):
         assert cfg[section] == DEFAULTS["model"][section]
+
+
+def test_step_profile_needs_a_gpu():
+    """The step profiler imports nothing of JAX and exits nonzero without a
+    card."""
+    proc = _run(["-c", "import runpy, sys; sys.argv = ['p', '--attn-impl', 'packed']; "
+                 "runpy.run_path('tools/torch_step_profile.py', run_name='__main__')"])
+    assert proc.returncode != 0
+    assert "needs an NVIDIA GPU" in proc.stderr
+    proc = _run(["-c", "import runpy, sys; runpy.run_path('tools/torch_step_profile.py'); "
+                 "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+                 "('jax', 'flax', 'optax', 'ssrl_vit_mae_jepa_tpu')))"])
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

@@ -17,6 +17,7 @@ import torch
 
 from ssrl_vit_mae_jepa_torch.training.optim import set_learning_rate
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask as TMAETask
+from ssrl_vit_mae_jepa_torch.utils import interop
 from ssrl_vit_mae_jepa_torch.utils.interop import mae_params_from_jax
 from ssrl_vit_mae_jepa_tpu.ops.augment import apply_augment_patches, draw_augment_params
 from ssrl_vit_mae_jepa_tpu.ops.masking import random_token_mask
@@ -61,7 +62,7 @@ def setup():
     (jloss, _), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jstate.params)
     params0 = _np_tree(jstate.params)
 
-    ttask = TMAETask(CFG, PRE_CFG, dtype=torch.float32)
+    ttask = TMAETask(CFG, PRE_CFG, dtype=torch.float32, device="cpu")
     tstate = ttask.init_state(0)
     mae_params_from_jax(params0, ttask.model)
     draws = tuple(torch.from_numpy(np.array(a)) for a in (u, flip, idx_keep, idx_mask))
@@ -70,6 +71,22 @@ def setup():
     return dict(jtask=jtask, jstate=jstate, ctx=ctx, batch=batch, jloss=float(jloss),
                 jgrads=_np_tree(jgrads), params0=params0, ttask=ttask, tstate=tstate,
                 draws=draws, tbatch=tbatch)
+
+
+def test_port_export_matches_the_jax_package(setup):
+    """The port's own copy of ``mae_params_to_state`` gives the JAX
+    package's export key for key and bit for bit."""
+    mine = interop.mae_params_to_state(setup["params0"])
+    want = mae_params_to_state(setup["params0"])
+    assert list(mine) == list(want)
+    for k, v in want.items():
+        assert mine[k].dtype == v.dtype and mine[k].shape == v.shape, k
+        assert np.array_equal(mine[k], v), k
+
+
+def test_task_runs_on_the_card_unless_told_otherwise():
+    assert TMAETask(CFG, PRE_CFG).device == torch.device("cuda")
+    assert TMAETask(CFG, PRE_CFG, device="cpu").device == torch.device("cpu")
 
 
 def _port_loss_and_grads(s):
@@ -103,7 +120,7 @@ def test_train_step_matches(setup):
     )
     want = mae_params_to_state(_np_tree(jnew.params))
     before = mae_params_to_state(s["params0"])
-    ttask = TMAETask(CFG, PRE_CFG, dtype=torch.float32)
+    ttask = TMAETask(CFG, PRE_CFG, dtype=torch.float32, device="cpu")
     tstate = ttask.init_state(0)
     mae_params_from_jax(s["params0"], ttask.model)
     tstate, tsums = ttask.train_step(tstate, s["tbatch"], 0, s["ctx"], draws=s["draws"])
@@ -137,7 +154,7 @@ def test_optimizer_matches_optax(setup, scale):
     ))
     # JAX applied both updates to params0, so the port's second step must
     # also start from params0: step twice, restoring params in between
-    ttask = TMAETask(CFG, PRE_CFG, dtype=torch.float32)
+    ttask = TMAETask(CFG, PRE_CFG, dtype=torch.float32, device="cpu")
     tstate = ttask.init_state(0)
     mae_params_from_jax(s["params0"], ttask.model)
     tgrads = {k: torch.from_numpy(v) for k, v in mae_params_to_state(grads).items()

@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's MAE step goes, on one NVIDIA GPU.
+
+Runs the flagship MAE pretraining step of the PyTorch port (the geometry
+of ``configs/mae.yaml`` and the settings of ``chip_smoke.py``: B=768, bf16,
+augmentation on) for each ``--attn-impl``: 3 warm-up steps, then 5 steps
+timed with CUDA events, then 5 steps under ``torch.profiler``. Prints, per
+impl, the step time, the device time summed over all kernels, the device's
+idle share of the step and the kernels by device time per step; ``--out``
+also writes them as JSON. Needs a GPU::
+
+    python3 tools/torch_step_profile.py --attn-impl auto packed pallas --out prof.json
+
+It imports no JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+
+import numpy as np
+import torch
+import yaml
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from chip_smoke import PRE_CFG, card  # noqa: E402
+from ssrl_vit_mae_jepa_torch.training.tasks import MAETask  # noqa: E402
+
+STEPS, WARMUP, TOP = 5, 3, 25  # timed and profiled steps, warm-up, kernels listed
+
+
+def _device_us(evt) -> float:
+    """Self device time of a profiler event in µs (the name of the field
+    changed across PyTorch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    raise AttributeError("profiler event without a device time")
+
+
+def profile(impl: str) -> dict:
+    batch, steps = PRE_CFG["batch_size"], STEPS
+    model_cfg = yaml.safe_load((REPO / "configs" / "mae.yaml").read_text())["model"]
+    task = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+    state = task.init_state(0)
+    images = np.random.default_rng(0).integers(0, 256, (batch, 96, 96, 3)).astype(np.uint8)
+    data = {"image": torch.from_numpy(images).cuda(),
+            "weight": torch.ones(batch, device="cuda")}
+    ctx = task.epoch_context(0)
+
+    def run(n):
+        nonlocal state
+        for _ in range(n):
+            state, _ = task.train_step(state, data, 0, ctx)
+
+    run(WARMUP)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(steps)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = (us / 1e3 / steps, evt.count / steps)
+    device_ms = sum(ms for ms, _ in kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    return {
+        "attn_impl": impl, "batch": batch, "steps": steps,
+        "step_ms": step_ms, "img_per_s": batch / step_ms * 1e3,
+        "device_ms_per_step": device_ms,
+        "idle_share": 1.0 - device_ms / step_ms,
+        "kernels": [{"name": k, "ms_per_step": ms, "calls_per_step": n}
+                    for k, (ms, n) in ranked[:TOP]],
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--attn-impl", nargs="+", default=["auto", "packed", "pallas"])
+    ap.add_argument("--out", type=pathlib.Path, help="also write the results as JSON")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: this profile needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"card": card(), "kind": torch.cuda.get_device_name(0), "runs": []}
+    print(out["card"])
+    for impl in args.attn_impl:
+        r = profile(impl)
+        out["runs"].append(r)
+        print(f"attn_impl={impl} B={r['batch']}: {r['step_ms']:.3f} ms/step (CUDA events), "
+              f"{r['img_per_s']:.1f} img/s; kernels {r['device_ms_per_step']:.3f} ms/step "
+              f"on the device, idle {100 * r['idle_share']:.1f}%")
+        for k in r["kernels"]:
+            print(f"  {k['ms_per_step']:8.3f} ms/step  {k['calls_per_step']:6.1f} calls  "
+                  f"{k['name'][:110]}")
+        torch.cuda.empty_cache()
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()
