@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke test of the PyTorch port: kernels, then the MAE pretraining step.
+"""GPU smoke test of the PyTorch port: kernels, then the MAE and JEPA
+pretraining steps.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -9,16 +10,22 @@ the CUDA toolkit::
 Phases (any failure exits nonzero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``ssrl_vit_mae_jepa_torch/csrc``;
-  3. at the main path's shapes (B=768; encoder L=37, D=144; decoder L=145,
-     D=192; H=6, F=4D; bf16) each branch kernel, forward and all seven
-     backward outputs, against its plain PyTorch version on the card, with
-     the kernel's and the plain version's times;
+  3. at the main paths' shapes (B=768, H=6, F=4D, bf16: the MAE encoder
+     L=37, D=144 and decoder L=145, D=192; the JEPA context encoder L=45,
+     D=144, predictor L=145, D=96 and target encoder L=145, D=144, the
+     last under no-grad) each branch kernel, forward and all seven backward
+     outputs, against its plain PyTorch version on the card, with the
+     kernel's and the plain version's times;
   3b. the four attention entries of ``csrc/mha.cu``, forward and backward,
      at the encoder and decoder shapes (``mha_stacked`` also at the JEPA
-     predictor's L=145, D=96), against their plain versions on the card,
-     with the kernel's, the plain version's and
-     ``F.scaled_dot_product_attention``'s times (the yardstick, never a
-     route of the port);
+     predictor's), against their plain versions on the card, with the
+     kernel's, the plain version's and ``F.scaled_dot_product_attention``'s
+     times (the yardstick, never a route of the port);
+  3c. the fused patch embed of ``csrc/patch_embed.cu``, forward and all
+     backward outputs, at N=144, Pc=192, D=144 with K=37 (MAE), K=45 (JEPA
+     context) and no index (JEPA target), against its plain version, with
+     the kernel's, the plain version's and a gather + ``torch.matmul``'s
+     times (the yardstick);
   4. the flagship MAE step through ``MAETask`` (configs/mae.yaml geometry,
      bench.py's pretraining settings, B=768, bf16, augmentation on): warm-up,
      then timed steps; every loss finite, the params moved, and exactly one
@@ -29,21 +36,36 @@ Phases (any failure exits nonzero; nothing is caught):
      ``attn_impl="pallas"``: the blocks take the sub-layer route, and each
      step launches one forward and one backward attention kernel of that
      impl's entry per block (``mha_stacked_qkv``, ``mha_pallas``) and no
-     branch kernel.
+     branch kernel;
+  8. the flagship JEPA step through ``JEPATask`` (configs/mae.yaml's model
+     and jepa sections at B=768, bf16, augmentation on, attn_impl auto):
+     every loss and collapse metric finite, every parameter moved, the EMA
+     target moved, and per step exactly the branch launches of the context
+     encoder (4 blocks), the predictor (2) and the no-grad target encoder
+     (4), and no attention-entry or embed kernel;
+  9. phase 8 with ``SSRL_FUSED_EMBED=1`` (two embed forwards and one
+     backward more per step), then phase 4 with it (one and one more);
+  10. the JEPA step at B=16 on the card and through the plain path on the
+     CPU from the same weights and draws: the losses agree.
 
-Each main-path run (phases 4, 6 and 7) zeroes every launch count just
+Each main-path run (phases 4, 6, 7, 8, 9) zeroes every launch count just
 before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
-predictor's auto route and by direct calls); phase 3b drives them.
+predictor's sub-layer route and by direct calls); phase 3b drives them.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``: per kernel, ``ms``,
+``plain_ms`` and ``bound_ms`` are per training step of ``step`` (the MAE
+step where it runs the kernel, else the JEPA step), ``*_jepa`` the same per
+JEPA step, ``*_<geometry>`` per call. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -51,13 +73,14 @@ import time
 
 import numpy as np
 import torch
-import yaml
 
 import torch.nn.functional as F
 
 from ssrl_vit_mae_jepa_torch import _build
+from ssrl_vit_mae_jepa_torch.config import load_config
 from ssrl_vit_mae_jepa_torch.ops import attention_core as core
 from ssrl_vit_mae_jepa_torch.ops import block_fused as bf
+from ssrl_vit_mae_jepa_torch.ops import embed_fused as ef
 from ssrl_vit_mae_jepa_torch.ops.attention_core import heads_of
 from ssrl_vit_mae_jepa_torch.ops.attention_heads import mha_pallas, mha_pallas_ref
 from ssrl_vit_mae_jepa_torch.ops.attention_packed import mha_packed, mha_packed_ref
@@ -67,6 +90,7 @@ from ssrl_vit_mae_jepa_torch.ops.attention_stacked import (
     mha_stacked_qkv_ref,
     mha_stacked_ref,
 )
+from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -78,15 +102,22 @@ PRE_CFG = {
     "total_epochs": 800, "warmup_epochs": 20, "batch_size": BATCH,
     "base_learning_rate": 1.5e-4, "weight_decay": 0.05, "augment": True,
 }
-# (name, geometry) -> blocks per step that call it: 4 encoder, 2 decoder
-GEOMETRIES = {"enc": (37, 144, 6, 4), "dec": (145, 192, 6, 2)}  # L, D, H, depth
-KERNELS = {
-    "attn_branch_fwd": ("attn_branch.cu", "ssrl_vit_mae_jepa_tpu/ops/block_pallas.py:722"),
-    "attn_branch_bwd": ("attn_branch.cu", "ssrl_vit_mae_jepa_tpu/ops/block_pallas.py:752"),
-    "mlp_branch_fwd": ("mlp_branch.cu", "ssrl_vit_mae_jepa_tpu/ops/block_pallas.py:807"),
-    "mlp_branch_bwd": ("mlp_branch.cu", "ssrl_vit_mae_jepa_tpu/ops/block_pallas.py:831"),
-}
+# name -> (L, D, H) of the transformer blocks
+GEOMETRIES = {"enc": (37, 144, 6), "dec": (145, 192, 6), "ctx": (45, 144, 6),
+              "pred": (145, 96, 6), "tgt": (145, 144, 6)}
+# blocks per training step at each geometry, by main path; the JEPA target
+# encoder ("tgt") runs under no-grad, so only forward kernels
+STEP_CALLS = {"mae": {"enc": 4, "dec": 2}, "jepa": {"ctx": 4, "pred": 2, "tgt": 4}}
 _TPU = "ssrl_vit_mae_jepa_tpu/ops/"
+# branch kernel -> (source, TPU kernel, geometries it runs at)
+_GRAD_GEOS = ("enc", "dec", "ctx", "pred")
+KERNELS = {
+    "attn_branch_fwd": ("attn_branch.cu", _TPU + "block_pallas.py:722", _GRAD_GEOS),
+    "attn_branch_fwd_nograd": ("attn_branch.cu", _TPU + "block_pallas.py:692", ("tgt",)),
+    "attn_branch_bwd": ("attn_branch.cu", _TPU + "block_pallas.py:752", _GRAD_GEOS),
+    "mlp_branch_fwd": ("mlp_branch.cu", _TPU + "block_pallas.py:807", _GRAD_GEOS + ("tgt",)),
+    "mlp_branch_bwd": ("mlp_branch.cu", _TPU + "block_pallas.py:831", _GRAD_GEOS),
+}
 # entry -> (kernel wrapper, plain version, TPU kernel fwd, TPU kernel bwd,
 # geometries it is checked at)
 ATTENTION = {
@@ -100,7 +131,15 @@ ATTENTION = {
     "mha_packed": (mha_packed, mha_packed_ref, _TPU + "attention_pallas_packed.py:161",
                    _TPU + "attention_pallas_packed.py:186", ("enc", "dec")),
 }
-PRED = (145, 96, 6)  # the JEPA predictor's L, D, H
+# the fused patch embed: N patches of Pc values into D; name -> K kept tokens
+# (None: the full sequence, no gather), and its calls per step by main path
+# (the MAE step runs it only with SSRL_FUSED_EMBED=1)
+EMBED_N, EMBED_PC, EMBED_D = 144, 192, 144
+EMBED_GEOS = {"k37": 37, "k45": 45, "full": None}
+EMBED_CALLS = {"fwd": {"mae": {"k37": 1}, "jepa": {"k45": 1, "full": 1}},
+               "bwd": {"mae": {"k37": 1}, "jepa": {"k45": 1}}}
+EMBED_KERNELS = {"patch_embed_fwd": _TPU + "embed_pallas.py:185",
+                 "patch_embed_bwd": _TPU + "embed_pallas.py:242"}
 # phase 3b's CUDA-event means: more warm-up than phase 3, since the first
 # backward timed after phase 3 ran up to 2x slow in one run
 ATT_TIMING = {"iters": 30, "warmup": 10}
@@ -150,16 +189,17 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def branch_bounds(kind: str, L: int, D: int):
+def branch_bounds(kind: str, L: int, D: int, stash: bool = True):
     """Per-call (fwd, bwd) bounds of a branch kernel at (B, L, D): bf16
-    activations read and written once, weights once (bf16 in, f32 grads out),
-    and the GEMM operations the function needs (the backward recomputes the
-    first GEMM from x, as it must: only x is an input)."""
+    activations read and written once (the stash forward also writes the
+    attention output ``a``), weights once (bf16 in, f32 grads out), and the
+    GEMM operations the function needs (the backward recomputes the first
+    GEMM from x, as it must: only x is an input)."""
     M = BATCH * L
     act = M * D * 2
     if kind == "attn":  # qkv 6MD^2 + attention 4BL^2D + proj 2MD^2
         w = 4 * D * D
-        fwd = bound(3 * act + 2 * w, 8 * M * D * D + 4 * BATCH * L * L * D)
+        fwd = bound((3 if stash else 2) * act + 2 * w, 8 * M * D * D + 4 * BATCH * L * L * D)
         # recompute qkv 6, dWp 2, da 2, dWqkv 6, dy1 6 (x MD^2); attention 10BL^2D
         bwd = bound(4 * act + 2 * w + 4 * w, 22 * M * D * D + 10 * BATCH * L * L * D)
     else:  # fc1 and fc2, 8MD^2 each
@@ -178,9 +218,27 @@ def attention_bounds(L: int, D: int):
     return bound(4 * act, 2 * mm), bound(7 * act, 5 * mm)
 
 
-def step_sum(per_geo: dict, key: str):
-    """Per MAE step (4 encoder + 2 decoder calls) of a per-geometry value."""
-    return sum(depth * per_geo[g][key] for g, (*_, depth) in GEOMETRIES.items())
+def per_step(per_geo: dict, key: str, calls: dict) -> float:
+    """A per-call value summed over one step's calls (``calls``: geometry ->
+    calls per step)."""
+    return sum(n * per_geo[g][key] for g, n in calls.items() if g in per_geo)
+
+
+def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
+    """A kernel's line: ``ms``/``plain_ms``/``library_ms``/``bound_ms`` per
+    step of the first main path that runs it (MAE before JEPA), the JEPA
+    step's under ``*_jepa``, every geometry's per call under ``*_<geo>``."""
+    runs = [s for s in ("mae", "jepa") if any(g in per_geo for g in calls_by_step.get(s, {}))]
+    keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+            if all(k in v for v in per_geo.values())]
+    worst = max(per_geo.values(), key=lambda v: v["bound_ms"])
+    r = {"max_abs_err": err, "bound_by": worst["bound_by"], "step": runs[0]}
+    for k in keys:
+        r[k] = per_step(per_geo, k, calls_by_step[runs[0]])
+        if "jepa" in runs:
+            r[f"{k}_jepa"] = per_step(per_geo, k, calls_by_step["jepa"])
+        r.update({f"{k}_{g}": v[k] for g, v in per_geo.items()})
+    return r
 
 
 def branch_inputs(kind: str, L: int, D: int, seed: int):
@@ -196,10 +254,27 @@ def branch_inputs(kind: str, L: int, D: int, seed: int):
     return x.cuda(), dy.cuda(), [p.cuda() for p in params]
 
 
+def check_grads(what: str, names, grads_k, grads_r) -> float:
+    """Each gradient within BWD_REL of the plain version's largest magnitude;
+    returns the largest error."""
+    worst = 0.0
+    for name, a, b in zip(names, grads_k, grads_r):
+        err = (a.float() - b.float()).abs().max().item()
+        lim = BWD_REL * b.float().abs().max().item() + 1e-3
+        print(f"  {what} {name}: max abs err {err:.3e} (bound {lim:.3e})")
+        if not err <= lim:
+            fail(f"{what} backward {name}: max abs err {err} > {lim}")
+        worst = max(worst, err)
+    return worst
+
+
 def check_kernels() -> dict:
-    """Phase 3: per kernel, max abs error and per-step ms vs plain."""
-    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
-    for geo, (L, D, H, depth) in GEOMETRIES.items():
+    """Phase 3: per branch kernel and geometry, max abs error and per-call
+    ms vs plain; the target geometry runs the no-grad forwards only."""
+    per = {k: {} for k in KERNELS}
+    errs = dict.fromkeys(KERNELS, 0.0)
+    for geo, (L, D, H) in GEOMETRIES.items():
+        grad = geo != "tgt"
         for kind in ("attn", "mlp"):
             x, dy, params = branch_inputs(kind, L, D, seed=L + D)
             extra = (H,) if kind == "attn" else ()
@@ -207,48 +282,45 @@ def check_kernels() -> dict:
             ref = bf.attn_branch_ref if kind == "attn" else bf.mlp_branch_ref
             leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
             out_k = kern(*leaves, *extra)
-            grads_k = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
-            out_r = ref(*leaves, *extra)
-            grads_r = torch.autograd.grad(out_r, leaves, dy, retain_graph=True)
             with torch.no_grad():
                 out_ns = kern(x, *params, *extra)
+                out_r = ref(x, *params, *extra)
             torch.cuda.synchronize()
             if not torch.equal(out_ns, out_k):
                 fail(f"{kind}@{geo}: the no-stash forward differs from the stash forward")
             fwd_err = (out_k.float() - out_r.float()).abs().max().item()
             if not fwd_err <= FWD_ATOL:
                 fail(f"{kind}@{geo} forward: max abs err {fwd_err} > {FWD_ATOL}")
-            bwd_err = 0.0
-            names = ["dx", "d_ln_scale", "d_ln_bias", "d_w_a", "d_b_a", "d_w_b", "d_b_b"]
-            for name, a, b in zip(names, grads_k, grads_r):
-                err = (a.float() - b.float()).abs().max().item()
-                bound = BWD_REL * b.float().abs().max().item() + 1e-3
-                print(f"  {kind}@{geo} {name}: max abs err {err:.3e} (bound {bound:.3e})")
-                if not err <= bound:
-                    fail(f"{kind}@{geo} backward {name}: max abs err {err} > {bound}")
-                bwd_err = max(bwd_err, err)
-            times = {
-                "fwd": cuda_ms(lambda: kern(*leaves, *extra)),
-                "plain_fwd": cuda_ms(lambda: ref(*leaves, *extra)),
-                "bwd": cuda_ms(lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True)),
-                "plain_bwd": cuda_ms(lambda: torch.autograd.grad(out_r, leaves, dy, retain_graph=True)),
-            }
-            print(f"  {kind}@{geo} L={L} D={D}: fwd {times['fwd']:.3f} ms "
-                  f"(plain {times['plain_fwd']:.3f}), bwd {times['bwd']:.3f} ms "
-                  f"(plain {times['plain_bwd']:.3f}); fwd max abs err {fwd_err:.3e}",
-                  flush=True)
-            for (pas, err), (bms, by) in zip((("fwd", fwd_err), ("bwd", bwd_err)),
-                                             branch_bounds(kind, L, D)):
-                r = res[f"{kind}_branch_{pas}"]
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["ms"] += depth * times[pas]
-                r["plain_ms"] += depth * times[f"plain_{pas}"]
-                r["bound_ms"] = r.get("bound_ms", 0.0) + depth * bms
-                r["bound_by"] = by if geo == "dec" else r.get("bound_by", by)
-                r[f"ms_{geo}"] = times[pas]
-                r[f"plain_ms_{geo}"] = times[f"plain_{pas}"]
-            del out_k, out_r, grads_k, grads_r, leaves
-    return res
+            fwd = f"{kind}_branch_fwd" + ("" if grad or kind == "mlp" else "_nograd")
+            (bf_ms, bf_by), (bb_ms, bb_by) = branch_bounds(kind, L, D, stash=grad)
+            with torch.no_grad():
+                t_plain = cuda_ms(lambda: ref(x, *params, *extra))
+                t_ns = cuda_ms(lambda: kern(x, *params, *extra))
+            t_fwd = cuda_ms(lambda: kern(*leaves, *extra)) if grad else t_ns
+            per[fwd][geo] = {"ms": t_fwd, "plain_ms": t_plain, "bound_ms": bf_ms, "bound_by": bf_by}
+            errs[fwd] = max(errs[fwd], fwd_err)
+            line = (f"  {kind}@{geo} L={L} D={D}: fwd {t_fwd:.3f} ms (plain {t_plain:.3f}, "
+                    f"bound {bf_ms:.3f})")
+            if grad:
+                grads_k = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
+                out_rg = ref(*leaves, *extra)
+                grads_r = torch.autograd.grad(out_rg, leaves, dy, retain_graph=True)
+                names = ["dx", "d_ln_scale", "d_ln_bias", "d_w_a", "d_b_a", "d_w_b", "d_b_b"]
+                bwd_err = check_grads(f"{kind}@{geo}", names, grads_k, grads_r)
+                t_bwd = cuda_ms(lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True))
+                t_pbwd = cuda_ms(lambda: torch.autograd.grad(out_rg, leaves, dy,
+                                                             retain_graph=True))
+                bwd = f"{kind}_branch_bwd"
+                per[bwd][geo] = {"ms": t_bwd, "plain_ms": t_pbwd, "bound_ms": bb_ms,
+                                 "bound_by": bb_by}
+                errs[bwd] = max(errs[bwd], bwd_err)
+                line += f", bwd {t_bwd:.3f} ms (plain {t_pbwd:.3f}, bound {bb_ms:.3f})"
+                del grads_k, grads_r, out_rg
+            else:
+                line += f" (no-grad; the stash forward {cuda_ms(lambda: kern(*leaves, *extra)):.3f})"
+            print(line + f"; fwd max abs err {fwd_err:.3e}", flush=True)
+            del out_k, out_r, out_ns, leaves
+    return {k: summarize(per[k], errs[k], STEP_CALLS) for k in KERNELS}
 
 
 def attention_inputs(entry: str, L: int, D: int, H: int, seed: int):
@@ -283,13 +355,12 @@ def sdpa_inputs(entry: str, leaves, do, H: int):
 def check_attention() -> dict:
     """Phase 3b: per attention entry and pass, errors, times and bounds."""
     res = {}
-    geos = {**{g: v[:3] for g, v in GEOMETRIES.items()}, "pred": PRED}
     for entry, (kern, ref, _, _, where) in ATTENTION.items():
         call = attention_call(entry)
         per = {"fwd": {}, "bwd": {}}
         err = {"fwd": 0.0, "bwd": 0.0}
         for geo in where:
-            L, D, H = geos[geo]
+            L, D, H = GEOMETRIES[geo]
             leaves, do = attention_inputs(entry, L, D, H, seed=L + D)
             xs = [t.clone().requires_grad_() for t in leaves]
             out_k = call(kern, xs, H)
@@ -304,15 +375,8 @@ def check_attention() -> dict:
             fwd_err = (out_k.float() - out_r.float()).abs().max().item()
             if not fwd_err <= FWD_ATOL:
                 fail(f"{entry}@{geo} forward: max abs err {fwd_err} > {FWD_ATOL}")
-            bwd_err = 0.0
             names = ["dqkv"] if len(xs) == 1 else ["dq", "dk", "dv"]
-            for gname, a, b in zip(names, grads_k, grads_r):
-                e = (a.float() - b.float()).abs().max().item()
-                lim = BWD_REL * b.float().abs().max().item() + 1e-3
-                print(f"  {entry}@{geo} {gname}: max abs err {e:.3e} (bound {lim:.3e})")
-                if not e <= lim:
-                    fail(f"{entry}@{geo} backward {gname}: max abs err {e} > {lim}")
-                bwd_err = max(bwd_err, e)
+            bwd_err = check_grads(f"{entry}@{geo}", names, grads_k, grads_r)
             # the yardstick: one library call on the same (B, H, L, d) data
             qh, doh = sdpa_inputs(entry, leaves, do, H)
             out_s = F.scaled_dot_product_attention(*qh)
@@ -344,77 +408,234 @@ def check_attention() -> dict:
                   f"{fwd_err:.3e}", flush=True)
             del out_k, out_r, out_s, grads_k, grads_r, xs, qh
         for pas in ("fwd", "bwd"):
-            p = per[pas]
-            r = {"max_abs_err": err[pas], "bound_by": p["dec"]["bound_by"]}
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                r[key] = step_sum(p, key)
-            for geo, vals in p.items():
-                r.update({f"{key}_{geo}": vals[key] for key in ("ms", "plain_ms", "library_ms")})
-            res[f"{entry}_{pas}"] = r
+            # per MAE step (4 encoder + 2 decoder calls), as if on its route
+            r = summarize(per[pas], err[pas], {"mae": STEP_CALLS["mae"]})
+            res[f"{entry}_{pas}"] = {**r, "step": "mae"}
+    return res
+
+
+def embed_inputs(K, seed: int):
+    """Patches, embedding params and dy at the flagship geometry, on the
+    card; the index holds CLS first and K - 1 distinct patch tokens per
+    image, unsorted (the JEPA context's argsort order)."""
+    g = torch.Generator().manual_seed(seed)
+    N, Pc, D = EMBED_N, EMBED_PC, EMBED_D
+    patches = (torch.rand(BATCH, N, Pc, generator=g) * 2 - 1).to(torch.bfloat16)
+    params = [torch.randn(D, Pc, generator=g) * Pc**-0.5, 0.02 * torch.randn(D, generator=g),
+              0.02 * torch.randn(1, 1, D, generator=g), 0.02 * torch.randn(1, N + 1, D, generator=g)]
+    idx = None
+    if K is not None:
+        perm = torch.argsort(torch.rand(BATCH, N, generator=g), dim=-1)[:, :K - 1] + 1
+        idx = torch.cat([torch.zeros(BATCH, 1, dtype=torch.long), perm], dim=1).cuda()
+    dy = torch.randn(BATCH, N + 1 if K is None else K, D, generator=g).to(torch.bfloat16)
+    return patches.cuda(), [p.cuda() for p in params], idx, dy.cuda()
+
+
+def embed_bounds(K):
+    """Per-call bounds of the embed kernels: (fwd, bwd without dpatches, bwd
+    with dpatches). The kept non-CLS rows of the patches are read once, the
+    (B, K, D) output or dy once, the bf16 weight and bias, the f32 CLS and
+    position rows and the int64 index once; f32 dW, db and d(cls_pos)
+    written once (dpatches in full: zeros outside the kept rows). Operations:
+    2·rows·Pc·D per product (forward; dW; dpatches)."""
+    N, Pc, D = EMBED_N, EMBED_PC, EMBED_D
+    L = N + 1
+    k = L if K is None else K
+    rows = BATCH * (k - 1)  # kept rows that are patches (CLS is not)
+    idx = 0 if K is None else BATCH * k * 8
+    gemm = 2 * rows * Pc * D
+    fwd = bound(rows * Pc * 2 + BATCH * k * D * 2 + D * Pc * 2 + D * 2 + L * D * 4 + idx, gemm)
+    grads_out = D * Pc * 4 + D * 4 + L * D * 4
+    bwd = bound(BATCH * k * D * 2 + rows * Pc * 2 + idx + grads_out, gemm)
+    bwd_dp = bound(BATCH * k * D * 2 + rows * Pc * 2 + D * Pc * 2 + idx + grads_out
+                   + BATCH * N * Pc * 2, 2 * gemm)
+    return fwd, bwd, bwd_dp
+
+
+def check_embed() -> dict:
+    """Phase 3c: the embed kernels against the plain version at the three
+    index forms, every output of the backward, and per-call times."""
+    per = {"fwd": {}, "bwd": {}}
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for geo, K in EMBED_GEOS.items():
+        patches, params, idx, dy = embed_inputs(K, seed=7 + (K or 0))
+        leaves = [p.clone().requires_grad_() for p in params]
+        before = dict(ef.LAUNCHES)
+        out_k = ef.fused_patch_embed(patches, *leaves, idx)
+        grads_k = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
+        if ef.LAUNCHES != {"patch_embed_fwd": before["patch_embed_fwd"] + 1,
+                           "patch_embed_bwd": before["patch_embed_bwd"] + 1}:
+            fail(f"embed@{geo}: launches {ef.LAUNCHES} after one forward and backward "
+                 f"from {before}")
+        pl = patches.clone().requires_grad_()
+        out_kp = ef.fused_patch_embed(pl, *leaves, idx)
+        grads_kp = torch.autograd.grad(out_kp, [pl] + leaves, dy, retain_graph=True)
+        out_r = ef.fused_patch_embed_ref(pl, *leaves, idx)
+        grads_r = torch.autograd.grad(out_r, [pl] + leaves, dy, retain_graph=True)
+        with torch.no_grad():
+            out_ng = ef.fused_patch_embed(patches, *params, idx)
+        torch.cuda.synchronize()
+        if not (torch.equal(out_ng, out_k) and torch.equal(out_kp, out_k)):
+            fail(f"embed@{geo}: the no-grad forward differs from the forward")
+        if not all(torch.equal(a, b) for a, b in zip(grads_k, grads_kp[1:])):
+            fail(f"embed@{geo}: the parameter gradients change when dpatches is computed")
+        fwd_err = (out_k.float() - out_r.float()).abs().max().item()
+        if not fwd_err <= FWD_ATOL:
+            fail(f"embed@{geo} forward: max abs err {fwd_err} > {FWD_ATOL}")
+        bwd_err = check_grads(f"embed@{geo}", ["dpatches", "dw", "db", "dcls", "dpos"],
+                              grads_kp, grads_r)
+        # the yardstick: a gather of the kept patch rows, then torch.matmul
+        wb = params[0].to(torch.bfloat16)
+        src = None if idx is None else (idx.clamp_min(1) - 1)[..., None].expand(-1, -1, EMBED_PC)
+        rows = (lambda: patches) if idx is None else (lambda: patches.gather(1, src))
+        dyf = dy.reshape(-1, EMBED_D)
+        with torch.no_grad():
+            t_fwd = {"ms": cuda_ms(lambda: ef.fused_patch_embed(patches, *params, idx)),
+                     "plain_ms": cuda_ms(lambda: ef.fused_patch_embed_ref(patches, *params, idx)),
+                     "library_ms": cuda_ms(lambda: torch.matmul(rows(), wb.t()))}
+            t_lib_bwd = cuda_ms(lambda: torch.matmul(
+                dyf.t()[:, : BATCH * EMBED_N] if idx is None else dyf.t(),
+                rows().reshape(-1, EMBED_PC)))
+        out_rn = ef.fused_patch_embed_ref(patches, *leaves, idx)
+        t_bwd = {"ms": cuda_ms(lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True)),
+                 "plain_ms": cuda_ms(lambda: torch.autograd.grad(out_rn, leaves, dy,
+                                                                 retain_graph=True)),
+                 "library_ms": t_lib_bwd}
+        t_dp = cuda_ms(lambda: torch.autograd.grad(out_kp, [pl] + leaves, dy, retain_graph=True))
+        (bf_ms, bf_by), (bb_ms, bb_by), (bd_ms, _) = embed_bounds(K)
+        per["fwd"][geo] = {**t_fwd, "bound_ms": bf_ms, "bound_by": bf_by}
+        per["bwd"][geo] = {**t_bwd, "bound_ms": bb_ms, "bound_by": bb_by,
+                           "ms_dpatches": t_dp, "bound_ms_dpatches": bd_ms}
+        err["fwd"], err["bwd"] = max(err["fwd"], fwd_err), max(err["bwd"], bwd_err)
+        print(f"  embed@{geo} K={K}: fwd {t_fwd['ms']:.3f} ms (plain {t_fwd['plain_ms']:.3f}, "
+              f"gather+matmul {t_fwd['library_ms']:.3f}, bound {bf_ms:.4f}), bwd "
+              f"{t_bwd['ms']:.3f} ms (plain {t_bwd['plain_ms']:.3f}, gather+matmul "
+              f"{t_lib_bwd:.3f}, bound {bb_ms:.4f}), bwd with dpatches {t_dp:.3f} ms "
+              f"(bound {bd_ms:.4f}); fwd max abs err {fwd_err:.3e}", flush=True)
+        del out_k, out_kp, out_r, out_rn, grads_k, grads_kp, grads_r
+    res = {}
+    for pas in ("fwd", "bwd"):
+        r = summarize(per[pas], err[pas], EMBED_CALLS[pas])
+        for g, v in per[pas].items():
+            r.update({f"{k}_{g}": x for k, x in v.items() if k.endswith("dpatches")})
+        res[f"patch_embed_{pas}"] = r
     return res
 
 
 def launch_counts() -> dict:
-    return {**bf.LAUNCHES, **core.LAUNCHES}
+    return {**bf.LAUNCHES, **core.LAUNCHES, **ef.LAUNCHES}
 
 
 def reset_counts() -> None:
     bf.reset_launch_counts()
     core.reset_launch_counts()
+    ef.reset_launch_counts()
 
 
-def expected_launches(impl: str, blocks: int) -> dict:
-    """Launches per step on the main path of ``impl``: one forward and one
-    backward of its kernels per block, none of any other."""
+def expected(per_step: dict, steps: int = 1) -> dict:
+    """Every counter: ``per_step`` launches per step, the others none."""
     want = dict.fromkeys(launch_counts(), 0)
-    names = list(KERNELS) if impl == "auto" else [
-        f"{IMPL_ENTRY[impl]}_{pas}" for pas in ("fwd", "bwd")]
-    for k in names:
-        want[k] = blocks
+    want.update({k: v * steps for k, v in per_step.items()})
     return want
 
 
-def mae_step(model_cfg: dict, name: str, impl: str) -> dict:
-    """Phases 4, 6, 7: the flagship step through MAETask on the card."""
-    task = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
-    state = task.init_state(0)
-    before = {k: v.detach().clone() for k, v in state.params.items()}
-    images = np.random.default_rng(0).integers(0, 256, (BATCH, 96, 96, 3)).astype(np.uint8)
-    batch = {"image": torch.from_numpy(images).cuda(),
-             "weight": torch.ones(BATCH, device="cuda")}
+def mae_launches(impl: str, fused_embed: bool = False) -> dict:
+    """Launches per MAE step on the main path of ``impl``: one forward and
+    one backward of its kernels per block (6 blocks), with the fused embed
+    one of each more."""
+    names = ["attn_branch_fwd", "attn_branch_bwd", "mlp_branch_fwd", "mlp_branch_bwd"]
+    if impl != "auto":
+        names = [f"{IMPL_ENTRY[impl]}_{pas}" for pas in ("fwd", "bwd")]
+    want = dict.fromkeys(names, sum(STEP_CALLS["mae"].values()))
+    if fused_embed:
+        want.update(patch_embed_fwd=1, patch_embed_bwd=1)
+    return want
+
+
+def jepa_launches(fused_embed: bool) -> dict:
+    """Launches per JEPA step: the context encoder's 4 and the predictor's 2
+    blocks forward and backward, the target encoder's 4 blocks through the
+    no-grad forwards; with the fused embed two forwards (context, target)
+    and one backward (context)."""
+    c = STEP_CALLS["jepa"]
+    grad = c["ctx"] + c["pred"]
+    want = {"attn_branch_fwd": grad, "attn_branch_fwd_nograd": c["tgt"], "attn_branch_bwd": grad,
+            "mlp_branch_fwd": grad + c["tgt"], "mlp_branch_bwd": grad}
+    if fused_embed:
+        want.update(patch_embed_fwd=2, patch_embed_bwd=1)
+    return want
+
+
+@contextlib.contextmanager
+def fused_embed(on: bool):
+    """``SSRL_FUSED_EMBED=1`` inside the block, unset otherwise."""
+    old = os.environ.pop("SSRL_FUSED_EMBED", None)
+    if on:
+        os.environ["SSRL_FUSED_EMBED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SSRL_FUSED_EMBED", None)
+        if old is not None:
+            os.environ["SSRL_FUSED_EMBED"] = old
+
+
+def flagship_images(seed: int = 0):
+    images = np.random.default_rng(seed).integers(0, 256, (BATCH, 96, 96, 3)).astype(np.uint8)
+    return {"image": torch.from_numpy(images).cuda(), "weight": torch.ones(BATCH, device="cuda")}
+
+
+def timed_steps(task, state, batch, name: str, what: str):
+    """WARMUP steps, then STEPS steps between zeroed and read launch counts;
+    returns (state, per-step sums, launches, ms/step)."""
     ctx = task.epoch_context(0)
-    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    sums = []
     for _ in range(WARMUP):
-        state, sums = task.train_step(state, batch, 0, ctx)
-        losses.append(sums["loss_sum"])
+        state, s = task.train_step(state, batch, 0, ctx)
+        sums.append(s)
     torch.cuda.synchronize()
     reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     for _ in range(STEPS):
-        state, sums = task.train_step(state, batch, 0, ctx)
-        losses.append(sums["loss_sum"])
+        state, s = task.train_step(state, batch, 0, ctx)
+        sums.append(s)
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
     ms = start.elapsed_time(end) / STEPS
-    losses = [float(v) / BATCH for v in losses]
-    print(f"  MAE step attn_impl={impl} B={BATCH} bf16 on {name}: {ms:.3f} ms/step (CUDA events), "
+    print(f"  {what} B={BATCH} bf16 on {name}: {ms:.3f} ms/step (CUDA events), "
           f"{BATCH / ms * 1e3:.1f} img/s; wall {wall / STEPS * 1e3:.3f} ms/step; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    losses = [float(s["loss_sum"]) / BATCH for s in sums]
     print(f"  losses: {[round(v, 5) for v in losses]}")
     print(f"  launches over {STEPS} steps: {launches}")
     if not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite loss: {losses}")
-    moved = sum(int(not torch.equal(before[k], v)) for k, v in state.params.items())
+        fail(f"{what}: non-finite loss: {losses}")
+    return state, sums, launches
+
+
+def check_moved(before: dict, after: dict, what: str) -> None:
+    moved = sum(int(not torch.equal(before[k], v)) for k, v in after.items())
     if moved != len(before):
-        fail(f"only {moved} of {len(before)} parameters changed")
-    blocks = sum(depth for *_, depth in GEOMETRIES.values())
-    want = {k: v * STEPS for k, v in expected_launches(impl, blocks).items()}
+        fail(f"{what}: only {moved} of {len(before)} tensors changed")
+
+
+def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False) -> dict:
+    """Phases 4, 6, 7, 9: the flagship step through MAETask on the card."""
+    with fused_embed(fused):
+        task = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+        state = task.init_state(0)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        what = f"MAE step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
+        state, _, launches = timed_steps(task, state, flagship_images(), name, what)
+    check_moved(before, state.params, what)
+    want = expected(mae_launches(impl, fused), STEPS)
     if launches != want:
-        fail(f"attn_impl={impl}: launches in {STEPS} steps {launches}, expected {want}")
+        fail(f"{what}: launches in {STEPS} steps {launches}, expected {want}")
     del task, state
     torch.cuda.empty_cache()
     return launches
@@ -440,8 +661,7 @@ def cpu_agreement(model_cfg: dict, impl: str) -> None:
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, ctx,
                               tuple(d.cpu() for d in draws))
-    blocks = sum(depth for *_, depth in GEOMETRIES.values())
-    if launch_counts() != launched or launched != expected_launches(impl, blocks):
+    if launch_counts() != launched or launched != expected(mae_launches(impl)):
         fail(f"launch counts: {launch_counts()} (the GPU step must launch one of each "
              f"kernel of attn_impl={impl} per block, the CPU step none)")
     lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
@@ -460,6 +680,66 @@ def cpu_agreement(model_cfg: dict, impl: str) -> None:
         fail(f"updated params disagree by {worst} > 2.5 lr")
 
 
+def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool) -> dict:
+    """Phases 8, 9: the flagship JEPA step through JEPATask on the card."""
+    what = "JEPA step attn_impl=auto" + (" SSRL_FUSED_EMBED=1" if fused else "")
+    with fused_embed(fused):
+        task = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda")
+        state = task.init_state(0)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        extra0 = {k: v.clone() for k, v in state.extra.items()}
+        state, sums, launches = timed_steps(task, state, flagship_images(), name, what)
+    check_moved(before, state.params, what)
+    check_moved(extra0, state.extra, what + " (EMA target)")
+    metrics = task.epoch_metrics_from_sums(
+        {k: float(v) for k, v in sums[-1].items()}, "train")
+    print(f"  last step: {metrics}")
+    for k in ("train_pred_std", "train_target_std", "train_pred_target_cos", "train_ema_drift"):
+        if not math.isfinite(metrics[k]):
+            fail(f"{what}: {k} = {metrics[k]}")
+    if not metrics["train_ema_drift"] > 0:
+        fail(f"{what}: the EMA target did not drift from the encoder ({metrics})")
+    want = expected(jepa_launches(fused), STEPS)
+    if launches != want:
+        fail(f"{what}: launches in {STEPS} steps {launches}, expected {want}")
+    del task, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict) -> None:
+    """Phase 10: B=16, same weights, EMA and draws, kernels vs plain CPU."""
+    n = 16
+    gpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda")
+    cpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cpu")
+    gs, cs = gpu.init_state(1), cpu.init_state(1)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    cs.extra = {k: v.cpu().clone() for k, v in gs.extra.items()}
+    images = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, (n, 96, 96, 3)).astype(np.uint8))
+    draws = gpu.draw(gs.generator, n, None)
+    weight = torch.ones(n)
+    reset_counts()
+    _, s_gpu = gpu.train_step(gs, {"image": images.cuda(), "weight": weight.cuda()},
+                              0, None, draws)
+    launched = launch_counts()
+    _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, None,
+                              tuple(d.cpu() for d in draws))
+    if launch_counts() != launched or launched != expected(jepa_launches(False)):
+        fail(f"launch counts: {launch_counts()} (the GPU JEPA step must launch "
+             f"{jepa_launches(False)}, the CPU step nothing)")
+    lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
+    print(f"  JEPA B={n} loss: kernels on the card {lg:.6f}, plain on the CPU {lc:.6f}")
+    if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
+        fail(f"JEPA loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
+    lr = s_cpu["lr"]
+    worst = max((gs.params[k].detach().cpu() - cs.params[k].detach()).abs().max().item()
+                for k in cs.params)
+    print(f"  after one step: max |param gpu - cpu| {worst:.3e}, lr {lr:.3e}")
+    if not worst <= 2.5 * lr:
+        fail(f"updated params disagree by {worst} > 2.5 lr")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test needs an NVIDIA GPU")
@@ -474,39 +754,54 @@ def main() -> None:
     _build.load()
     print(f"phase 2: built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("phase 3: kernels vs plain versions (B=768, bf16)", flush=True)
+    print("phase 3: branch kernels vs plain versions (B=768, bf16)", flush=True)
     res = check_kernels()
     print("phase 3b: attention kernels vs plain versions (B=768, bf16)", flush=True)
     res.update(check_attention())
+    print("phase 3c: patch-embed kernels vs plain version (B=768, bf16)", flush=True)
+    res.update(check_embed())
 
-    model_cfg = yaml.safe_load((REPO / "configs" / "mae.yaml").read_text())["model"]
+    cfg = load_config(REPO / "configs" / "mae.yaml")
+    model_cfg = cfg["model"]
+    jepa_cfg = {**cfg["jepa"], "batch_size": BATCH}
     launches = dict.fromkeys(launch_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
     for phase, impl in ((4, "auto"), (6, "packed"), (7, "pallas")):
         print(f"phase {phase}: MAE pretraining step, attn_impl={impl}", flush=True)
-        for k, v in mae_step(model_cfg, name, impl).items():
-            launches[k] += v
+        add(mae_step(model_cfg, name, impl))
         print(f"phase {5 if impl == 'auto' else phase}: B=16 step, attn_impl={impl}, "
               "kernels vs plain CPU path", flush=True)
         cpu_agreement(model_cfg, impl)
+    print("phase 8: JEPA pretraining step, attn_impl=auto", flush=True)
+    add(jepa_step(model_cfg, jepa_cfg, name, fused=False))
+    print("phase 9: JEPA and MAE steps with SSRL_FUSED_EMBED=1", flush=True)
+    add(jepa_step(model_cfg, jepa_cfg, name, fused=True))
+    add(mae_step(model_cfg, name, "auto", fused=True))
+    print("phase 10: B=16 JEPA step, kernels vs plain CPU path", flush=True)
+    jepa_cpu_agreement(model_cfg, jepa_cfg)
 
-    kernels = []
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
-            for k, (src, replaces) in KERNELS.items()]
+            for k, (src, replaces, _) in KERNELS.items()]
     rows += [(f"{entry}_{pas}", "ssrl_vit_mae_jepa_torch/csrc/mha.cu", replaces)
              for entry, (*_, r_fwd, r_bwd, _) in ATTENTION.items()
              for pas, replaces in (("fwd", r_fwd), ("bwd", r_bwd))]
+    rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/patch_embed.cu", replaces)
+             for k, replaces in EMBED_KERNELS.items()]
+    kernels = []
     for k, src, replaces in rows:
         r = res[k]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[k], "max_abs_err": r["max_abs_err"],
-            # per training step: 4 encoder calls + 2 decoder calls
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
-            **({"sdpa_ms": r["library_ms"]} if "library_ms" in r else {}),
-            **{kk: v for kk, v in r.items()
-               if kk.startswith(("ms_", "plain_ms_", "library_ms_"))},
+            **{kk: v for kk, v in r.items() if kk not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     print(card())
     print(json.dumps({"kernels": kernels}))

@@ -42,6 +42,10 @@ _SIGNATURES = {
     # pointers, in strides (b, h, row), out strides, B, H, L, d, scale, post, stream
     "ssrl_mha_fwd": (_I, [_P] * 4 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_mha_bwd": (_I, [_P] * 7 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
+    # pointers, B, N, Pc, D, K, stream (a null idx: no gather, K = N + 1)
+    "ssrl_patch_embed_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "ssrl_patch_embed_bwd_workspace": (_LL, [_I] * 6),
+    "ssrl_patch_embed_bwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -47,12 +47,15 @@ class MaskedVisionTransformer(nn.Module):
 
 
 class MAEDecoder(nn.Module):
-    """lightly ``MAEDecoderTIMM`` contract."""
+    """lightly ``MAEDecoderTIMM`` contract. ``with_pred=False`` leaves out the
+    pixel head: the JEPA predictor reuses this class and never calls it, so
+    its flax tree has no ``decoder_pred`` (flax makes a submodule's params
+    only when it is called)."""
 
     def __init__(self, num_patches: int, patch_size: int, embed_dim: int,
                  decoder_embed_dim: int, decoder_depth: int, decoder_num_heads: int,
                  in_chans: int = 3, mlp_ratio: float = 4.0, dtype=torch.bfloat16,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", with_pred: bool = True):
         super().__init__()
         dd = decoder_embed_dim
         self.dtype = dtype
@@ -64,7 +67,8 @@ class MAEDecoder(nn.Module):
             for _ in range(decoder_depth)
         )
         self.decoder_norm = nn.LayerNorm(dd, eps=LN_EPS)
-        self.decoder_pred = nn.Linear(dd, patch_size**2 * in_chans)
+        if with_pred:
+            self.decoder_pred = nn.Linear(dd, patch_size**2 * in_chans)
 
     def init_weights(self, generator: torch.Generator) -> None:
         init_weights(self, generator)

@@ -5,6 +5,9 @@ Port of ``ssrl_vit_mae_jepa_tpu/models/vit.py`` (timm 1.0.21
 matmul over CHW-within-patch tokens, CLS + learned position embedding,
 optional ``idx_keep`` gather after the position embedding (lightly
 ``MaskedVisionTransformerTIMM.encode``), pre-LN blocks and the final LN.
+With ``SSRL_FUSED_EMBED=1`` (or ``force``) that prologue is one call of
+``ops/embed_fused.py::fused_patch_embed``, as the JAX package dispatches it
+(``models/vit.py:428-452``).
 
 Parameters keep timm's names and layouts (``patch_embed.proj.weight`` is
 (D, C, p, p) and is viewed as (D, C·p·p) in the forward), so the state dicts
@@ -46,6 +49,7 @@ from ssrl_vit_mae_jepa_torch.ops.block_fused import (
     fused_mlp_branch,
     layer_norm,
 )
+from ssrl_vit_mae_jepa_torch.ops.embed_fused import fused_patch_embed, use_fused_embed
 from ssrl_vit_mae_jepa_torch.ops.masking import get_at_index
 from ssrl_vit_mae_jepa_torch.ops.patches import patchify
 
@@ -216,11 +220,17 @@ class VisionTransformer(nn.Module):
         patches = (images.to(dt) if images.dim() == 3
                    else patchify(images.to(dt), self.patch_size))
         proj = self.patch_embed.proj
-        x = patches @ proj.weight.reshape(D, -1).to(dt).t() + proj.bias.to(dt)
-        cls = self.cls_token.to(dt).expand(B, 1, D)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
-        if idx_keep is not None:
-            x = get_at_index(x, idx_keep)
+        if use_fused_embed():
+            # embed GEMM + CLS + pos + gather in one kernel: only the
+            # (B, K, D) kept tokens reach device memory (ops/embed_fused.py)
+            x = fused_patch_embed(patches, proj.weight.reshape(D, -1), proj.bias,
+                                  self.cls_token, self.pos_embed, idx_keep)
+        else:
+            x = patches @ proj.weight.reshape(D, -1).to(dt).t() + proj.bias.to(dt)
+            cls = self.cls_token.to(dt).expand(B, 1, D)
+            x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+            if idx_keep is not None:
+                x = get_at_index(x, idx_keep)
         x = run_block_stack(x, self.blocks)
         return norm(x, self.norm, dt)
 

@@ -33,6 +33,7 @@ LN_EPS = 1e-6
 #: kernel launches by wrapper entry; a wrapper adds one where it launches
 LAUNCHES = {
     "attn_branch_fwd": 0,
+    "attn_branch_fwd_nograd": 0,  # the no-stash forward (no-grad callers)
     "attn_branch_bwd": 0,
     "mlp_branch_fwd": 0,
     "mlp_branch_bwd": 0,
@@ -119,7 +120,7 @@ def _attn_fwd_cuda(x, kp, num_heads: int, stash: bool):
     out = torch.empty_like(x)
     a = torch.empty_like(x) if stash else None
     ws = _workspace(lib.ssrl_attn_branch_fwd_workspace(B, L, D, int(stash)), x)
-    LAUNCHES["attn_branch_fwd"] += 1
+    LAUNCHES["attn_branch_fwd" if stash else "attn_branch_fwd_nograd"] += 1
     _build.check(lib.ssrl_attn_branch_fwd(
         x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(),
         a.data_ptr() if stash else None, ws.data_ptr(),

@@ -1,5 +1,5 @@
-"""LR schedule and mask-ratio ramp (port of
-``ssrl_vit_mae_jepa_tpu/training/schedules.py:17-40``).
+"""LR schedule, mask-ratio ramp and JEPA EMA momentum (port of
+``ssrl_vit_mae_jepa_tpu/training/schedules.py:17-47``).
 
 - factor(epoch) = min((epoch+1)/warmup, 1) * 0.5*(1 + cos(pi*epoch/total)):
   the cosine applies during warmup too (quirk Q2), stepped per epoch;
@@ -9,6 +9,8 @@
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 
 def warmup_cosine_factor(epoch: float, warmup_epochs: int, total_epochs: int) -> float:
@@ -25,3 +27,11 @@ def mask_ratio_at_epoch(epoch: int, start: float, end: float, ramp_epochs: int) 
     """Linear per-epoch mask-ratio ramp with denominator ramp_epochs - 1."""
     progress = min(epoch / max(1, ramp_epochs - 1), 1.0)
     return start + progress * (end - start)
+
+
+def ema_momentum_at_step(step: int, total_steps: int, start: float, end: float) -> float:
+    """JEPA EMA momentum, linear from start to end over all training steps
+    (I-JEPA anneals per step), in f32 as the JAX package computes it:
+    ``f32(start) + min(f32(step) / total, 1) * f32(end - start)``."""
+    frac = min(np.float32(step) / np.float32(max(1, total_steps)), np.float32(1.0))
+    return float(np.float32(start) + frac * np.float32(end - start))

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -18,3 +18,6 @@ class TrainState:
     #: on the training device; every per-step draw comes from it
     generator: torch.Generator
     step: int = 0
+    #: task state that is not a parameter of the model (JEPA's EMA target
+    #: encoder by the encoder's names): no gradient, no optimizer, no clip
+    extra: Optional[Dict[str, torch.Tensor]] = None

@@ -36,7 +36,9 @@ class Task:
 
     Subclasses set ``model``, ``base_lr``, ``weight_decay``, ``grad_clip``,
     ``warmup_epochs``, ``total_epochs`` and ``image_size`` and implement
-    ``draw_task`` and ``loss_and_metric_sums``."""
+    ``draw_task`` and ``loss_and_metric_sums``; the hooks ``init_extra``,
+    ``loss_and_metric_sums_in_step``, ``post_update`` and ``on_fit_start``
+    are the JAX ``Task``'s (``tasks.py:143-214``)."""
 
     model: torch.nn.Module
 
@@ -49,9 +51,26 @@ class Task:
             epoch, self.warmup_epochs, self.total_epochs
         )
 
+    def init_extra(self, params: Dict[str, torch.Tensor]):
+        """Task state that is not a model parameter (JEPA's EMA target)."""
+        return None
+
+    def loss_and_metric_sums_in_step(self, state: TrainState, images, batch, task_draws, ctx):
+        """The step's loss entry, which may read the whole state."""
+        return self.loss_and_metric_sums(images, batch, task_draws, ctx)
+
+    def post_update(self, state: TrainState, epoch) -> TrainState:
+        """Hook after the optimizer update; ``state.step`` already counts it."""
+        return state
+
+    def on_fit_start(self, steps_per_epoch: int) -> None:
+        """Hook before the first step with the epoch length, for schedules
+        that need the total step count (JEPA's EMA)."""
+
     def init_state(self, seed: int) -> TrainState:
         """Seeded weights (made on the CPU, then moved), fresh optimizer
-        state and a device generator for the per-step draws."""
+        state, the task's extra state and a device generator for the
+        per-step draws."""
         gen = torch.Generator().manual_seed(seed)
         self.model.init_weights(gen)
         self.model.to(self.device)
@@ -59,7 +78,8 @@ class Task:
         self.tx = make_optimizer(self.base_lr, self.weight_decay, self.grad_clip)
         step_seed = int(torch.randint(2**62, (1,), generator=gen))
         generator = torch.Generator(self.device).manual_seed(step_seed)
-        return TrainState(params, self.tx.init(params), generator)
+        return TrainState(params, self.tx.init(params), generator,
+                          extra=self.init_extra(params))
 
     def draw(self, generator: torch.Generator, batch: int, ctx) -> Tuple:
         """``(u, flip, *task_draws)`` for one step."""
@@ -81,13 +101,14 @@ class Task:
             draws = self.draw(state.generator, images_u8.shape[0], ctx)
         u, flip, *task_draws = draws
         images = self.preprocess_train(u, flip, images_u8)
-        loss, sums = self.loss_and_metric_sums(images, batch, task_draws, ctx)
+        loss, sums = self.loss_and_metric_sums_in_step(state, images, batch, task_draws, ctx)
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
         lr = self.lr_value(epoch)
         set_learning_rate(state.opt_state, lr)
         self.tx.update(dict(zip(names, grads)), state.opt_state, state.params)
         state.step += 1
+        state = self.post_update(state, epoch)
         sums = {k: v.detach() for k, v in sums.items()}
         sums["lr"] = lr
         return state, sums

@@ -5,7 +5,8 @@ layouts; the port's modules use the reference's torch (timm/lightly) names,
 so crossing over is one export and one strict ``load_state_dict``. The
 export is this module's own numpy copy of
 ``ssrl_vit_mae_jepa_tpu/utils/torch_interop.py::mae_params_to_state`` and
-the tables it walks (:89-106, :209-305); the port imports nothing of the JAX
+the tables it walks (:89-106, :209-305), and the JEPA export built from the
+same tables (the JAX package has none); the port imports nothing of the JAX
 package.
 """
 
@@ -51,7 +52,7 @@ def _vit_entries(depth: int):
     return entries
 
 
-def _decoder_entries(depth: int):
+def _decoder_entries(depth: int, with_pred: bool = True):
     entries = [
         ("decoder_embed.weight", ["decoder_embed", "kernel"], "T"),
         ("decoder_embed.bias", ["decoder_embed", "bias"], None),
@@ -59,9 +60,12 @@ def _decoder_entries(depth: int):
         ("decoder_pos_embed", ["decoder_pos_embed"], None),
         ("decoder_norm.weight", ["decoder_norm", "scale"], None),
         ("decoder_norm.bias", ["decoder_norm", "bias"], None),
-        ("decoder_pred.weight", ["decoder_pred", "kernel"], "T"),
-        ("decoder_pred.bias", ["decoder_pred", "bias"], None),
     ]
+    if with_pred:
+        entries += [
+            ("decoder_pred.weight", ["decoder_pred", "kernel"], "T"),
+            ("decoder_pred.bias", ["decoder_pred", "bias"], None),
+        ]
     for i in range(depth):
         entries += _block_entries(i, "decoder_blocks", f"decoder_blocks_{i}")
     return entries
@@ -114,12 +118,45 @@ def mae_params_to_state(params: dict, in_chans: int = 3) -> Dict[str, np.ndarray
     return out
 
 
+def _load_strict(model: torch.nn.Module, state: Dict[str, np.ndarray]) -> torch.nn.Module:
+    model.load_state_dict(
+        {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()},
+        strict=True,
+    )
+    return model
+
+
 def mae_params_from_jax(params: dict, model: torch.nn.Module) -> torch.nn.Module:
     """Load MaskedAutoencoder params (a tree of numpy arrays) into the port's
     ``MaskedAutoencoder`` with ``strict=True``; returns ``model``."""
-    state = {
-        k: torch.from_numpy(np.array(v, dtype=np.float32))
-        for k, v in mae_params_to_state(params).items()
-    }
-    model.load_state_dict(state, strict=True)
-    return model
+    return _load_strict(model, mae_params_to_state(params))
+
+
+def vit_params_to_state(params: dict, in_chans: int = 3) -> Dict[str, np.ndarray]:
+    """A flax ``VisionTransformer`` tree (e.g. JEPA's EMA ``extra``) → the
+    port's ViT names (timm's), as ``state.extra`` holds them."""
+    return _export_entries(params, _vit_entries(_depth(params, "blocks_")), in_chans)
+
+
+def jepa_params_to_state(params: dict, in_chans: int = 3) -> Dict[str, np.ndarray]:
+    """JEPA params → the port's ``JEPA`` names: the ViT under ``encoder.``,
+    the predictor's decoder names (no ``decoder_pred``) under ``predictor.``
+    and ``predictor_proj.``. The JAX package has no JEPA converter; this one
+    is built from the same tables."""
+    pred_p = params["predictor"]
+    pred = _export_entries(pred_p, _decoder_entries(_depth(pred_p, "decoder_blocks_"),
+                                                    with_pred=False))
+    proj = _export_entries(params, [
+        ("predictor_proj.weight", ["predictor_proj", "kernel"], "T"),
+        ("predictor_proj.bias", ["predictor_proj", "bias"], None),
+    ])
+    out = {f"encoder.{k}": v for k, v in vit_params_to_state(params["encoder"], in_chans).items()}
+    out.update({f"predictor.{k}": v for k, v in pred.items()})
+    out.update(proj)
+    return out
+
+
+def jepa_params_from_jax(params: dict, model: torch.nn.Module) -> torch.nn.Module:
+    """Load JEPA params (a tree of numpy arrays) into the port's ``JEPA``
+    with ``strict=True``; returns ``model``."""
+    return _load_strict(model, jepa_params_to_state(params))

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-two branch kernels and the four attention entries of ``csrc/mha.cu``.
+two branch kernels, the four attention entries of ``csrc/mha.cu`` and the
+fused patch embed of ``csrc/patch_embed.cu``.
 
 Marked ``cuda`` and skipped without a GPU. The file imports no JAX, so it
 also runs where JAX is not installed; ``tests/conftest.py`` does import JAX,
@@ -23,6 +24,7 @@ import torch
 from ssrl_vit_mae_jepa_torch import _build
 from ssrl_vit_mae_jepa_torch.ops import attention_core as core
 from ssrl_vit_mae_jepa_torch.ops import block_fused as bf
+from ssrl_vit_mae_jepa_torch.ops import embed_fused as ef
 from ssrl_vit_mae_jepa_torch.ops.attention_core import heads_of
 from ssrl_vit_mae_jepa_torch.ops.attention_heads import mha_pallas, mha_pallas_ref
 from ssrl_vit_mae_jepa_torch.ops.attention_packed import mha_packed, mha_packed_ref
@@ -33,9 +35,12 @@ from ssrl_vit_mae_jepa_torch.ops.attention_stacked import (
     mha_stacked_ref,
 )
 
-# (B, L, D, H): the MAE encoder and decoder at B=768, a head dim of 12 with
-# ragged L, and the longest sequence the attention backward takes at d=32
-SHAPES = [(768, 37, 144, 6), (768, 145, 192, 6), (3, 17, 48, 4), (2, 160, 64, 2)]
+# (B, L, D, H): the MAE encoder and decoder at B=768; the JEPA context
+# encoder, predictor (D=96, d=16, F=384) and target encoder at B=768; a head
+# dim of 12 with ragged L, and the longest sequence the attention backward
+# takes at d=32
+SHAPES = [(768, 37, 144, 6), (768, 145, 192, 6), (768, 45, 144, 6), (768, 145, 96, 6),
+          (768, 145, 144, 6), (3, 17, 48, 4), (2, 160, 64, 2)]
 
 
 @pytest.fixture
@@ -77,10 +82,13 @@ def test_kernel_matches_plain(cuda, kind, B, L, D, H):
     out_r, grads_r = run(ref)
     fwd, bwd = f"{kind}_branch_fwd", f"{kind}_branch_bwd"
     assert bf.LAUNCHES[fwd] == before[fwd] + 1 and bf.LAUNCHES[bwd] == before[bwd] + 1
+    before = dict(bf.LAUNCHES)
     with torch.no_grad():
         out_ns = kern(x, *params, *extra)
     torch.cuda.synchronize()
     assert torch.equal(out_ns, out_k)  # the no-stash forward: same bits
+    nograd = "attn_branch_fwd_nograd" if kind == "attn" else fwd
+    assert {k: v - before[k] for k, v in bf.LAUNCHES.items() if v != before[k]} == {nograd: 1}
     torch.testing.assert_close(out_k.float(), out_r.float(), atol=6e-2, rtol=0)
     for a, b in zip(grads_k, grads_r):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -174,3 +182,89 @@ def test_fit_matches_the_library(cuda):
     for d in (1, 8, 12, 16, 17, 24, 32, 33):
         for L in (1, 16, 37, 145, 160, 161, 200, 300, 400):
             assert bool(lib.ssrl_mha_fits(L, d)) == core.fits(L, d), (L, d)
+
+
+# ---------------------------------------------------------------------------
+# the fused patch embed
+# ---------------------------------------------------------------------------
+
+# (B, N, Pc, D, K): the flagship at K=37 (MAE), K=45 (JEPA context) and the
+# full sequence (JEPA target); a ragged small geometry
+EMBED_SHAPES = [(768, 144, 192, 144, 37), (768, 144, 192, 144, 45),
+                (768, 144, 192, 144, None), (3, 20, 48, 40, 7), (3, 20, 48, 40, None)]
+
+
+def _embed_inputs(B, N, Pc, D, K, device, dup=False):
+    g = torch.Generator().manual_seed(B + N + D + (K or 0))
+    patches = (torch.rand(B, N, Pc, generator=g) * 2 - 1).to(torch.bfloat16)
+    params = [torch.randn(D, Pc, generator=g) * Pc**-0.5, 0.02 * torch.randn(D, generator=g),
+              0.02 * torch.randn(1, 1, D, generator=g),
+              0.02 * torch.randn(1, N + 1, D, generator=g)]
+    idx = None
+    if K is not None:
+        if dup:
+            idx = torch.randint(0, N + 1, (B, K), generator=g)
+        else:
+            perm = torch.argsort(torch.rand(B, N, generator=g), dim=-1)[:, :K - 1] + 1
+            idx = torch.cat([torch.zeros(B, 1, dtype=torch.long), perm], dim=1)
+        idx = idx.to(device)
+    dy = torch.randn(B, N + 1 if K is None else K, D, generator=g).to(torch.bfloat16)
+    return patches.to(device), [p.to(device) for p in params], idx, dy.to(device)
+
+
+def _embed_run(fn, patches, params, idx, dy):
+    leaves = [patches.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    out = fn(*leaves, idx)
+    return out.detach(), torch.autograd.grad(out, leaves, dy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Pc,D,K,dup", [(*s, False) for s in EMBED_SHAPES]
+                         + [(3, 20, 48, 40, 30, True)])
+def test_embed_kernel_matches_plain(cuda, B, N, Pc, D, K, dup):
+    """Forward and all five backward outputs (dpatches, dW, db, dcls, dpos),
+    one launch of each kernel; with repeated indices the kernel sums their
+    gradients as the plain version does."""
+    patches, params, idx, dy = _embed_inputs(B, N, Pc, D, K, cuda, dup)
+    before = dict(ef.LAUNCHES)
+    out_k, grads_k = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    assert ef.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    out_r, grads_r = _embed_run(ef.fused_patch_embed_ref, patches, params, idx, dy)
+    with torch.no_grad():
+        out_ng = ef.fused_patch_embed(patches, *params, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out_ng, out_k)
+    assert out_k.dtype == torch.bfloat16 and out_k.shape == out_r.shape
+    torch.testing.assert_close(out_k.float(), out_r.float(), atol=6e-2, rtol=0)
+    for a, b in zip(grads_k, grads_r):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        bound = 2e-2 * b.float().abs().max().item() + 1e-3
+        torch.testing.assert_close(a.float(), b.float(), atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+def test_embed_skips_dpatches_when_not_asked(cuda):
+    """Patches without grad (the main path's): no dpatches, and the other
+    gradients are the same bits as with it."""
+    patches, params, idx, dy = _embed_inputs(768, 144, 192, 144, 45, cuda)
+    leaves = [p.clone().requires_grad_() for p in params]
+    out = ef.fused_patch_embed(patches, *leaves, idx)
+    grads = torch.autograd.grad(out, leaves, dy)
+    _, with_dp = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    for a, b in zip(grads, with_dp[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_embed_refuses_what_it_does_not_take(cuda):
+    patches, params, idx, _ = _embed_inputs(3, 20, 48, 40, 7, cuda)
+    with pytest.raises(TypeError):
+        ef.fused_patch_embed(patches.float(), *params, idx)
+    with pytest.raises(ValueError):
+        ef.fused_patch_embed(patches, *params, idx.int())
+    bad, bparams, _, _ = _embed_inputs(3, 20, 44, 40, None, cuda)  # Pc % 8 != 0
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ef.fused_patch_embed(bad, *bparams, None)
+    long, lparams, _, _ = _embed_inputs(1, 300, 48, 40, None, cuda)  # L > 256
+    with pytest.raises(ValueError, match="L <="):
+        ef.fused_patch_embed(long, *lparams, None)

@@ -24,8 +24,11 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "optax", "ssrl_vit_mae_jepa_tpu"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+# the modules of the JEPA slice and the fused patch embed, among all others
+NEW_MODULES = {"config", "ops.jepa_masking", "ops.embed_fused", "models.jepa",
+               "training.jepa_task"}
 
 
 def _run(args, timeout=120):
@@ -38,7 +41,9 @@ def _run(args, timeout=120):
 def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12  # every module of the port
+    names = proc.stdout.split()
+    assert len(names) >= 17  # every module of the port
+    assert {f"ssrl_vit_mae_jepa_torch.{m}" for m in NEW_MODULES} <= set(names)
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():

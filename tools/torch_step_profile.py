@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's MAE step goes, on one NVIDIA GPU.
+"""Where the device time of the port's MAE and JEPA steps goes, on one
+NVIDIA GPU.
 
-Runs the flagship MAE pretraining step of the PyTorch port (the geometry
-of ``configs/mae.yaml`` and the settings of ``chip_smoke.py``: B=768, bf16,
-augmentation on) for each ``--attn-impl``: 3 warm-up steps, then 5 steps
-timed with CUDA events, then 5 steps under ``torch.profiler``. Prints, per
-impl, the step time, the device time summed over all kernels, the device's
-idle share of the step and the kernels by device time per step; ``--out``
-also writes them as JSON. Needs a GPU::
+Runs the flagship pretraining step of the PyTorch port (the geometry of
+``configs/mae.yaml`` and the settings of ``chip_smoke.py``: B=768, bf16,
+augmentation on) for each ``--task`` and ``--attn-impl`` (the JEPA step
+takes auto only): 3 warm-up steps, then 5 steps timed with CUDA events,
+then 5 steps under ``torch.profiler``. Prints, per run, the step time, the
+device time summed over all kernels, the device's idle share of the step
+and the kernels by device time per step; ``--out`` also writes them as
+JSON. ``SSRL_FUSED_EMBED=1`` in the environment switches the fused patch
+embed on. Needs a GPU::
 
-    python3 tools/torch_step_profile.py --attn-impl auto packed pallas --out prof.json
+    python3 tools/torch_step_profile.py --task mae jepa --attn-impl auto packed pallas --out prof.json
 
 It imports no JAX and nothing of the JAX package.
 """
@@ -23,15 +26,16 @@ import sys
 
 import numpy as np
 import torch
-import yaml
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from chip_smoke import PRE_CFG, card  # noqa: E402
+from ssrl_vit_mae_jepa_torch.config import load_config  # noqa: E402
+from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask  # noqa: E402
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask  # noqa: E402
 
-STEPS, WARMUP, TOP = 5, 3, 25  # timed and profiled steps, warm-up, kernels listed
+STEPS, WARMUP, TOP = 5, 3, 40  # timed and profiled steps, warm-up, kernels listed
 
 
 def _device_us(evt) -> float:
@@ -43,10 +47,18 @@ def _device_us(evt) -> float:
     raise AttributeError("profiler event without a device time")
 
 
-def profile(impl: str) -> dict:
+def make_task(name: str, impl: str):
+    cfg = load_config(REPO / "configs" / "mae.yaml")
+    if name == "jepa":
+        jepa_cfg = {**cfg["jepa"], "batch_size": PRE_CFG["batch_size"]}
+        return JEPATask(cfg["model"], jepa_cfg, dtype=torch.bfloat16, device="cuda",
+                        attn_impl=impl)
+    return MAETask(cfg["model"], PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+
+
+def profile(name: str, impl: str) -> dict:
     batch, steps = PRE_CFG["batch_size"], STEPS
-    model_cfg = yaml.safe_load((REPO / "configs" / "mae.yaml").read_text())["model"]
-    task = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+    task = make_task(name, impl)
     state = task.init_state(0)
     images = np.random.default_rng(0).integers(0, 256, (batch, 96, 96, 3)).astype(np.uint8)
     data = {"image": torch.from_numpy(images).cuda(),
@@ -79,7 +91,7 @@ def profile(impl: str) -> dict:
     device_ms = sum(ms for ms, _ in kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return {
-        "attn_impl": impl, "batch": batch, "steps": steps,
+        "task": name, "attn_impl": impl, "batch": batch, "steps": steps,
         "step_ms": step_ms, "img_per_s": batch / step_ms * 1e3,
         "device_ms_per_step": device_ms,
         "idle_share": 1.0 - device_ms / step_ms,
@@ -90,6 +102,7 @@ def profile(impl: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--task", nargs="+", default=["mae"], choices=["mae", "jepa"])
     ap.add_argument("--attn-impl", nargs="+", default=["auto", "packed", "pallas"])
     ap.add_argument("--out", type=pathlib.Path, help="also write the results as JSON")
     args = ap.parse_args()
@@ -99,10 +112,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     out = {"card": card(), "kind": torch.cuda.get_device_name(0), "runs": []}
     print(out["card"])
-    for impl in args.attn_impl:
-        r = profile(impl)
+    runs = [(t, i) for t in args.task for i in args.attn_impl if t == "mae" or i == "auto"]
+    for name, impl in runs:
+        r = profile(name, impl)
         out["runs"].append(r)
-        print(f"attn_impl={impl} B={r['batch']}: {r['step_ms']:.3f} ms/step (CUDA events), "
+        print(f"{name} attn_impl={impl} B={r['batch']}: {r['step_ms']:.3f} ms/step (CUDA events), "
               f"{r['img_per_s']:.1f} img/s; kernels {r['device_ms_per_step']:.3f} ms/step "
               f"on the device, idle {100 * r['idle_share']:.1f}%")
         for k in r["kernels"]:
