@@ -45,19 +45,38 @@ Phases (any failure exits nonzero; nothing is caught):
      (4), and no attention-entry or embed kernel;
   9. phase 8 with ``SSRL_FUSED_EMBED=1`` (two embed forwards and one
      backward more per step), then phase 4 with it (one and one more);
+  3d. the whole-block kernel of ``csrc/fused_block.cu`` at the five block
+     geometries of phase 3, forward and all 13 backward outputs (the target
+     encoder's through the no-grad forward), against ``block_ref``, with
+     the kernel's and the plain version's times;
+  3e. the chained-block kernel of ``csrc/block_chain.cu`` at the five
+     stacks (MAE encoder N=4 and decoder N=2, JEPA context encoder N=4 and
+     predictor N=2 with the stash forward and the backward; the JEPA target
+     encoder N=4 through the no-grad forward) against ``chain_ref``, with
+     times; the stash forward's output equals the no-grad forward's and the
+     split kernels' bit for bit;
   10. the JEPA step at B=16 on the card and through the plain path on the
-     CPU from the same weights and draws: the losses agree.
+     CPU from the same weights and draws: the losses agree;
+  11, 12. phases 4 and 5 with ``attn_impl="block"`` and ``"chain"``: each
+     step launches one whole-block forward and backward per block (6 + 6),
+     or one chain forward and backward per stack (2 + 2), and no branch or
+     attention kernel;
+  13, 14. phases 8 and 10 with ``attn_impl="block"`` and ``"chain"``: per
+     step the context encoder's and predictor's whole-block forwards and
+     backwards (6 + 6) and the target encoder's 4 no-grad forwards, or
+     their chain forwards and backwards (2 + 2) and the target's one
+     no-grad chain forward; the EMA target moved.
 
-Each main-path run (phases 4, 6, 7, 8, 9) zeroes every launch count just
+Each main-path run (phases 4, 6-9, 11-14) zeroes every launch count just
 before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
 
-The line before the last is ``{"kernels": [...]}``: per kernel, ``ms``,
-``plain_ms`` and ``bound_ms`` are per training step of ``step`` (the MAE
-step where it runs the kernel, else the JEPA step), ``*_jepa`` the same per
-JEPA step, ``*_<geometry>`` per call. The last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}`` (21 entries): per
+kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
+``step`` (the MAE step where it runs the kernel, else the JEPA step),
+``*_jepa`` the same per JEPA step, ``*_<geometry>`` per call. The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,6 +98,7 @@ import torch.nn.functional as F
 from ssrl_vit_mae_jepa_torch import _build
 from ssrl_vit_mae_jepa_torch.config import load_config
 from ssrl_vit_mae_jepa_torch.ops import attention_core as core
+from ssrl_vit_mae_jepa_torch.ops import block_chain as bc
 from ssrl_vit_mae_jepa_torch.ops import block_fused as bf
 from ssrl_vit_mae_jepa_torch.ops import embed_fused as ef
 from ssrl_vit_mae_jepa_torch.ops.attention_core import heads_of
@@ -143,6 +163,17 @@ EMBED_KERNELS = {"patch_embed_fwd": _TPU + "embed_pallas.py:185",
 # phase 3b's CUDA-event means: more warm-up than phase 3, since the first
 # backward timed after phase 3 ran up to 2x slow in one run
 ATT_TIMING = {"iters": 30, "warmup": 10}
+# the whole block (per block, the calls of STEP_CALLS) and the chain (per
+# stack): kernel -> TPU kernel it replaces, and the chain's depth and calls
+# per step at each geometry
+BLOCK_KERNELS = {"block_fwd": _TPU + "block_pallas.py:408",
+                 "block_fwd_nograd": _TPU + "block_pallas.py:408",
+                 "block_bwd": _TPU + "block_pallas.py:442"}
+CHAIN_KERNELS = {"chain_fwd": _TPU + "block_chain.py:261",
+                 "chain_fwd_nograd": _TPU + "block_chain.py:235",
+                 "chain_bwd": _TPU + "block_chain.py:288"}
+CHAIN_DEPTH = {"enc": 4, "dec": 2, "ctx": 4, "pred": 2, "tgt": 4}
+CHAIN_CALLS = {"mae": {"enc": 1, "dec": 1}, "jepa": {"ctx": 1, "pred": 1, "tgt": 1}}
 # the attention entry each forced impl's main path must launch
 IMPL_ENTRY = {"packed": "mha_stacked_qkv", "pallas": "mha_pallas"}
 # the card's peaks (NVIDIA's H100 SXM data sheet): dense bf16 tensor-core
@@ -216,6 +247,31 @@ def attention_bounds(L: int, D: int):
     recomputed QK^T, dV, dP, dQ, dK backward, at 2BL^2D operations each."""
     act, mm = BATCH * L * D * 2, 2 * BATCH * L * L * D
     return bound(4 * act, 2 * mm), bound(7 * act, 5 * mm)
+
+
+def stack_bounds(L: int, D: int, N: int, stash: bool):
+    """Per-call (fwd, bwd) bounds of N blocks at (B, L, D), F = 4D. Bytes:
+    x and the output (dy and dx) once, the chain's 3N - 1 stash tensors
+    written by its forward and read by its backward, bf16 weights and f32
+    LN params read once, f32 gradients written once. Operations per block:
+    forward qkv 6, proj 2, fc1 8, fc2 8 (x MD^2) and attention 4BL^2D.
+    Backward of the whole block (only x is an input): the forward up to
+    x_mid again (8MD^2, 4BL^2D), the MLP's 40MD^2 (fc1 again, dh, dW2, dW1,
+    dy2), dWp, da, dWqkv, dy1 16MD^2, the attention backward 8BL^2D; of a
+    chain block (a and x_mid stashed): qkv again 6, the MLP's 40, 16, and
+    the attention backward with QK^T again 10BL^2D."""
+    M = BATCH * L
+    act = M * D * 2
+    w = N * ((12 * D * D + 9 * D) * 2 + 4 * D * 4)
+    grads = N * (12 * D * D + 13 * D) * 4
+    att = BATCH * L * L * D
+    st = (3 * N - 1) * act if stash else 0
+    fwd = bound(2 * act + st + w, N * (24 * M * D * D + 4 * att))
+    if stash:
+        bwd = bound(3 * act + st + w + grads, N * (62 * M * D * D + 10 * att))
+    else:
+        bwd = bound(3 * act + w + grads, N * (64 * M * D * D + 12 * att))
+    return fwd, bwd
 
 
 def per_step(per_geo: dict, key: str, calls: dict) -> float:
@@ -321,6 +377,93 @@ def check_kernels() -> dict:
             print(line + f"; fwd max abs err {fwd_err:.3e}", flush=True)
             del out_k, out_r, out_ns, leaves
     return {k: summarize(per[k], errs[k], STEP_CALLS) for k in KERNELS}
+
+
+def stack_inputs(L: int, D: int, N: int, seed: int):
+    """bf16 x and dy, and N blocks' 12 f32 params each, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    F_ = 4 * D
+
+    def block():
+        return [1.0 + 0.1 * rn(D), 0.1 * rn(D), rn(3 * D, D) * D**-0.5, 0.1 * rn(3 * D),
+                rn(D, D) * D**-0.5, 0.1 * rn(D), 1.0 + 0.1 * rn(D), 0.1 * rn(D),
+                rn(F_, D) * D**-0.5, 0.1 * rn(F_), rn(D, F_) * F_**-0.5, 0.1 * rn(D)]
+
+    params = [[t.cuda() for t in block()] for _ in range(N)]
+    x, dy = (rn(BATCH, L, D).to(torch.bfloat16).cuda() for _ in range(2))
+    return x, dy, params
+
+
+def check_stack(kind: str) -> dict:
+    """Phases 3d (``kind="block"``: one block per geometry) and 3e
+    (``"chain"``: CHAIN_DEPTH blocks): the kernels against their plain
+    versions, every backward output, and per-call times; the target
+    geometry runs the no-grad forward only."""
+    names = BLOCK_KERNELS if kind == "block" else CHAIN_KERNELS
+    fwd, nograd, bwd = names
+    per = {k: {} for k in names}
+    errs = dict.fromkeys(names, 0.0)
+    for geo, (L, D, H) in GEOMETRIES.items():
+        grad = geo != "tgt"
+        N = 1 if kind == "block" else CHAIN_DEPTH[geo]
+        x, dy, params = stack_inputs(L, D, N, seed=L + D + N)
+        if kind == "block":
+            kern = lambda x, pl: bf.fused_block(x, pl[0], H)  # noqa: E731
+            ref = lambda x, pl: bf.block_ref(x, pl[0], H)  # noqa: E731
+        else:
+            kern = lambda x, pl: bc.fused_block_chain(x, pl, H)  # noqa: E731
+            ref = lambda x, pl: bc.chain_ref(x, pl, H)  # noqa: E731
+        xl = x.clone().requires_grad_()
+        pl = [[t.clone().requires_grad_() for t in p] for p in params]
+        leaves = [xl] + [t for p in pl for t in p]
+        out_k = kern(xl, pl)
+        with torch.no_grad():
+            out_ng = kern(x, params)
+            out_r = ref(x, params)
+            split = None
+            if kind == "chain":
+                split = x
+                for p in params:
+                    split = bf.fused_mlp_branch(bf.fused_attn_branch(split, *p[:6], H), *p[6:])
+        torch.cuda.synchronize()
+        if not torch.equal(out_ng, out_k):
+            fail(f"{kind}@{geo}: the no-grad forward differs from the forward")
+        if split is not None and not torch.equal(split, out_k):
+            fail(f"chain@{geo}: the forward differs from the split kernels'")
+        fwd_err = (out_k.float() - out_r.float()).abs().max().item()
+        if not fwd_err <= FWD_ATOL * N:  # a rounding flipped in one block carries on
+            fail(f"{kind}@{geo} forward: max abs err {fwd_err} > {FWD_ATOL * N}")
+        (bf_ms, bf_by), (bb_ms, bb_by) = stack_bounds(L, D, N, stash=kind == "chain" and grad)
+        with torch.no_grad():
+            t_plain = cuda_ms(lambda: ref(x, params))
+            t_ng = cuda_ms(lambda: kern(x, params))
+        t_fwd = cuda_ms(lambda: kern(xl, pl)) if grad else t_ng
+        key = fwd if grad else nograd
+        per[key][geo] = {"ms": t_fwd, "plain_ms": t_plain, "bound_ms": bf_ms, "bound_by": bf_by}
+        errs[key] = max(errs[key], fwd_err)
+        line = (f"  {kind}@{geo} L={L} D={D} N={N}: fwd {t_fwd:.3f} ms (plain {t_plain:.3f}, "
+                f"bound {bf_ms:.3f})")
+        if grad:
+            grads_k = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
+            out_rg = ref(xl, pl)
+            grads_r = torch.autograd.grad(out_rg, leaves, dy, retain_graph=True)
+            gnames = ["dx"] + [f"d{i // 12}_{i % 12}" for i in range(12 * N)]
+            bwd_err = check_grads(f"{kind}@{geo}", gnames, grads_k, grads_r)
+            t_bwd = cuda_ms(lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True))
+            t_pbwd = cuda_ms(lambda: torch.autograd.grad(out_rg, leaves, dy, retain_graph=True))
+            per[bwd][geo] = {"ms": t_bwd, "plain_ms": t_pbwd, "bound_ms": bb_ms,
+                             "bound_by": bb_by}
+            errs[bwd] = max(errs[bwd], bwd_err)
+            line += f", bwd {t_bwd:.3f} ms (plain {t_pbwd:.3f}, bound {bb_ms:.3f})"
+            del grads_k, grads_r, out_rg
+        else:
+            line += f" (no-grad; with grad {cuda_ms(lambda: kern(xl, pl)):.3f})"
+        print(line + f"; fwd max abs err {fwd_err:.3e}", flush=True)
+        del out_k, out_r, out_ng, split, xl, pl, leaves
+        torch.cuda.empty_cache()
+    calls = STEP_CALLS if kind == "block" else CHAIN_CALLS
+    return {k: summarize(per[k], errs[k], calls) for k in names}
 
 
 def attention_inputs(entry: str, L: int, D: int, H: int, seed: int):
@@ -523,11 +666,12 @@ def check_embed() -> dict:
 
 
 def launch_counts() -> dict:
-    return {**bf.LAUNCHES, **core.LAUNCHES, **ef.LAUNCHES}
+    return {**bf.LAUNCHES, **bc.LAUNCHES, **core.LAUNCHES, **ef.LAUNCHES}
 
 
 def reset_counts() -> None:
     bf.reset_launch_counts()
+    bc.reset_launch_counts()
     core.reset_launch_counts()
     ef.reset_launch_counts()
 
@@ -541,26 +685,35 @@ def expected(per_step: dict, steps: int = 1) -> dict:
 
 def mae_launches(impl: str, fused_embed: bool = False) -> dict:
     """Launches per MAE step on the main path of ``impl``: one forward and
-    one backward of its kernels per block (6 blocks), with the fused embed
-    one of each more."""
+    one backward of its kernels per block (6 blocks), or per stack (2
+    chains), with the fused embed one of each more."""
     names = ["attn_branch_fwd", "attn_branch_bwd", "mlp_branch_fwd", "mlp_branch_bwd"]
-    if impl != "auto":
+    if impl == "chain":
+        names = ["chain_fwd", "chain_bwd"]
+    elif impl == "block":
+        names = ["block_fwd", "block_bwd"]
+    elif impl != "auto":
         names = [f"{IMPL_ENTRY[impl]}_{pas}" for pas in ("fwd", "bwd")]
-    want = dict.fromkeys(names, sum(STEP_CALLS["mae"].values()))
+    n = len(CHAIN_CALLS["mae"]) if impl == "chain" else sum(STEP_CALLS["mae"].values())
+    want = dict.fromkeys(names, n)
     if fused_embed:
         want.update(patch_embed_fwd=1, patch_embed_bwd=1)
     return want
 
 
-def jepa_launches(fused_embed: bool) -> dict:
+def jepa_launches(fused_embed: bool, impl: str = "auto") -> dict:
     """Launches per JEPA step: the context encoder's 4 and the predictor's 2
     blocks forward and backward, the target encoder's 4 blocks through the
-    no-grad forwards; with the fused embed two forwards (context, target)
-    and one backward (context)."""
+    no-grad forwards (under "chain" one chain per stack); with the fused
+    embed two forwards (context, target) and one backward (context)."""
     c = STEP_CALLS["jepa"]
     grad = c["ctx"] + c["pred"]
     want = {"attn_branch_fwd": grad, "attn_branch_fwd_nograd": c["tgt"], "attn_branch_bwd": grad,
             "mlp_branch_fwd": grad + c["tgt"], "mlp_branch_bwd": grad}
+    if impl == "block":
+        want = {"block_fwd": grad, "block_fwd_nograd": c["tgt"], "block_bwd": grad}
+    elif impl == "chain":
+        want = {"chain_fwd": 2, "chain_fwd_nograd": 1, "chain_bwd": 2}
     if fused_embed:
         want.update(patch_embed_fwd=2, patch_embed_bwd=1)
     return want
@@ -625,7 +778,8 @@ def check_moved(before: dict, after: dict, what: str) -> None:
 
 
 def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False) -> dict:
-    """Phases 4, 6, 7, 9: the flagship step through MAETask on the card."""
+    """Phases 4, 6, 7, 9, 11, 12: the flagship step through MAETask on the
+    card."""
     with fused_embed(fused):
         task = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
         state = task.init_state(0)
@@ -642,7 +796,8 @@ def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False) -> dict
 
 
 def cpu_agreement(model_cfg: dict, impl: str) -> None:
-    """Phases 5-7: B=16, same weights and draws, kernels vs plain CPU path."""
+    """Phases 5-7, 11, 12: B=16, same weights and draws, kernels vs plain
+    CPU path."""
     n = 16
     gpu = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
     cpu = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cpu", attn_impl=impl)
@@ -680,11 +835,14 @@ def cpu_agreement(model_cfg: dict, impl: str) -> None:
         fail(f"updated params disagree by {worst} > 2.5 lr")
 
 
-def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool) -> dict:
-    """Phases 8, 9: the flagship JEPA step through JEPATask on the card."""
-    what = "JEPA step attn_impl=auto" + (" SSRL_FUSED_EMBED=1" if fused else "")
+def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
+              impl: str = "auto") -> dict:
+    """Phases 8, 9, 13, 14: the flagship JEPA step through JEPATask on the
+    card."""
+    what = f"JEPA step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
     with fused_embed(fused):
-        task = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda")
+        task = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda",
+                        attn_impl=impl)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
         extra0 = {k: v.clone() for k, v in state.extra.items()}
@@ -699,7 +857,7 @@ def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool) -> dict:
             fail(f"{what}: {k} = {metrics[k]}")
     if not metrics["train_ema_drift"] > 0:
         fail(f"{what}: the EMA target did not drift from the encoder ({metrics})")
-    want = expected(jepa_launches(fused), STEPS)
+    want = expected(jepa_launches(fused, impl), STEPS)
     if launches != want:
         fail(f"{what}: launches in {STEPS} steps {launches}, expected {want}")
     del task, state
@@ -707,11 +865,12 @@ def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool) -> dict:
     return launches
 
 
-def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict) -> None:
-    """Phase 10: B=16, same weights, EMA and draws, kernels vs plain CPU."""
+def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto") -> None:
+    """Phases 10, 13, 14: B=16, same weights, EMA and draws, kernels vs
+    plain CPU."""
     n = 16
-    gpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda")
-    cpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cpu")
+    gpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+    cpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cpu", attn_impl=impl)
     gs, cs = gpu.init_state(1), cpu.init_state(1)
     cpu.model.load_state_dict(gpu.model.state_dict())
     cs.extra = {k: v.cpu().clone() for k, v in gs.extra.items()}
@@ -725,11 +884,12 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict) -> None:
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, None,
                               tuple(d.cpu() for d in draws))
-    if launch_counts() != launched or launched != expected(jepa_launches(False)):
+    if launch_counts() != launched or launched != expected(jepa_launches(False, impl)):
         fail(f"launch counts: {launch_counts()} (the GPU JEPA step must launch "
-             f"{jepa_launches(False)}, the CPU step nothing)")
+             f"{jepa_launches(False, impl)}, the CPU step nothing)")
     lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
-    print(f"  JEPA B={n} loss: kernels on the card {lg:.6f}, plain on the CPU {lc:.6f}")
+    print(f"  JEPA attn_impl={impl} B={n} loss: kernels on the card {lg:.6f}, "
+          f"plain on the CPU {lc:.6f}")
     if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
         fail(f"JEPA loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
     lr = s_cpu["lr"]
@@ -760,6 +920,10 @@ def main() -> None:
     res.update(check_attention())
     print("phase 3c: patch-embed kernels vs plain version (B=768, bf16)", flush=True)
     res.update(check_embed())
+    print("phase 3d: whole-block kernels vs plain version (B=768, bf16)", flush=True)
+    res.update(check_stack("block"))
+    print("phase 3e: chained-block kernels vs plain version (B=768, bf16)", flush=True)
+    res.update(check_stack("chain"))
 
     cfg = load_config(REPO / "configs" / "mae.yaml")
     model_cfg = cfg["model"]
@@ -783,6 +947,16 @@ def main() -> None:
     add(mae_step(model_cfg, name, "auto", fused=True))
     print("phase 10: B=16 JEPA step, kernels vs plain CPU path", flush=True)
     jepa_cpu_agreement(model_cfg, jepa_cfg)
+    for phase, impl in ((11, "block"), (12, "chain")):
+        print(f"phase {phase}: MAE pretraining step, attn_impl={impl}, then B=16 "
+              "kernels vs plain CPU path", flush=True)
+        add(mae_step(model_cfg, name, impl))
+        cpu_agreement(model_cfg, impl)
+    for phase, impl in ((13, "block"), (14, "chain")):
+        print(f"phase {phase}: JEPA pretraining step, attn_impl={impl}, then B=16 "
+              "kernels vs plain CPU path", flush=True)
+        add(jepa_step(model_cfg, jepa_cfg, name, fused=False, impl=impl))
+        jepa_cpu_agreement(model_cfg, jepa_cfg, impl)
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]
@@ -791,6 +965,10 @@ def main() -> None:
              for pas, replaces in (("fwd", r_fwd), ("bwd", r_bwd))]
     rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/patch_embed.cu", replaces)
              for k, replaces in EMBED_KERNELS.items()]
+    rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/fused_block.cu", replaces)
+             for k, replaces in BLOCK_KERNELS.items()]
+    rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/block_chain.cu", replaces)
+             for k, replaces in CHAIN_KERNELS.items()]
     kernels = []
     for k, src, replaces in rows:
         r = res[k]

@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a C array of device pointers
 # name -> (restype, argtypes); every pointer and the stream are c_void_p, so
 # ctypes never narrows a 64-bit address to a 32-bit int
 _SIGNATURES = {
@@ -46,6 +47,15 @@ _SIGNATURES = {
     "ssrl_patch_embed_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "ssrl_patch_embed_bwd_workspace": (_LL, [_I] * 6),
     "ssrl_patch_embed_bwd": (_I, [_P] * 9 + [_I] * 5 + [_P]),
+    # x, params (12 per block), out, [stash,] ws, B, L, D, H, F, [N,] scale, stream
+    "ssrl_fused_block_fwd_workspace": (_LL, [_I] * 4),
+    "ssrl_fused_block_fwd": (_I, [_P, _PP, _P, _P] + [_I] * 5 + [_F, _P]),
+    "ssrl_fused_block_bwd_workspace": (_LL, [_I] * 4),
+    "ssrl_fused_block_bwd": (_I, [_P, _PP] + [_P] * 4 + [_I] * 5 + [_F, _P]),
+    "ssrl_block_chain_fwd_workspace": (_LL, [_I] * 5),
+    "ssrl_block_chain_fwd": (_I, [_P, _PP] + [_P] * 3 + [_I] * 6 + [_F, _P]),
+    "ssrl_block_chain_bwd_workspace": (_LL, [_I] * 4),
+    "ssrl_block_chain_bwd": (_I, [_P, _PP] + [_P] * 5 + [_I] * 6 + [_F, _P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -37,17 +37,13 @@
 // rounded to bf16 before the residual add. Backward: dS = P o (dP -
 // rowsum(dP o P)) from the f32 P, rounded to bf16; dbqkv summed from the f32
 // dqkv while dWqkv uses its bf16 form; all weight and bias gradients in f32.
+// The incoming gradient is bf16 here; the whole-block and chain kernels pass
+// an f32 one with its bf16 form (csrc/branch.cuh).
 #include "common.cuh"
+#include "branch.cuh"
 #include "mha.cuh"
 
 namespace {
-
-// head dim <= 32; L bounded by the attention backward's shared memory
-// (L <= 160 at d = 32, ssrl::mha_fits)
-bool shape_ok(int B, int L, int D, int H) {
-  if (B < 1 || L < 1 || D < 8 || D > 256 || H < 1 || D % H || D / H > 32) return false;
-  return ssrl::mha_fits(L, D / H);
-}
 
 // The attention core's view of the fused (B*L, 3D) qkv buffer: q | k | v
 // along the features, the attention output `a` and its gradient (B*L, D).
@@ -106,122 +102,112 @@ size_t bwd_carve(Carver& c, int B, int L, int D, bf16** y1, bf16** qkv, bf16** d
   return c.off;
 }
 
-}  // namespace
-
-extern "C" {
-
-long long ssrl_attn_branch_fwd_workspace(int B, int L, int D, int stash) {
-  Carver c{nullptr};
-  bf16 *y1, *qkv, *as;
-  return (long long)fwd_carve(c, (size_t)B * L, D, stash != 0, &y1, &qkv, &as);
+// y1 = LN1(x); qkv = bf16(y1 @ Wqkv^T + bqkv)
+void ln_qkv(const bf16* x, const ssrl::BranchParams& p, bf16* y1, bf16* qkv, int M,
+            int D, cudaStream_t st) {
+  launch_ln_fwd(x, p.ln_s, p.ln_b, y1, M, D, st);
+  GemmArgs g{};
+  g.A = y1; g.lda = D;
+  g.B = p.wa; g.ldb = D;
+  g.M = M; g.N = 3 * D; g.K = D;
+  g.C = qkv; g.ldc = 3 * D;
+  g.bias = p.ba;
+  launch_gemm<false, true, EPI_BIAS_BF16>(g, 1, st);
 }
 
-// x, out, a: [B*L][D] bf16; ln_s, ln_b: [D] f32; wqkv: [3D][D], bqkv: [3D],
-// wp: [D][D], bp: [D] bf16 (torch Linear layout). `a` null: no stash.
-int ssrl_attn_branch_fwd(const void* x, const void* ln_s, const void* ln_b,
-                         const void* wqkv, const void* bqkv, const void* wp,
-                         const void* bp, void* out, void* a, void* ws, int B,
-                         int L, int D, int H, float scale, void* stream) {
-  if (!shape_ok(B, L, D, H)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+}  // namespace
+
+namespace ssrl {
+
+// head dim <= 32; L bounded by the attention backward's shared memory
+// (L <= 160 at d = 32, ssrl::mha_fits)
+bool attn_shape_ok(int B, int L, int D, int H) {
+  if (B < 1 || L < 1 || D < 8 || D > 256 || H < 1 || D % H || D / H > 32) return false;
+  return mha_fits(L, D / H);
+}
+
+size_t attn_fwd_workspace(int B, int L, int D, bool stash) {
+  Carver c{nullptr};
+  bf16 *y1, *qkv, *as;
+  return fwd_carve(c, (size_t)B * L, D, stash, &y1, &qkv, &as);
+}
+
+cudaError_t attn_fwd(const bf16* x, const BranchParams& p, bf16* out, bf16* a,
+                     void* ws, int B, int L, int D, int H, float scale,
+                     cudaStream_t st) {
+  if (!attn_shape_ok(B, L, D, H)) return cudaErrorInvalidValue;
   const int M = B * L;
   Carver c{static_cast<char*>(ws)};
   bf16 *y1, *qkv, *a_scratch;
   fwd_carve(c, M, D, a != nullptr, &y1, &qkv, &a_scratch);
-  bf16* abuf = a ? static_cast<bf16*>(a) : a_scratch;
-  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* abuf = a ? a : a_scratch;
 
-  launch_ln_fwd(xb, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-                y1, M, D, st);
-  GemmArgs g{};
-  g.A = y1; g.lda = D;
-  g.B = static_cast<const bf16*>(wqkv); g.ldb = D;
-  g.M = M; g.N = 3 * D; g.K = D;
-  g.C = qkv; g.ldc = 3 * D;
-  g.bias = static_cast<const bf16*>(bqkv);
-  launch_gemm<false, true, EPI_BIAS_BF16>(g, 1, st);
-
-  ssrl::MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
+  ln_qkv(x, p, y1, qkv, M, D, st);
+  MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
   m.o = abuf;
-  cudaError_t e = ssrl::mha_fwd(m, st);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = mha_fwd(m, st);
+  if (e != cudaSuccess) return e;
 
   GemmArgs o{};
   o.A = abuf; o.lda = D;
-  o.B = static_cast<const bf16*>(wp); o.ldb = D;
+  o.B = p.wb; o.ldb = D;
   o.M = M; o.N = D; o.K = D;
   o.C = out; o.ldc = D;
-  o.bias = static_cast<const bf16*>(bp);
-  o.R = xb;
+  o.bias = p.bb;
+  o.R = x;
   launch_gemm<false, true, EPI_BIAS_RESID>(o, 1, st);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
-long long ssrl_attn_branch_bwd_workspace(int B, int L, int D) {
+size_t attn_bwd_workspace(int B, int L, int D) {
   Carver c{nullptr};
   bf16 *y1, *qkv, *da, *dqkv;
   float *dy1, *part, *tmp;
-  return (long long)bwd_carve(c, B, L, D, &y1, &qkv, &da, &dqkv, &dy1, &part, &tmp);
+  return bwd_carve(c, B, L, D, &y1, &qkv, &da, &dqkv, &dy1, &part, &tmp);
 }
 
-// Outputs (all written, none accumulated): dx [B*L][D] bf16; dln3 [3][D] f32
-// = (d ln_s, d ln_b, d bp); dwqkv [3D][D], dbqkv [3D], dwp [D][D] f32.
-int ssrl_attn_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
-                         const void* wqkv, const void* bqkv, const void* wp,
-                         const void* a, const void* gy, void* dx, void* dln3,
-                         void* dwqkv, void* dbqkv, void* dwp, void* ws, int B,
-                         int L, int D, int H, float scale, void* stream) {
-  if (!shape_ok(B, L, D, H)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+cudaError_t attn_bwd(const bf16* x, const BranchParams& p, const bf16* a, GradIn gy,
+                     GradOut dx, const BranchGrads& d, void* ws, int B, int L, int D,
+                     int H, float scale, cudaStream_t st) {
+  if (!attn_shape_ok(B, L, D, H)) return cudaErrorInvalidValue;
   const int M = B * L;
   const BwdPlan plan = bwd_plan(B, L, D);
   Carver c{static_cast<char*>(ws)};
   bf16 *y1, *qkv, *da, *dqkv;
   float *dy1, *part, *tmp;
   bwd_carve(c, B, L, D, &y1, &qkv, &da, &dqkv, &dy1, &part, &tmp);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* gyb = static_cast<const bf16*>(gy);
-  const bf16* wqkvb = static_cast<const bf16*>(wqkv);
 
   // recompute y1 = LN1(x) and qkv
-  launch_ln_fwd(xb, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-                y1, M, D, st);
-  GemmArgs g{};
-  g.A = y1; g.lda = D;
-  g.B = wqkvb; g.ldb = D;
-  g.M = M; g.N = 3 * D; g.K = D;
-  g.C = qkv; g.ldc = 3 * D;
-  g.bias = static_cast<const bf16*>(bqkv);
-  launch_gemm<false, true, EPI_BIAS_BF16>(g, 1, st);
+  ln_qkv(x, p, y1, qkv, M, D, st);
 
   // dWp = dy^T a (split over the B*L rows)
   GemmArgs w{};
-  w.A = gyb; w.lda = D;
-  w.B = static_cast<const bf16*>(a); w.ldb = D;
+  w.A = gy.op; w.lda = D;
+  w.B = a; w.ldb = D;
   w.M = D; w.N = D; w.K = M;
   w.k_chunk = plan.k_wp;
   w.C = part; w.ldc = D; w.c_split = (long long)D * D;
   launch_gemm<true, false, EPI_F32>(w, plan.s_wp, st);
-  reduce_rows(part, plan.s_wp, D * D, static_cast<float*>(dwp), tmp, st);
+  reduce_rows(part, plan.s_wp, D * D, d.dwb, tmp, st);
 
   // da = bf16(dy @ Wp)
-  GemmArgs d{};
-  d.A = gyb; d.lda = D;
-  d.B = static_cast<const bf16*>(wp); d.ldb = D;
-  d.M = M; d.N = D; d.K = D;
-  d.C = da; d.ldc = D;
-  launch_gemm<false, false, EPI_BF16>(d, 1, st);
+  GemmArgs g{};
+  g.A = gy.op; g.lda = D;
+  g.B = p.wb; g.ldb = D;
+  g.M = M; g.N = D; g.K = D;
+  g.C = da; g.ldc = D;
+  launch_gemm<false, false, EPI_BF16>(g, 1, st);
 
   // attention backward -> dqkv (bf16) and dbqkv
-  ssrl::MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
+  MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
   m.dO = da;
   m.dq = dqkv;
   m.dk = dqkv + D;
   m.dv = dqkv + 2 * D;
   m.colpart = part;
-  cudaError_t e = ssrl::mha_bwd(m, st);
-  if (e != cudaSuccess) return (int)e;
-  reduce_rows(part, B, 3 * D, static_cast<float*>(dbqkv), tmp, st);
+  cudaError_t e = mha_bwd(m, st);
+  if (e != cudaSuccess) return e;
+  reduce_rows(part, B, 3 * D, d.dba, tmp, st);
 
   // dWqkv = dqkv^T y1
   GemmArgs wq{};
@@ -231,21 +217,60 @@ int ssrl_attn_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
   wq.k_chunk = plan.k_wqkv;
   wq.C = part; wq.ldc = D; wq.c_split = (long long)3 * D * D;
   launch_gemm<true, false, EPI_F32>(wq, plan.s_wqkv, st);
-  reduce_rows(part, plan.s_wqkv, 3 * D * D, static_cast<float*>(dwqkv), tmp, st);
+  reduce_rows(part, plan.s_wqkv, 3 * D * D, d.dwa, tmp, st);
 
   // dy1 = dqkv @ Wqkv (f32)
   GemmArgs y{};
   y.A = dqkv; y.lda = 3 * D;
-  y.B = wqkvb; y.ldb = D;
+  y.B = p.wa; y.ldb = D;
   y.M = M; y.N = D; y.K = 3 * D;
   y.C = dy1; y.ldc = D;
   launch_gemm<false, false, EPI_F32>(y, 1, st);
 
   // dx = dy + LN1'(dy1); d ln_s, d ln_b and d bp = sum(dy)
-  launch_ln_bwd(xb, static_cast<const float*>(ln_s), dy1, gyb,
-                static_cast<bf16*>(dx), static_cast<float*>(dln3), part, tmp, M, D,
-                st);
-  return (int)cudaGetLastError();
+  launch_ln_bwd(x, p.ln_s, dy1, gy.op, gy.f32, dx.bf, dx.f32, d.dln3, part, tmp, M,
+                D, st);
+  return cudaGetLastError();
+}
+
+}  // namespace ssrl
+
+extern "C" {
+
+long long ssrl_attn_branch_fwd_workspace(int B, int L, int D, int stash) {
+  return (long long)ssrl::attn_fwd_workspace(B, L, D, stash != 0);
+}
+
+// x, out, a: [B*L][D] bf16; ln_s, ln_b: [D] f32; wqkv: [3D][D], bqkv: [3D],
+// wp: [D][D], bp: [D] bf16 (torch Linear layout). `a` null: no stash.
+int ssrl_attn_branch_fwd(const void* x, const void* ln_s, const void* ln_b,
+                         const void* wqkv, const void* bqkv, const void* wp,
+                         const void* bp, void* out, void* a, void* ws, int B,
+                         int L, int D, int H, float scale, void* stream) {
+  const void* p[6] = {ln_s, ln_b, wqkv, bqkv, wp, bp};
+  return (int)ssrl::attn_fwd(static_cast<const bf16*>(x), ssrl::branch_params(p),
+                             static_cast<bf16*>(out), static_cast<bf16*>(a), ws, B, L,
+                             D, H, scale, static_cast<cudaStream_t>(stream));
+}
+
+long long ssrl_attn_branch_bwd_workspace(int B, int L, int D) {
+  return (long long)ssrl::attn_bwd_workspace(B, L, D);
+}
+
+// Outputs (all written, none accumulated): dx [B*L][D] bf16; dln3 [3][D] f32
+// = (d ln_s, d ln_b, d bp); dwqkv [3D][D], dbqkv [3D], dwp [D][D] f32.
+int ssrl_attn_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
+                         const void* wqkv, const void* bqkv, const void* wp,
+                         const void* a, const void* gy, void* dx, void* dln3,
+                         void* dwqkv, void* dbqkv, void* dwp, void* ws, int B,
+                         int L, int D, int H, float scale, void* stream) {
+  const void* p[6] = {ln_s, ln_b, wqkv, bqkv, wp, nullptr};
+  const ssrl::BranchGrads d{static_cast<float*>(dln3), static_cast<float*>(dwqkv),
+                            static_cast<float*>(dbqkv), static_cast<float*>(dwp)};
+  return (int)ssrl::attn_bwd(
+      static_cast<const bf16*>(x), ssrl::branch_params(p), static_cast<const bf16*>(a),
+      {static_cast<const bf16*>(gy), nullptr}, {static_cast<bf16*>(dx), nullptr}, d,
+      ws, B, L, D, H, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@
 // Numerics follow the TPU kernels in ssrl_vit_mae_jepa_tpu/ops/block_pallas.py
 // (:28-32, :501-533, :573-651): bf16 operands with f32 accumulation, LayerNorm
 // statistics in f32 (two-pass, eps 1e-6), bias added in f32 before the single
-// rounding to bf16, exact-erf GELU on the bf16-rounded pre-activation.
+// rounding to bf16, exact-erf GELU on the bf16-rounded pre-activation (or, for
+// the whole-block kernel, on the f32 one: block_pallas.py:271).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -73,6 +74,8 @@ enum Epi : int {
   EPI_BIAS_RESID = 3,  // C = bf16(R + bf16(acc + bias))
   EPI_BIAS_GELU = 4,   // z = bf16(acc + bias); C = bf16(gelu(z)); Zout = z
   EPI_GELU_BWD = 5,    // dz = acc * gelu'(Zin); C = bf16(dz); colpart += dz
+  EPI_BIAS_GELU32 = 6, // z = acc + bias in f32; C = bf16(gelu(z)); Zout32 = z
+  EPI_GELU32_BWD = 7,  // EPI_GELU_BWD with the f32 pre-activation Zin32
 };
 
 struct GemmArgs {
@@ -88,6 +91,8 @@ struct GemmArgs {
   const bf16* R;           // residual, [M][ldc]
   const bf16* Zin;         // gelu pre-activation, [M][ldc]
   bf16* Zout;              // gelu pre-activation out, [M][ldc] (may be null)
+  const float* Zin32;      // f32 forms of Zin and Zout (EPI_*GELU32*)
+  float* Zout32;
   float* colpart;          // [gridDim.y][N] column sums of dz
 };
 
@@ -214,10 +219,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
     const bool in = (m < p.M) && (n < p.N);
     const float v = Cs[r * C_LD + c];
     const size_t o = (size_t)m * p.ldc + n;
-    if (EPI == EPI_GELU_BWD) {
+    if (EPI == EPI_GELU_BWD || EPI == EPI_GELU32_BWD) {
       float dz = 0.f;
       if (in) {
-        dz = v * gelu_grad(bf(p.Zin[o]));
+        dz = v * gelu_grad(EPI == EPI_GELU_BWD ? bf(p.Zin[o]) : p.Zin32[o]);
         static_cast<bf16*>(p.C)[o] = tobf(dz);
       }
       Cs[r * C_LD + c] = dz;  // own element only; summed per column below
@@ -236,9 +241,13 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
       const bf16 z = tobf(v + bf(p.bias[n]));
       if (p.Zout) p.Zout[o] = z;
       static_cast<bf16*>(p.C)[o] = tobf(gelu_f(bf(z)));
+    } else if (EPI == EPI_BIAS_GELU32) {
+      const float z = v + bf(p.bias[n]);
+      if (p.Zout32) p.Zout32[o] = z;
+      static_cast<bf16*>(p.C)[o] = tobf(gelu_f(z));
     }
   }
-  if (EPI == EPI_GELU_BWD) {
+  if (EPI == EPI_GELU_BWD || EPI == EPI_GELU32_BWD) {
     __syncthreads();
     for (int c = threadIdx.x; c < BN; c += GEMM_THREADS) {
       const int n = n0 + c;
@@ -358,14 +367,19 @@ __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
   }
 }
 
-// dx = bf16(gy + LN'(dy)); per-block partial column sums of
-// [dy * xhat | dy | gy] -> part[blockIdx.x][3][D].
+// dx = gy + LN'(dy), written as bf16 and, with DX32, also as f32 (dx32); gy
+// is the f32 gy32 with GY32, else the bf16 gy; per-block partial column sums
+// of [dy * xhat | dy | gy] -> part[blockIdx.x][3][D]. Compile-time flags, so
+// that the branch kernels' <false, false> is the plain bf16 kernel.
+template <bool GY32, bool DX32>
 __global__ void ln_bwd_kernel(const bf16* __restrict__ x,
                               const float* __restrict__ s,
                               const float* __restrict__ dy,
                               const bf16* __restrict__ gy,
-                              bf16* __restrict__ dx, float* __restrict__ part,
-                              int M, int D, int rows_per_block) {
+                              const float* __restrict__ gy32,
+                              bf16* __restrict__ dx, float* __restrict__ dx32,
+                              float* __restrict__ part, int M, int D,
+                              int rows_per_block) {
   __shared__ float red[LN_WARPS][3][256];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float as[LN_MAXV], ab[LN_MAXV], ag[LN_MAXV];
@@ -403,8 +417,10 @@ __global__ void ln_bwd_kernel(const bf16* __restrict__ x,
     for (int i = 0; i < LN_MAXV; ++i) {
       const int c = lane + 32 * i;
       if (c < D) {
-        const float g = bf(gy[base + c]);
-        dx[base + c] = tobf(g + (g0[i] - m1 - v[i] * m2) * inv);
+        const float g = GY32 ? gy32[base + c] : bf(gy[base + c]);
+        const float r = g + (g0[i] - m1 - v[i] * m2) * inv;
+        dx[base + c] = tobf(r);
+        if (DX32) dx32[base + c] = r;
         as[i] += d[i] * v[i];
         ab[i] += d[i];
         ag[i] += g;
@@ -442,11 +458,14 @@ inline void launch_ln_fwd(const bf16* x, const float* s, const float* b,
 
 // LN backward + reduction of its [ds | db | sum(gy)] partials into out3 (3*D).
 inline void launch_ln_bwd(const bf16* x, const float* s, const float* dy,
-                          const bf16* gy, bf16* dx, float* out3, float* part,
-                          float* tmp, int M, int D, cudaStream_t st) {
+                          const bf16* gy, const float* gy32, bf16* dx, float* dx32,
+                          float* out3, float* part, float* tmp, int M, int D,
+                          cudaStream_t st) {
   const int nb = ln_bwd_blocks(M);
   const int rpb = cdiv(M, nb);
-  ln_bwd_kernel<<<nb, 32 * LN_WARPS, 0, st>>>(x, s, dy, gy, dx, part, M, D, rpb);
+  auto kernel = gy32 ? (dx32 ? &ln_bwd_kernel<true, true> : &ln_bwd_kernel<true, false>)
+                     : (dx32 ? &ln_bwd_kernel<false, true> : &ln_bwd_kernel<false, false>);
+  kernel<<<nb, 32 * LN_WARPS, 0, st>>>(x, s, dy, gy, gy32, dx, dx32, part, M, D, rpb);
   reduce_rows(part, nb, 3 * D, out3, tmp, st);
 }
 

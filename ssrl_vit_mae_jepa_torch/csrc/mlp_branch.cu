@@ -24,14 +24,13 @@
 // Numerics contract: LN statistics in f32 (two-pass, eps 1e-6); y2 in bf16;
 // z rounded to bf16 before the exact-erf GELU; h in bf16; the fc2 output
 // rounded to bf16 before the residual add. db1 is summed from the f32 dz and
-// dW1 uses the bf16-rounded dz; every weight and bias gradient is f32.
+// dW1 uses the bf16-rounded dz; every weight and bias gradient is f32. The
+// whole-block kernel keeps z in f32 (z_f32, the EPI_*GELU32* epilogues), and
+// it and the chain pass an f32 incoming gradient (csrc/branch.cuh).
 #include "common.cuh"
+#include "branch.cuh"
 
 namespace {
-
-bool shape_ok(int M, int D, int F) {
-  return M >= 1 && D >= 8 && D <= 256 && F >= 8 && D % 8 == 0 && F % 8 == 0;
-}
 
 size_t fwd_carve(Carver& c, size_t M, int D, int F, bf16** y2, bf16** h) {
   *y2 = c.take<bf16>(M * D);
@@ -57,11 +56,14 @@ BwdPlan bwd_plan(int M, int D, int F) {
   return p;
 }
 
-size_t bwd_carve(Carver& c, int M, int D, int F, bf16** y2, bf16** z, bf16** h,
-                 bf16** dz, float** dy2, float** part, float** tmp) {
+// z is bf16, or f32 (z32) for the whole block
+size_t bwd_carve(Carver& c, int M, int D, int F, bool z_f32, bf16** y2, bf16** z,
+                 float** z32, bf16** h, bf16** dz, float** dy2, float** part,
+                 float** tmp) {
   const BwdPlan p = bwd_plan(M, D, F);
   *y2 = c.take<bf16>((size_t)M * D);
-  *z = c.take<bf16>((size_t)M * F);
+  *z = z_f32 ? nullptr : c.take<bf16>((size_t)M * F);
+  *z32 = z_f32 ? c.take<float>((size_t)M * F) : nullptr;
   *h = c.take<bf16>((size_t)M * F);
   *dz = c.take<bf16>((size_t)M * F);
   *dy2 = c.take<float>((size_t)M * D);
@@ -70,106 +72,97 @@ size_t bwd_carve(Carver& c, int M, int D, int F, bf16** y2, bf16** z, bf16** h,
   return c.off;
 }
 
-// y2 = LN2(x); h = bf16(gelu(z)), z = bf16(y2 @ W1^T + b1) (stored if zout)
-void fc1_gelu(const bf16* x, const float* s, const float* b, const bf16* w1,
-              const bf16* b1, bf16* y2, bf16* h, bf16* zout, int M, int D, int F,
+// y2 = LN2(x); h = bf16(gelu(z)), z = y2 @ W1^T + b1, rounded to bf16 unless
+// z_f32 (stored to zout / zout32 if set)
+void fc1_gelu(const bf16* x, const ssrl::BranchParams& p, bf16* y2, bf16* h,
+              bf16* zout, float* zout32, int M, int D, int F, bool z_f32,
               cudaStream_t st) {
-  launch_ln_fwd(x, s, b, y2, M, D, st);
+  launch_ln_fwd(x, p.ln_s, p.ln_b, y2, M, D, st);
   GemmArgs g{};
   g.A = y2; g.lda = D;
-  g.B = w1; g.ldb = D;
+  g.B = p.wa; g.ldb = D;
   g.M = M; g.N = F; g.K = D;
   g.C = h; g.ldc = F;
-  g.bias = b1;
+  g.bias = p.ba;
   g.Zout = zout;
-  launch_gemm<false, true, EPI_BIAS_GELU>(g, 1, st);
+  g.Zout32 = zout32;
+  if (z_f32) launch_gemm<false, true, EPI_BIAS_GELU32>(g, 1, st);
+  else       launch_gemm<false, true, EPI_BIAS_GELU>(g, 1, st);
 }
 
 }  // namespace
 
-extern "C" {
+namespace ssrl {
 
-long long ssrl_mlp_branch_fwd_workspace(int M, int D, int F) {
-  Carver c{nullptr};
-  bf16 *y2, *h;
-  return (long long)fwd_carve(c, M, D, F, &y2, &h);
+bool mlp_shape_ok(int M, int D, int F) {
+  return M >= 1 && D >= 8 && D <= 256 && F >= 8 && D % 8 == 0 && F % 8 == 0;
 }
 
-// x, out: [M][D] bf16; ln_s, ln_b: [D] f32; w1: [F][D], b1: [F], w2: [D][F],
-// b2: [D] bf16 (torch Linear layout).
-int ssrl_mlp_branch_fwd(const void* x, const void* ln_s, const void* ln_b,
-                        const void* w1, const void* b1, const void* w2,
-                        const void* b2, void* out, void* ws, int M, int D, int F,
-                        void* stream) {
-  if (!shape_ok(M, D, F)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+size_t mlp_fwd_workspace(int M, int D, int F) {
+  Carver c{nullptr};
+  bf16 *y2, *h;
+  return fwd_carve(c, M, D, F, &y2, &h);
+}
+
+cudaError_t mlp_fwd(const bf16* x, const BranchParams& p, bf16* out, void* ws, int M,
+                    int D, int F, bool z_f32, cudaStream_t st) {
+  if (!mlp_shape_ok(M, D, F)) return cudaErrorInvalidValue;
   Carver c{static_cast<char*>(ws)};
   bf16 *y2, *h;
   fwd_carve(c, M, D, F, &y2, &h);
-  const bf16* xb = static_cast<const bf16*>(x);
-  fc1_gelu(xb, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-           static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), y2, h,
-           nullptr, M, D, F, st);
+  fc1_gelu(x, p, y2, h, nullptr, nullptr, M, D, F, z_f32, st);
   GemmArgs g{};
   g.A = h; g.lda = F;
-  g.B = static_cast<const bf16*>(w2); g.ldb = F;
+  g.B = p.wb; g.ldb = F;
   g.M = M; g.N = D; g.K = F;
   g.C = out; g.ldc = D;
-  g.bias = static_cast<const bf16*>(b2);
-  g.R = xb;
+  g.bias = p.bb;
+  g.R = x;
   launch_gemm<false, true, EPI_BIAS_RESID>(g, 1, st);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
-long long ssrl_mlp_branch_bwd_workspace(int M, int D, int F) {
+size_t mlp_bwd_workspace(int M, int D, int F, bool z_f32) {
   Carver c{nullptr};
   bf16 *y2, *z, *h, *dz;
-  float *dy2, *part, *tmp;
-  return (long long)bwd_carve(c, M, D, F, &y2, &z, &h, &dz, &dy2, &part, &tmp);
+  float *z32, *dy2, *part, *tmp;
+  return bwd_carve(c, M, D, F, z_f32, &y2, &z, &z32, &h, &dz, &dy2, &part, &tmp);
 }
 
-// Outputs (all written): dx [M][D] bf16; dln3 [3][D] f32 = (d ln_s, d ln_b,
-// d b2); dw1 [F][D], db1 [F], dw2 [D][F] f32.
-int ssrl_mlp_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
-                        const void* w1, const void* b1, const void* w2,
-                        const void* gy, void* dx, void* dln3, void* dw1,
-                        void* db1, void* dw2, void* ws, int M, int D, int F,
-                        void* stream) {
-  if (!shape_ok(M, D, F)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
+                    const BranchGrads& d, void* ws, int M, int D, int F, bool z_f32,
+                    cudaStream_t st) {
+  if (!mlp_shape_ok(M, D, F)) return cudaErrorInvalidValue;
   const BwdPlan plan = bwd_plan(M, D, F);
   Carver c{static_cast<char*>(ws)};
   bf16 *y2, *z, *h, *dz;
-  float *dy2, *part, *tmp;
-  bwd_carve(c, M, D, F, &y2, &z, &h, &dz, &dy2, &part, &tmp);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* gyb = static_cast<const bf16*>(gy);
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  const bf16* w2b = static_cast<const bf16*>(w2);
+  float *z32, *dy2, *part, *tmp;
+  bwd_carve(c, M, D, F, z_f32, &y2, &z, &z32, &h, &dz, &dy2, &part, &tmp);
 
-  fc1_gelu(xb, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-           w1b, static_cast<const bf16*>(b1), y2, h, z, M, D, F, st);
+  fc1_gelu(x, p, y2, h, z, z32, M, D, F, z_f32, st);
 
   // dW2 = dy^T h
   GemmArgs w{};
-  w.A = gyb; w.lda = D;
+  w.A = gy.op; w.lda = D;
   w.B = h; w.ldb = F;
   w.M = D; w.N = F; w.K = M;
   w.k_chunk = plan.k_w2;
   w.C = part; w.ldc = F; w.c_split = (long long)D * F;
   launch_gemm<true, false, EPI_F32>(w, plan.s_w2, st);
-  reduce_rows(part, plan.s_w2, D * F, static_cast<float*>(dw2), tmp, st);
+  reduce_rows(part, plan.s_w2, D * F, d.dwb, tmp, st);
 
   // dz = (dy @ W2) * gelu'(z), bf16; db1 from the f32 dz
   GemmArgs g{};
-  g.A = gyb; g.lda = D;
-  g.B = w2b; g.ldb = F;
+  g.A = gy.op; g.lda = D;
+  g.B = p.wb; g.ldb = F;
   g.M = M; g.N = F; g.K = D;
   g.C = dz; g.ldc = F;
   g.Zin = z;
+  g.Zin32 = z32;
   g.colpart = part;
-  launch_gemm<false, false, EPI_GELU_BWD>(g, 1, st);
-  reduce_rows(part, cdiv(M, BM), F, static_cast<float*>(db1), tmp, st);
+  if (z_f32) launch_gemm<false, false, EPI_GELU32_BWD>(g, 1, st);
+  else       launch_gemm<false, false, EPI_GELU_BWD>(g, 1, st);
+  reduce_rows(part, cdiv(M, BM), F, d.dba, tmp, st);
 
   // dW1 = dz^T y2
   GemmArgs w1g{};
@@ -179,20 +172,59 @@ int ssrl_mlp_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
   w1g.k_chunk = plan.k_w1;
   w1g.C = part; w1g.ldc = D; w1g.c_split = (long long)F * D;
   launch_gemm<true, false, EPI_F32>(w1g, plan.s_w1, st);
-  reduce_rows(part, plan.s_w1, F * D, static_cast<float*>(dw1), tmp, st);
+  reduce_rows(part, plan.s_w1, F * D, d.dwa, tmp, st);
 
   // dy2 = dz @ W1 (f32)
   GemmArgs y{};
   y.A = dz; y.lda = F;
-  y.B = w1b; y.ldb = D;
+  y.B = p.wa; y.ldb = D;
   y.M = M; y.N = D; y.K = F;
   y.C = dy2; y.ldc = D;
   launch_gemm<false, false, EPI_F32>(y, 1, st);
 
-  launch_ln_bwd(xb, static_cast<const float*>(ln_s), dy2, gyb,
-                static_cast<bf16*>(dx), static_cast<float*>(dln3), part, tmp, M, D,
+  launch_ln_bwd(x, p.ln_s, dy2, gy.op, gy.f32, dx.bf, dx.f32, d.dln3, part, tmp, M, D,
                 st);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace ssrl
+
+extern "C" {
+
+long long ssrl_mlp_branch_fwd_workspace(int M, int D, int F) {
+  return (long long)ssrl::mlp_fwd_workspace(M, D, F);
+}
+
+// x, out: [M][D] bf16; ln_s, ln_b: [D] f32; w1: [F][D], b1: [F], w2: [D][F],
+// b2: [D] bf16 (torch Linear layout).
+int ssrl_mlp_branch_fwd(const void* x, const void* ln_s, const void* ln_b,
+                        const void* w1, const void* b1, const void* w2,
+                        const void* b2, void* out, void* ws, int M, int D, int F,
+                        void* stream) {
+  const void* p[6] = {ln_s, ln_b, w1, b1, w2, b2};
+  return (int)ssrl::mlp_fwd(static_cast<const bf16*>(x), ssrl::branch_params(p),
+                            static_cast<bf16*>(out), ws, M, D, F, false,
+                            static_cast<cudaStream_t>(stream));
+}
+
+long long ssrl_mlp_branch_bwd_workspace(int M, int D, int F) {
+  return (long long)ssrl::mlp_bwd_workspace(M, D, F, false);
+}
+
+// Outputs (all written): dx [M][D] bf16; dln3 [3][D] f32 = (d ln_s, d ln_b,
+// d b2); dw1 [F][D], db1 [F], dw2 [D][F] f32.
+int ssrl_mlp_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
+                        const void* w1, const void* b1, const void* w2,
+                        const void* gy, void* dx, void* dln3, void* dw1,
+                        void* db1, void* dw2, void* ws, int M, int D, int F,
+                        void* stream) {
+  const void* p[6] = {ln_s, ln_b, w1, b1, w2, nullptr};
+  const ssrl::BranchGrads d{static_cast<float*>(dln3), static_cast<float*>(dw1),
+                            static_cast<float*>(db1), static_cast<float*>(dw2)};
+  return (int)ssrl::mlp_bwd(static_cast<const bf16*>(x), ssrl::branch_params(p),
+                            {static_cast<const bf16*>(gy), nullptr},
+                            {static_cast<bf16*>(dx), nullptr}, d, ws, M, D, F, false,
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* ssrl_error_string(int code) {

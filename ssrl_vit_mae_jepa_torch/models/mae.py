@@ -59,6 +59,7 @@ class MAEDecoder(nn.Module):
         super().__init__()
         dd = decoder_embed_dim
         self.dtype = dtype
+        self.attn_impl = attn_impl
         self.decoder_embed = nn.Linear(embed_dim, dd)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, dd))
         self.decoder_pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1, dd))
@@ -82,7 +83,7 @@ class MAEDecoder(nn.Module):
         """Position embedding + decoder blocks, without the final norm
         (callers gather first and norm the gathered rows: LN is per token)."""
         x = x + self.decoder_pos_embed.to(self.dtype)
-        return run_block_stack(x, self.decoder_blocks)
+        return run_block_stack(x, self.decoder_blocks, self.attn_impl)
 
     def norm(self, x: torch.Tensor) -> torch.Tensor:
         return norm(x, self.decoder_norm, self.dtype)

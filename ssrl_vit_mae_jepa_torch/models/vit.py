@@ -15,16 +15,20 @@ of ``utils/torch_interop.py`` and the reference's ``.pt`` files load with
 ``strict=True``. Parameters are f32; the forward computes in ``dtype``
 (bf16 by default) with LayerNorm statistics in f32.
 
-A ``Block`` takes one of two routes, chosen by ``attn_impl`` as the JAX
+A ``Block`` takes one of three routes, chosen by ``attn_impl`` as the JAX
 package's ``block_impl`` chooses (``block_impl`` below):
 
 - the branch route (auto, split, split_pad): the two residual branches
   through ``ops/block_fused.py``;
-- the sub-layer route (xla, pallas, packed, stacked): LN, ``Attention``, LN,
-  ``Mlp`` as separate modules, with attention dispatched by
-  ``ops/attention.py`` to ``mha_xla`` or to an attention kernel.
+- the whole-block route (block): ``ops/block_fused.py::fused_block``;
+- the sub-layer route (xla, pallas, packed, stacked, chain): LN,
+  ``Attention``, LN, ``Mlp`` as separate modules, with attention dispatched
+  by ``ops/attention.py`` to ``mha_xla`` or to an attention kernel.
 
-Each kernel runs on a CUDA tensor and its plain version on a CPU tensor.
+Under ``attn_impl="chain"`` a stack of blocks (``run_block_stack``) runs as
+one chain, ``ops/block_chain.py``, reading each block's 12 tensors from its
+modules (so ``torch.func.functional_call`` still substitutes them). Each
+kernel runs on a CUDA tensor and its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -43,9 +47,11 @@ from ssrl_vit_mae_jepa_torch.ops.attention import (
     use_stacked_split,
     validate_impl,
 )
+from ssrl_vit_mae_jepa_torch.ops.block_chain import chain_impl, fused_block_chain
 from ssrl_vit_mae_jepa_torch.ops.block_fused import (
     LN_EPS,
     fused_attn_branch,
+    fused_block,
     fused_mlp_branch,
     layer_norm,
 )
@@ -111,16 +117,13 @@ class Attention(nn.Module):
 
 
 def block_impl(impl: str) -> Optional[str]:
-    """The block's route for ``attn_impl``: ``"split"`` (the branch kernels)
-    or None (the sub-layer route), as ``ops/block_pallas.py::block_impl``
-    decides. The whole-block and chained-block kernels are not ported."""
+    """The block's route for ``attn_impl``: ``"split"`` (the branch
+    kernels), ``"mono"`` (the whole-block kernel) or None (the sub-layer
+    route, also for ``"chain"``: a single block never chains), as
+    ``ops/block_pallas.py::block_impl`` decides."""
     validate_impl(impl)
-    if impl in ("block", "chain"):
-        item = 8 if impl == "block" else 9
-        raise NotImplementedError(
-            f"attn_impl={impl!r} needs a kernel that is not ported yet "
-            f"(ROADMAP queue 2 item {item})"
-        )
+    if impl == "block":
+        return "mono"
     return "split" if impl in ("auto", "split", "split_pad") else None
 
 
@@ -137,9 +140,19 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
 
+    def block_params(self):
+        """The 12 tensors in the JAX package's ``_BLOCK_TREE`` order
+        (``models/vit.py:213-220``), torch layouts."""
+        a, m = self.attn, self.mlp
+        return (self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
+                a.proj.weight, a.proj.bias, self.norm2.weight, self.norm2.bias,
+                m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         a, m = self.attn, self.mlp
+        if self.route == "mono":
+            return fused_block(x, self.block_params(), a.num_heads)
         if self.route is None:
             x = x + a(norm(x, self.norm1, self.dtype))
             return x + m(norm(x, self.norm2, self.dtype))
@@ -153,7 +166,15 @@ class Block(nn.Module):
         )
 
 
-def run_block_stack(x: torch.Tensor, blocks) -> torch.Tensor:
+def run_block_stack(x: torch.Tensor, blocks, attn_impl: str = "auto") -> torch.Tensor:
+    """The blocks in turn, or one chain where ``chain_impl`` says so
+    (``attn_impl="chain"``, ``models/vit.py:234-301`` of the JAX package)."""
+    if len(blocks):
+        b0 = blocks[0]
+        B, L, D = x.shape
+        H, F_ = b0.attn.num_heads, b0.mlp.fc1.out_features
+        if chain_impl(B, L, D, H, F_, len(blocks), attn_impl):
+            return fused_block_chain(x.to(b0.dtype), [b.block_params() for b in blocks], H)
     for blk in blocks:
         x = blk(x)
     return x
@@ -195,6 +216,7 @@ class VisionTransformer(nn.Module):
         self.in_chans = in_chans
         self.embed_dim = embed_dim
         self.dtype = dtype
+        self.attn_impl = attn_impl
         self.num_patches = (img_size // patch_size) ** 2
         self.sequence_length = self.num_patches + 1
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
@@ -231,7 +253,7 @@ class VisionTransformer(nn.Module):
             x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
             if idx_keep is not None:
                 x = get_at_index(x, idx_keep)
-        x = run_block_stack(x, self.blocks)
+        x = run_block_stack(x, self.blocks, self.attn_impl)
         return norm(x, self.norm, dt)
 
 

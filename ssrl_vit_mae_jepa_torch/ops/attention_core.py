@@ -115,8 +115,9 @@ def plain_fwd(q, k, v, post: bool) -> torch.Tensor:
     return (p.float() @ v.float()).to(q.dtype)
 
 
-def plain_bwd(q, k, v, g, post: bool):
-    """(dq, dk, dv) in q's dtype from f32 products of rounded operands."""
+def plain_bwd_f32(q, k, v, g, post: bool):
+    """(dq, dk, dv) in f32, before their one rounding, from f32 products of
+    rounded operands (the block kernels sum dbqkv from this form)."""
     dt, scale = q.dtype, _scale(q.shape[-1])
     s, qk = _scores(q, k, post)
     p = torch.softmax(s, dim=-1)
@@ -127,7 +128,12 @@ def plain_bwd(q, k, v, g, post: bool):
     dk = ds.mT @ qk.float()
     if post:
         dk = dk * scale
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    return dq, dk, dv
+
+
+def plain_bwd(q, k, v, g, post: bool):
+    """(dq, dk, dv) in q's dtype."""
+    return tuple(t.to(q.dtype) for t in plain_bwd_f32(q, k, v, g, post))
 
 
 class _Plain(torch.autograd.Function):

@@ -1,32 +1,42 @@
-"""The two residual branches of a pre-LN transformer block, as CUDA kernels.
+"""A pre-LN transformer block as CUDA kernels: its two residual branches,
+and the whole block.
 
-Port of the split-branch part of ``ssrl_vit_mae_jepa_tpu/ops/block_pallas.py``
-(:477-862)::
+Port of ``ssrl_vit_mae_jepa_tpu/ops/block_pallas.py``::
 
     attn branch: x + bf16(MHA(bf16(LN1(x) Wqkv^T + bqkv)) Wp^T + bp)
     mlp branch:  x + bf16(fc2(bf16(GELU_erf(bf16(fc1(LN2(x)))))))
+    whole block: the two in turn, with z = fc1(LN2(x)) kept in f32
 
-``fused_attn_branch`` / ``fused_mlp_branch`` are the wrappers the model
+``fused_attn_branch`` / ``fused_mlp_branch`` (the split branches, :477-862)
+and ``fused_block`` (the whole block, :389-474) are the wrappers the model
 calls. On a CUDA tensor they launch the hand-written kernels of
-``csrc/attn_branch.cu`` and ``csrc/mlp_branch.cu`` through a
-``torch.autograd.Function`` whose backward is a kernel too; on a CPU tensor
-they run the plain versions ``attn_branch_ref`` / ``mlp_branch_ref``, which
-compute the same function with the same rounding points in tensor ops. There
-is no fallback: a CUDA tensor the kernel does not take raises.
+``csrc/attn_branch.cu``, ``csrc/mlp_branch.cu`` and ``csrc/fused_block.cu``
+through a ``torch.autograd.Function`` whose backward is a kernel too; on a
+CPU tensor they run the plain versions ``attn_branch_ref`` /
+``mlp_branch_ref`` / ``block_ref``, which compute the same function with the
+same rounding points in tensor ops. There is no fallback: a CUDA tensor the
+kernel does not take raises.
 
 Numerics (``block_pallas.py:28-32``): LN statistics and softmax in f32, LN
 eps 1e-6, products of rounded operands accumulated in f32, bf16 rounding of
 y1, qkv, the scaled q, P, ``a``, the projection, z, h and the fc2 output;
-weight and bias gradients in f32, cast to each parameter's dtype.
+weight and bias gradients in f32, cast to each parameter's dtype. The whole
+block rounds elsewhere (``block_pallas.py:256-317``): z stays f32 into the
+GELU, and its backward keeps the gradient between the branches in f32,
+rounded only as a GEMM operand, so ``block_ref`` has a backward of its own
+(autograd over a bf16 forward would round it at the branch boundary).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from ssrl_vit_mae_jepa_torch import _build
 from ssrl_vit_mae_jepa_torch.ops.attention import mha_xla
+from ssrl_vit_mae_jepa_torch.ops.attention_core import fits, heads_of, plain_bwd_f32
 
 LN_EPS = 1e-6
 
@@ -37,6 +47,9 @@ LAUNCHES = {
     "attn_branch_bwd": 0,
     "mlp_branch_fwd": 0,
     "mlp_branch_bwd": 0,
+    "block_fwd": 0,         # the whole block, in a graph
+    "block_fwd_nograd": 0,  # the same kernel for no-grad callers
+    "block_bwd": 0,
 }
 
 
@@ -56,8 +69,10 @@ def _dense(x, w, b):
     return x.float() @ w.to(dt).float().t() + b.to(dt).float()
 
 
-def attn_branch_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads):
-    """Plain attention branch; x (B, L, D), weights in torch Linear layout."""
+def attn_fwd_plain(x, p, num_heads):
+    """The attention branch of ``p`` = (ln_s, ln_b, wqkv, bqkv, wproj,
+    bproj): (x + proj, the attention output ``a``)."""
+    ln_scale, ln_bias, wqkv, bqkv, wproj, bproj = p
     dt = x.dtype
     B, L, D = x.shape
     d = D // num_heads
@@ -66,16 +81,141 @@ def attn_branch_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads):
     q, k, v = qkv.reshape(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
     q = (q.float() * (1.0 / d**0.5)).to(dt)
     a = mha_xla(q, k, v, scale=1.0).transpose(1, 2).reshape(B, L, D)
-    return x + _dense(a, wproj, bproj).to(dt)
+    return x + _dense(a, wproj, bproj).to(dt), a
+
+
+def mlp_fwd_plain(x, p, round_z: bool = True):
+    """The MLP branch of ``p`` = (ln_s, ln_b, w1, b1, w2, b2), exact-erf
+    GELU on z rounded to x's dtype (``round_z``) or in f32."""
+    ln_scale, ln_bias, w1, b1, w2, b2 = p
+    dt = x.dtype
+    y2 = layer_norm(x, ln_scale, ln_bias).to(dt)
+    z = _dense(y2, w1, b1)
+    if round_z:
+        z = z.to(dt)
+    h = F.gelu(z.float()).to(dt)
+    return x + _dense(h, w2, b2).to(dt)
+
+
+def attn_branch_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads):
+    """Plain attention branch; x (B, L, D), weights in torch Linear layout."""
+    return attn_fwd_plain(x, (ln_scale, ln_bias, wqkv, bqkv, wproj, bproj), num_heads)[0]
 
 
 def mlp_branch_ref(x, ln_scale, ln_bias, w1, b1, w2, b2):
     """Plain MLP branch with exact-erf GELU on the bf16-rounded z."""
+    return mlp_fwd_plain(x, (ln_scale, ln_bias, w1, b1, w2, b2))
+
+
+# ---------------------------------------------------------------------------
+# Plain backward of a branch from an f32 residual gradient (the whole block,
+# and the chain of ops/block_chain.py): the kernels' rounding points
+# ---------------------------------------------------------------------------
+
+
+def _rows(t):
+    return t.reshape(-1, t.shape[-1])
+
+
+def _tn(a, b):
+    """aᵀ b over the rows, f32: the weight gradient in torch layout."""
+    return _rows(a).float().t() @ _rows(b).float()
+
+
+def _gelu_grad(z):
+    """d gelu / dz = Φ(z) + z·φ(z), f32."""
+    return (0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+            + z * torch.exp(-0.5 * z * z) * 0.3989422804014327)
+
+
+def _ln_bwd(dy, x, scale):
+    """f32 LayerNorm backward from f32 dy: (dx, d scale, d bias)."""
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + LN_EPS)
+    xhat = xc * inv
+    g0 = dy * scale.float()
+    dx = (g0 - g0.mean(-1, keepdim=True) - xhat * (g0 * xhat).mean(-1, keepdim=True)) * inv
+    return dx, (_rows(dy) * _rows(xhat)).sum(0), _rows(dy).sum(0)
+
+
+def mlp_bwd_plain(x, p, gy, round_z: bool):
+    """(gy + the MLP branch's input gradient, in f32; its 6 f32 parameter
+    gradients) from the f32 output gradient ``gy``, rounded only as the
+    GEMM operand; d b2 sums the f32 gy (``block_pallas.py:288-298``,
+    ``block_chain.py:147-166``)."""
     dt = x.dtype
+    ln_scale, ln_bias, w1, b1, w2, _ = p
     y2 = layer_norm(x, ln_scale, ln_bias).to(dt)
-    z = _dense(y2, w1, b1).to(dt)
-    h = F.gelu(z.float()).to(dt)
-    return x + _dense(h, w2, b2).to(dt)
+    z = _dense(y2, w1, b1)
+    if round_z:
+        z = z.to(dt).float()
+    h = F.gelu(z).to(dt)
+    gc = gy.to(dt).float()
+    dz = (gc @ w2.to(dt).float()) * _gelu_grad(z)
+    dzc = dz.to(dt).float()
+    dx, ds, db = _ln_bwd(dzc @ w1.to(dt).float(), x, ln_scale)
+    return gy + dx, (ds, db, _tn(dzc, y2), _rows(dz).sum(0), _tn(gc, h), _rows(gy).sum(0))
+
+
+def attn_bwd_plain(x, p, a, gy, num_heads):
+    """The attention branch's counterpart of ``mlp_bwd_plain``, from the
+    branch input ``x`` and attention output ``a``; dbqkv sums the f32 dqkv
+    and dbp the f32 gy (``block_pallas.py:300-316``, ``block_chain.py:167-194``)."""
+    dt = x.dtype
+    ln_scale, ln_bias, wqkv, bqkv, wproj, _ = p
+    B, L, D = x.shape
+    y1 = layer_norm(x, ln_scale, ln_bias).to(dt)
+    qkv = _dense(y1, wqkv, bqkv).to(dt)
+    dp = gy.to(dt).float()
+    da = (dp @ wproj.to(dt).float()).to(dt)
+    q, k, v = (heads_of(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    parts = plain_bwd_f32(q, k, v, heads_of(da, num_heads), post=False)
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B, L, D) for t in parts], dim=-1)
+    dqkvc = dqkv.to(dt).float()
+    dx, ds, db = _ln_bwd(dqkvc @ wqkv.to(dt).float(), x, ln_scale)
+    return gy + dx, (ds, db, _tn(dqkvc, y1), _rows(dqkv).sum(0), _tn(dp, a), _rows(gy).sum(0))
+
+
+def block_bwd_plain(x, params, g, num_heads):
+    """The whole block's backward from x, by full recompute: (dx rounded
+    once, the 12 gradients cast to each parameter's dtype)."""
+    x_mid, a = attn_fwd_plain(x, params[:6], num_heads)
+    gy, gm = mlp_bwd_plain(x_mid, params[6:], g.to(x.dtype).float(), round_z=False)
+    gy, ga = attn_bwd_plain(x, params[:6], a, gy, num_heads)
+    return gy.to(x.dtype), [d.to(t.dtype) for d, t in zip(ga + gm, params)]
+
+
+class _BlockPlain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, num_heads, *params):
+        ctx.save_for_backward(x, *params)
+        ctx.num_heads = num_heads
+        x_mid, _ = attn_fwd_plain(x, params[:6], num_heads)
+        return mlp_fwd_plain(x_mid, params[6:], round_z=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        dx, grads = block_bwd_plain(x, params, g, ctx.num_heads)
+        return (dx, None, *grads)
+
+
+def block_ref(x, params, num_heads):
+    """Plain whole block: ``params`` the 12 tensors in ``_BLOCK_TREE`` order
+    (ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1, b1, w2, b2),
+    weights in torch Linear layout."""
+    return _BlockPlain.apply(x, num_heads, *params)
+
+
+def supported(B: int, L: int, D: int, H: int, F: int) -> bool:
+    """Whether the block kernels (``fused_block`` and the chain) take the
+    shape: ``ssrl::block_shape_ok`` of ``csrc/branch.cuh`` -- 8 <= D <= 256,
+    D and F multiples of 8, D % H == 0, and the attention core's fit
+    (head dim <= 32, ``attention_core.fits``). The JAX package's VMEM bound
+    (``block_pallas.supported``) is a TPU fit, not this one."""
+    return (B >= 1 and 8 <= D <= 256 and D % 8 == 0 and F >= 8 and F % 8 == 0
+            and H >= 1 and D % H == 0 and fits(L, D // H))
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +232,7 @@ def _prep6(ln_s, ln_b, wa, ba, wb, bb, dt):
 
 def _check_x(x: torch.Tensor, D: int) -> None:
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"the branch kernels take bfloat16 activations, got {x.dtype}")
+        raise TypeError(f"the block kernels take bfloat16 activations, got {x.dtype}")
     if x.dim() != 3 or x.shape[-1] != D:
         raise ValueError(f"expected (B, L, {D}) activations, got {tuple(x.shape)}")
 
@@ -101,9 +241,13 @@ def _check_params(params, shapes) -> None:
     for t, shape in zip(params, shapes):
         if t.device.type != "cuda" or tuple(t.shape) != shape:
             raise ValueError(
-                f"branch parameter must be a CUDA tensor of shape {shape}, "
+                f"block parameter must be a CUDA tensor of shape {shape}, "
                 f"got {tuple(t.shape)} on {t.device}"
             )
+
+
+def _scale(D: int, num_heads: int) -> float:
+    return 1.0 / (D // num_heads) ** 0.5
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -124,7 +268,7 @@ def _attn_fwd_cuda(x, kp, num_heads: int, stash: bool):
     _build.check(lib.ssrl_attn_branch_fwd(
         x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(),
         a.data_ptr() if stash else None, ws.data_ptr(),
-        B, L, D, num_heads, 1.0 / (D // num_heads) ** 0.5, _stream(x),
+        B, L, D, num_heads, _scale(D, num_heads), _stream(x),
     ), "attn_branch_fwd")
     return out, a
 
@@ -146,7 +290,7 @@ def _attn_bwd_cuda(x, kp, a, g, num_heads: int):
         bqkv.data_ptr(), wp.data_ptr(), a.data_ptr(), g.data_ptr(),
         dx.data_ptr(), dln3.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
         dwp.data_ptr(), ws.data_ptr(),
-        B, L, D, num_heads, 1.0 / (D // num_heads) ** 0.5, _stream(x),
+        B, L, D, num_heads, _scale(D, num_heads), _stream(x),
     ), "attn_branch_bwd")
     # (d ln_s, d ln_b, d wqkv, d bqkv, d wp, d bp)
     return dx, (dln3[0], dln3[1], dwqkv, dbqkv, dwp, dln3[2])
@@ -187,6 +331,93 @@ def _mlp_bwd_cuda(x, kp, g):
     ), "mlp_branch_bwd")
     # (d ln_s, d ln_b, d w1, d b1, d w2, d b2)
     return dx, (dln3[0], dln3[1], dw1, db1, dw2, dln3[2])
+
+
+def prep12(params, dt):
+    """A block's kernel operands, ``_prep6`` of each branch."""
+    return _prep6(*params[:6], dt) + _prep6(*params[6:], dt)
+
+
+def block_shapes(D: int, F_: int):
+    """The 12 parameter shapes of a block, torch layout."""
+    return [(D,), (D,), (3 * D, D), (3 * D,), (D, D), (D,),
+            (D,), (D,), (F_, D), (F_,), (D, F_), (D,)]
+
+
+def pointers(ts) -> ctypes.Array:
+    """A C array of the tensors' device addresses."""
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def block_grad_floats(D: int, F_: int) -> int:
+    return 3 * D + 3 * D * D + 3 * D + D * D + 3 * D + F_ * D + F_ + D * F_
+
+
+def grad_views(buf: torch.Tensor, D: int, F_: int):
+    """One block's 12 gradients, in parameter order, as views of its packed
+    f32 buffer (the layout of ``ssrl::block_grads`` in ``csrc/branch.cuh``)."""
+    dln_a, dwqkv, dbqkv, dwp, dln_m, dw1, db1, dw2 = buf.split(
+        [3 * D, 3 * D * D, 3 * D, D * D, 3 * D, F_ * D, F_, D * F_])
+    return (dln_a[:D], dln_a[D:2 * D], dwqkv.view(3 * D, D), dbqkv, dwp.view(D, D),
+            dln_a[2 * D:], dln_m[:D], dln_m[D:2 * D], dw1.view(F_, D), db1,
+            dw2.view(D, F_), dln_m[2 * D:])
+
+
+def check_block(x, params, num_heads: int) -> int:
+    """Raise on what the block kernels do not take; return F."""
+    B, L, D = x.shape if x.dim() == 3 else (0, 0, -1)
+    _check_x(x, D)
+    F_ = params[8].shape[0]
+    if not supported(B, L, D, num_heads, F_):
+        raise ValueError(f"the block kernels do not take B={B} L={L} D={D} "
+                         f"H={num_heads} F={F_}")
+    _check_params(params, block_shapes(D, F_))
+    return F_
+
+
+def _block_fwd_cuda(x, kp, num_heads: int, grad: bool):
+    B, L, D = x.shape
+    F_ = kp[8].shape[0]
+    lib = _build.load()
+    out = torch.empty_like(x)
+    ws = _workspace(lib.ssrl_fused_block_fwd_workspace(B, L, D, F_), x)
+    LAUNCHES["block_fwd" if grad else "block_fwd_nograd"] += 1
+    _build.check(lib.ssrl_fused_block_fwd(
+        x.data_ptr(), pointers(kp), out.data_ptr(), ws.data_ptr(),
+        B, L, D, num_heads, F_, _scale(D, num_heads), _stream(x),
+    ), "block_fwd")
+    return out
+
+
+def _block_bwd_cuda(x, kp, g, num_heads: int):
+    B, L, D = x.shape
+    F_ = kp[8].shape[0]
+    lib = _build.load()
+    dx = torch.empty_like(x)
+    grads = torch.empty(block_grad_floats(D, F_), dtype=torch.float32, device=x.device)
+    ws = _workspace(lib.ssrl_fused_block_bwd_workspace(B, L, D, F_), x)
+    LAUNCHES["block_bwd"] += 1
+    _build.check(lib.ssrl_fused_block_bwd(
+        x.data_ptr(), pointers(kp), g.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+        ws.data_ptr(), B, L, D, num_heads, F_, _scale(D, num_heads), _stream(x),
+    ), "block_bwd")
+    return dx, grad_views(grads, D, F_)
+
+
+class _Block(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, num_heads, *params):
+        kp = prep12(params, x.dtype)
+        ctx.save_for_backward(x, *kp)
+        ctx.num_heads = num_heads
+        ctx.param_dtypes = [t.dtype for t in params]
+        return _block_fwd_cuda(x, kp, num_heads, grad=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *kp = ctx.saved_tensors
+        dx, dparams = _block_bwd_cuda(x, kp, g.to(x.dtype).contiguous(), ctx.num_heads)
+        return (dx, None, *(d.to(t) for d, t in zip(dparams, ctx.param_dtypes)))
 
 
 class _AttnBranch(torch.autograd.Function):
@@ -267,3 +498,17 @@ def fused_mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2):
     if _needs_grad(x, params):
         return _MlpBranch.apply(x, *params)
     return _mlp_fwd_cuda(x, _prep6(*params, x.dtype))
+
+
+def fused_block(x, params, num_heads):
+    """The whole pre-LN block (``block_pallas.fused_block``): the kernels of
+    ``csrc/fused_block.cu`` on CUDA, ``block_ref`` on CPU. ``params``: the 12
+    tensors in ``_BLOCK_TREE`` order, weights in torch Linear layout."""
+    params = tuple(params)
+    if _route(x) == "cpu":
+        return block_ref(x, params, num_heads)
+    check_block(x, params, num_heads)
+    x = x.contiguous()
+    if _needs_grad(x, params):
+        return _Block.apply(x, num_heads, *params)
+    return _block_fwd_cuda(x, prep12(params, x.dtype), num_heads, grad=False)

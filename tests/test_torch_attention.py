@@ -30,6 +30,7 @@ from ssrl_vit_mae_jepa_torch.ops.attention_stacked import (
     mha_stacked_qkv_ref,
     mha_stacked_ref,
 )
+from ssrl_vit_mae_jepa_torch.ops.block_chain import chain_impl
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask as TMAETask
 from ssrl_vit_mae_jepa_torch.utils.interop import mae_params_from_jax, mae_params_to_state
 from ssrl_vit_mae_jepa_tpu.ops import attention_pallas as jpal
@@ -176,17 +177,43 @@ def test_validate_impl_rejects_a_typo():
             Block(48, 4, attn_impl=bad)
 
 
-@pytest.mark.parametrize("impl,item", [("block", 8), ("chain", 9)])
-def test_unported_block_kernels_raise(impl, item):
-    with pytest.raises(NotImplementedError, match=f"queue 2 item {item}"):
-        Block(48, 4, attn_impl=impl)
+def _chain(B=768, L=37, D=144, H=6, depth=4, impl="chain"):
+    return chain_impl(B, L, D, H, 4 * D, depth, impl)
+
+
+# case -> (what it runs, what it must give: a value, or the error it raises)
+ROUTES = {
+    "block_is_mono": (lambda: Block(48, 4, attn_impl="block").route, "mono"),
+    "chain_block_is_sublayer": (lambda: Block(48, 4, attn_impl="chain").route, None),
+    "chain_forced": (lambda: _chain(), True),
+    "chain_depth_1": (lambda: _chain(depth=1), ValueError),
+    "chain_d_mod_h": (lambda: _chain(D=100, H=6), ValueError),
+    "chain_beyond_fit": (lambda: _chain(L=161, D=64, H=2), ValueError),
+    "auto_never_chains": (lambda: _chain(impl="auto"), False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_block_and_chain_routes(case):
+    """The whole-block and chain policies (``block_pallas.block_impl``,
+    ``block_chain.chain_impl``): "block" takes the whole-block kernel, a
+    single "chain" block the sub-layer route; the stack takes the chain only
+    when forced, and a forced chain refuses depth 1, D % H and shapes beyond
+    the kernels' fit."""
+    run, want = ROUTES[case]
+    if isinstance(want, type) and issubclass(want, Exception):
+        with pytest.raises(want):
+            run()
+    else:
+        assert run() == want
 
 
 def test_block_routes():
-    routes = {impl: Block(48, 4, attn_impl=impl).route
-              for impl in ("auto", "split", "split_pad", "xla", "pallas", "packed", "stacked")}
+    impls = ("auto", "split", "split_pad", "xla", "pallas", "packed", "stacked", "block", "chain")
+    routes = {impl: Block(48, 4, attn_impl=impl).route for impl in impls}
     assert routes == {"auto": "split", "split": "split", "split_pad": "split",
-                      "xla": None, "pallas": None, "packed": None, "stacked": None}
+                      "xla": None, "pallas": None, "packed": None, "stacked": None,
+                      "block": "mono", "chain": None}
 
 
 def test_vit_from_config_takes_attn_impl():

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-two branch kernels, the four attention entries of ``csrc/mha.cu`` and the
-fused patch embed of ``csrc/patch_embed.cu``.
+two branch kernels, the whole-block kernel of ``csrc/fused_block.cu``, the
+chained-block kernel of ``csrc/block_chain.cu``, the four attention entries
+of ``csrc/mha.cu`` and the fused patch embed of ``csrc/patch_embed.cu``.
 
 Marked ``cuda`` and skipped without a GPU. The file imports no JAX, so it
 also runs where JAX is not installed; ``tests/conftest.py`` does import JAX,
@@ -13,9 +14,9 @@ tolerance of ``tests/test_block_kernel.py``). In the backward both sides
 round to bf16 at different points (the plain version's autograd rounds dW,
 dP and dy1 to bf16, the kernels keep them in f32), so each of the seven
 outputs is held to 2% of its largest magnitude: far below the O(1)
-relative error of a layout or indexing fault. The attention entries are
-held to the same bounds against their ``*_ref`` versions, which round at
-the kernel's own points.
+relative error of a layout or indexing fault. The attention entries, the
+whole block and the chain are held to the same bounds against their
+``*_ref`` versions, which round at the kernel's own points.
 """
 
 import pytest
@@ -23,6 +24,7 @@ import torch
 
 from ssrl_vit_mae_jepa_torch import _build
 from ssrl_vit_mae_jepa_torch.ops import attention_core as core
+from ssrl_vit_mae_jepa_torch.ops import block_chain as bc
 from ssrl_vit_mae_jepa_torch.ops import block_fused as bf
 from ssrl_vit_mae_jepa_torch.ops import embed_fused as ef
 from ssrl_vit_mae_jepa_torch.ops.attention_core import heads_of
@@ -101,6 +103,139 @@ def test_cuda_rejects_float32(cuda):
     x, _, params = _inputs("mlp", 2, 5, 16, cuda)
     with pytest.raises(TypeError):
         bf.fused_mlp_branch(x.float(), *params)
+
+
+# ---------------------------------------------------------------------------
+# the whole block and the chain
+# ---------------------------------------------------------------------------
+
+
+def _block_params(D, device, seed):
+    """One block's 12 f32 parameters, torch layout, at realistic scales."""
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    F_ = 4 * D
+    ps = [1.0 + 0.1 * rn(D), 0.1 * rn(D), rn(3 * D, D) * D**-0.5, 0.1 * rn(3 * D),
+          rn(D, D) * D**-0.5, 0.1 * rn(D), 1.0 + 0.1 * rn(D), 0.1 * rn(D),
+          rn(F_, D) * D**-0.5, 0.1 * rn(F_), rn(D, F_) * F_**-0.5, 0.1 * rn(D)]
+    return [t.to(device) for t in ps]
+
+
+def _stack_inputs(B, L, D, N, device):
+    g = torch.Generator().manual_seed(B + L + D + N)
+    x, dy = (torch.randn(B, L, D, generator=g).to(torch.bfloat16).to(device) for _ in range(2))
+    return x, dy, [_block_params(D, device, seed=D + k) for k in range(N)]
+
+
+def _stack_run(fn, x, dy, params_list):
+    """fn(x, params_list) with grad: (output, dx and every parameter's grad)."""
+    xl = x.clone().requires_grad_()
+    pl = [[t.clone().requires_grad_() for t in p] for p in params_list]
+    out = fn(xl, pl)
+    return out.detach(), torch.autograd.grad(out, [xl] + [t for p in pl for t in p], dy)
+
+
+def _close(out_k, grads_k, out_r, grads_r, fwd_atol=6e-2):
+    """Forward within ``fwd_atol``, each gradient within 2% of the plain
+    version's largest magnitude; the message lists every output's error."""
+    assert out_k.dtype == torch.bfloat16 and out_k.shape == out_r.shape
+    assert len(grads_k) == len(grads_r)
+    errs = [((out_k.float() - out_r.float()).abs().max().item(), fwd_atol)]
+    for a, b in zip(grads_k, grads_r):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        errs.append(((a.float() - b.float()).abs().max().item(),
+                     2e-2 * b.float().abs().max().item() + 1e-3))
+    assert all(e <= lim for e, lim in errs), [f"{e:.3g}/{lim:.3g}" for e, lim in errs]
+
+
+def _mono(H):
+    return lambda x, pl: bf.fused_block(x, pl[0], H)
+
+
+def _mono_ref(H):
+    return lambda x, pl: bf.block_ref(x, pl[0], H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H", SHAPES)
+def test_block_kernel_matches_plain(cuda, B, L, D, H):
+    """Forward and all 13 backward outputs of the whole block; one launch of
+    each entry; the no-grad forward gives the same bits."""
+    x, dy, params = _stack_inputs(B, L, D, 1, cuda)
+    before = dict(bf.LAUNCHES)
+    out_k, grads_k = _stack_run(_mono(H), x, dy, params)
+    assert {k: v - before[k] for k, v in bf.LAUNCHES.items() if v != before[k]} == {
+        "block_fwd": 1, "block_bwd": 1}
+    out_r, grads_r = _stack_run(_mono_ref(H), x, dy, params)
+    with torch.no_grad():
+        out_ng = bf.fused_block(x, params[0], H)
+    torch.cuda.synchronize()
+    assert torch.equal(out_ng, out_k) and bf.LAUNCHES["block_fwd_nograd"] == before[
+        "block_fwd_nograd"] + 1
+    _close(out_k, grads_k, out_r, grads_r)
+
+
+# (B, L, D, H, N): the five stacks of the flagship steps at B=768 (MAE
+# encoder and decoder, JEPA context encoder, predictor, target encoder) and
+# a ragged small one
+CHAIN_SHAPES = [(768, 37, 144, 6, 4), (768, 145, 192, 6, 2), (768, 45, 144, 6, 4),
+                (768, 145, 96, 6, 2), (768, 145, 144, 6, 4), (3, 17, 48, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H,N", CHAIN_SHAPES)
+def test_chain_kernel_matches_plain(cuda, B, L, D, H, N):
+    """Forward and all 12·N + 1 backward outputs of the chain; the no-grad
+    forward (nothing stashed) gives the stash forward's bits."""
+    x, dy, params = _stack_inputs(B, L, D, N, cuda)
+    before = dict(bc.LAUNCHES)
+    out_k, grads_k = _stack_run(lambda x, pl: bc.fused_block_chain(x, pl, H), x, dy, params)
+    with torch.no_grad():
+        out_ng = bc.fused_block_chain(x, params, H)
+    torch.cuda.synchronize()
+    assert bc.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert torch.equal(out_ng, out_k)
+    with torch.no_grad():  # the chain's forward is the split kernels' bit for bit
+        y = x
+        for p in params:
+            y = bf.fused_attn_branch(y, *p[:6], H)
+            y = bf.fused_mlp_branch(y, *p[6:])
+    assert torch.equal(y, out_k)
+    out_r, grads_r = _stack_run(lambda x, pl: bc.chain_ref(x, pl, H), x, dy, params)
+    # the bf16 forward tolerance per block: a rounding that flips in one
+    # block carries into the next
+    _close(out_k, grads_k, out_r, grads_r, fwd_atol=6e-2 * N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mono", "chain"])
+def test_block_kernels_are_deterministic(cuda, kind):
+    """Repeated calls on the same inputs give the same bits (no atomics:
+    every sum is a fixed-order reduction)."""
+    B, L, D, H = 768, 145, 192, 6
+    x, dy, params = _stack_inputs(B, L, D, 2 if kind == "chain" else 1, cuda)
+    fn = (lambda x, pl: bc.fused_block_chain(x, pl, H)) if kind == "chain" else _mono(H)
+    first = _stack_run(fn, x, dy, params)
+    for _ in range(2):
+        out, grads = _stack_run(fn, x, dy, params)
+        assert torch.equal(out, first[0])
+        assert all(torch.equal(a, b) for a, b in zip(grads, first[1]))
+
+
+@pytest.mark.cuda
+def test_block_kernels_refuse_what_they_do_not_take(cuda):
+    x, _, params = _stack_inputs(2, 17, 48, 2, cuda)
+    with pytest.raises(TypeError):
+        bf.fused_block(x.float(), params[0], 4)
+    with pytest.raises(TypeError):
+        bc.fused_block_chain(x.float(), params, 4)
+    with pytest.raises(ValueError):  # a CPU parameter with a CUDA activation
+        bf.fused_block(x, [params[0][0].cpu()] + params[0][1:], 4)
+    long, _, lparams = _stack_inputs(2, 161, 64, 2, cuda)  # d=32, L > 160
+    with pytest.raises(ValueError, match="do not take"):
+        bf.fused_block(long, lparams[0], 2)
+    with pytest.raises(ValueError, match="do not take"):
+        bc.fused_block_chain(long, lparams, 2)
 
 
 # entry -> (kernel wrapper, plain version); each called as in _attention_run

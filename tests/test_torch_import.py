@@ -26,9 +26,10 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 print(" ".join(names))
 """
-# the modules of the JEPA slice and the fused patch embed, among all others
+# the modules of the JEPA slice, the fused patch embed and the chained
+# blocks, among all others
 NEW_MODULES = {"config", "ops.jepa_masking", "ops.embed_fused", "models.jepa",
-               "training.jepa_task"}
+               "training.jepa_task", "ops.block_chain", "ops.block_fused"}
 
 
 def _run(args, timeout=120):
@@ -42,7 +43,7 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 17  # every module of the port
+    assert len(names) >= 18  # every module of the port
     assert {f"ssrl_vit_mae_jepa_torch.{m}" for m in NEW_MODULES} <= set(names)
 
 

@@ -4,15 +4,15 @@ NVIDIA GPU.
 
 Runs the flagship pretraining step of the PyTorch port (the geometry of
 ``configs/mae.yaml`` and the settings of ``chip_smoke.py``: B=768, bf16,
-augmentation on) for each ``--task`` and ``--attn-impl`` (the JEPA step
-takes auto only): 3 warm-up steps, then 5 steps timed with CUDA events,
+augmentation on) for each ``--task`` and each ``--attn-impl``: 3 warm-up
+steps, then 5 steps timed with CUDA events,
 then 5 steps under ``torch.profiler``. Prints, per run, the step time, the
 device time summed over all kernels, the device's idle share of the step
 and the kernels by device time per step; ``--out`` also writes them as
 JSON. ``SSRL_FUSED_EMBED=1`` in the environment switches the fused patch
 embed on. Needs a GPU::
 
-    python3 tools/torch_step_profile.py --task mae jepa --attn-impl auto packed pallas --out prof.json
+    python3 tools/torch_step_profile.py --task mae jepa --attn-impl auto block chain --out prof.json
 
 It imports no JAX and nothing of the JAX package.
 """
@@ -112,7 +112,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     out = {"card": card(), "kind": torch.cuda.get_device_name(0), "runs": []}
     print(out["card"])
-    runs = [(t, i) for t in args.task for i in args.attn_impl if t == "mae" or i == "auto"]
+    runs = [(t, i) for t in args.task for i in args.attn_impl]
     for name, impl in runs:
         r = profile(name, impl)
         out["runs"].append(r)
