@@ -20,12 +20,15 @@ Phases (any failure exits nonzero; nothing is caught):
      at the encoder and decoder shapes (``mha_stacked`` also at the JEPA
      predictor's), against their plain versions on the card, with the
      kernel's, the plain version's and ``F.scaled_dot_product_attention``'s
-     times (the yardstick, never a route of the port);
+     times (the yardstick, never a route of the port), the kernel's and
+     the yardstick's also as device time under ``torch.profiler``; and the
+     blocks per SM of both passes at (L, d) = (145, 32) and (37, 24);
   3c. the fused patch embed of ``csrc/patch_embed.cu``, forward and all
      backward outputs, at N=144, Pc=192, D=144 with K=37 (MAE), K=45 (JEPA
      context) and no index (JEPA target), against its plain version, with
      the kernel's, the plain version's and a gather + ``torch.matmul``'s
-     times (the yardstick);
+     times (the yardstick), and the kernel's and the yardstick's device
+     times;
   4. the flagship MAE step through ``MAETask`` (configs/mae.yaml geometry,
      bench.py's pretraining settings, B=768, bf16, augmentation on): warm-up,
      then timed steps; every loss finite, the params moved, and exactly one
@@ -75,13 +78,17 @@ predictor's sub-layer route and by direct calls); phase 3b drives them.
 The line before the last is ``{"kernels": [...]}`` (21 entries): per
 kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
 ``step`` (the MAE step where it runs the kernel, else the JEPA step),
-``*_jepa`` the same per JEPA step, ``*_<geometry>`` per call. The last line
-is ``{"ok": true, "device": {...}}``.
+``*_jepa`` the same per JEPA step, ``*_<geometry>`` per call. ``ms`` and
+the other times are CUDA-event means of the wrapper's call, host work
+included; ``device_ms`` and ``library_device_ms`` (attention and embed
+rows) are the summed durations of the device kernels one call launches.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -214,6 +221,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(evt) -> float:
+    """Self device time of a profiler event in µs (the name of the field
+    changed across PyTorch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    raise AttributeError("profiler event without a device time")
+
+
+def device_ms(fn, iters: int = 10, by_kernel: dict | None = None) -> float:
+    """Device time of one call of ``fn``: the summed durations of the device
+    kernels it launches, under ``torch.profiler``, over ``iters`` calls after
+    a warm-up call; ``by_kernel`` gets each kernel's share."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records no device activity
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        shares = {e.key: device_us(e) / 1e3 / iters for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+        if sum(shares.values()) > 0:
+            break
+        print("  (torch.profiler recorded no device time; profiling again)", flush=True)
+    else:
+        fail("torch.profiler saw no device time in three sessions")
+    if by_kernel is not None:
+        by_kernel.update(shares)
+    return sum(shares.values())
+
+
+def kernel_shares(shares: dict) -> str:
+    """'name ms, ...' of a device_ms breakdown, short names, largest first."""
+    def short(name: str) -> str:
+        return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0][:40]
+
+    return ", ".join(f"{short(k)} {v:.4f}"
+                     for k, v in sorted(shares.items(), key=lambda kv: -kv[1]))
+
+
 def bound(nbytes: float, flops: float):
     """(ms, what bounds it): the least time for the work at the card's peaks."""
     tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
@@ -285,7 +333,8 @@ def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
     step of the first main path that runs it (MAE before JEPA), the JEPA
     step's under ``*_jepa``, every geometry's per call under ``*_<geo>``."""
     runs = [s for s in ("mae", "jepa") if any(g in per_geo for g in calls_by_step.get(s, {}))]
-    keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                        "library_device_ms")
             if all(k in v for v in per_geo.values())]
     worst = max(per_geo.values(), key=lambda v: v["bound_ms"])
     r = {"max_abs_err": err, "bound_by": worst["bound_by"], "step": runs[0]}
@@ -495,8 +544,25 @@ def sdpa_inputs(entry: str, leaves, do, H: int):
     return [t.detach().contiguous().clone().requires_grad_() for t in qkv], doh.contiguous()
 
 
+def mha_occupancy() -> None:
+    """Phase 3b: blocks per SM of the attention kernels at the decoder's
+    and the encoder's head geometry, from the CUDA occupancy calculator."""
+    lib = _build.load()
+    for L, d in ((145, 32), (37, 24)):
+        for pas in ("fwd", "bwd"):
+            vals = [ctypes.c_int() for _ in range(4)]
+            _build.check(lib.ssrl_mha_occupancy(L, d, int(pas == "bwd"),
+                                                *(ctypes.byref(v) for v in vals)),
+                         "mha_occupancy")
+            blocks, warps, smem, regs = (v.value for v in vals)
+            print(f"  mha {pas} at L={L}, d={d}: {blocks} blocks of {warps} warps per SM "
+                  f"({blocks * warps} warps), {smem} bytes of shared memory a block, "
+                  f"{regs} registers a thread", flush=True)
+
+
 def check_attention() -> dict:
     """Phase 3b: per attention entry and pass, errors, times and bounds."""
+    mha_occupancy()
     res = {}
     for entry, (kern, ref, _, _, where) in ATTENTION.items():
         call = attention_call(entry)
@@ -540,6 +606,14 @@ def check_attention() -> dict:
                     lambda: torch.autograd.grad(out_s, qh, doh, retain_graph=True),
                     **ATT_TIMING),
             }
+            with torch.no_grad():
+                t_fwd["device_ms"] = device_ms(lambda: call(kern, leaves, H))
+                t_fwd["library_device_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(*qh))
+            t_bwd["device_ms"] = device_ms(
+                lambda: torch.autograd.grad(out_k, xs, do, retain_graph=True))
+            t_bwd["library_device_ms"] = device_ms(
+                lambda: torch.autograd.grad(out_s, qh, doh, retain_graph=True))
             (bf_ms, bf_by), (bb_ms, bb_by) = attention_bounds(L, D)
             per["fwd"][geo] = {**t_fwd, "bound_ms": bf_ms, "bound_by": bf_by}
             per["bwd"][geo] = {**t_bwd, "bound_ms": bb_ms, "bound_by": bb_by}
@@ -547,8 +621,10 @@ def check_attention() -> dict:
             print(f"  {entry}@{geo} L={L} D={D}: fwd {t_fwd['ms']:.3f} ms (plain "
                   f"{t_fwd['plain_ms']:.3f}, sdpa {t_fwd['library_ms']:.3f}, bound "
                   f"{bf_ms:.3f}), bwd {t_bwd['ms']:.3f} ms (plain {t_bwd['plain_ms']:.3f}, "
-                  f"sdpa {t_bwd['library_ms']:.3f}, bound {bb_ms:.3f}); fwd max abs err "
-                  f"{fwd_err:.3e}", flush=True)
+                  f"sdpa {t_bwd['library_ms']:.3f}, bound {bb_ms:.3f}); device fwd "
+                  f"{t_fwd['device_ms']:.4f} (sdpa {t_fwd['library_device_ms']:.4f}), bwd "
+                  f"{t_bwd['device_ms']:.4f} (sdpa {t_bwd['library_device_ms']:.4f}); "
+                  f"fwd max abs err {fwd_err:.3e}", flush=True)
             del out_k, out_r, out_s, grads_k, grads_r, xs, qh
         for pas in ("fwd", "bwd"):
             # per MAE step (4 encoder + 2 decoder calls), as if on its route
@@ -645,6 +721,16 @@ def check_embed() -> dict:
                                                                  retain_graph=True)),
                  "library_ms": t_lib_bwd}
         t_dp = cuda_ms(lambda: torch.autograd.grad(out_kp, [pl] + leaves, dy, retain_graph=True))
+        fwd_shares, bwd_shares = {}, {}
+        with torch.no_grad():
+            t_fwd["device_ms"] = device_ms(lambda: ef.fused_patch_embed(patches, *params, idx),
+                                           by_kernel=fwd_shares)
+            t_fwd["library_device_ms"] = device_ms(lambda: torch.matmul(rows(), wb.t()))
+            t_bwd["library_device_ms"] = device_ms(lambda: torch.matmul(
+                dyf.t()[:, : BATCH * EMBED_N] if idx is None else dyf.t(),
+                rows().reshape(-1, EMBED_PC)))
+        t_bwd["device_ms"] = device_ms(
+            lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True), by_kernel=bwd_shares)
         (bf_ms, bf_by), (bb_ms, bb_by), (bd_ms, _) = embed_bounds(K)
         per["fwd"][geo] = {**t_fwd, "bound_ms": bf_ms, "bound_by": bf_by}
         per["bwd"][geo] = {**t_bwd, "bound_ms": bb_ms, "bound_by": bb_by,
@@ -654,7 +740,12 @@ def check_embed() -> dict:
               f"gather+matmul {t_fwd['library_ms']:.3f}, bound {bf_ms:.4f}), bwd "
               f"{t_bwd['ms']:.3f} ms (plain {t_bwd['plain_ms']:.3f}, gather+matmul "
               f"{t_lib_bwd:.3f}, bound {bb_ms:.4f}), bwd with dpatches {t_dp:.3f} ms "
-              f"(bound {bd_ms:.4f}); fwd max abs err {fwd_err:.3e}", flush=True)
+              f"(bound {bd_ms:.4f}); device fwd {t_fwd['device_ms']:.4f} (gather+matmul "
+              f"{t_fwd['library_device_ms']:.4f}), bwd {t_bwd['device_ms']:.4f} "
+              f"(gather+matmul {t_bwd['library_device_ms']:.4f}); fwd max abs err "
+              f"{fwd_err:.3e}", flush=True)
+        print(f"    device fwd by kernel: {kernel_shares(fwd_shares)}")
+        print(f"    device bwd by kernel: {kernel_shares(bwd_shares)}", flush=True)
         del out_k, out_kp, out_r, out_rn, grads_k, grads_kp, grads_r
     res = {}
     for pas in ("fwd", "bwd"):

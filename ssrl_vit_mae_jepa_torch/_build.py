@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a C array of device pointers
+_PI = ctypes.POINTER(ctypes.c_int)  # an int the call writes
 # name -> (restype, argtypes); every pointer and the stream are c_void_p, so
 # ctypes never narrows a 64-bit address to a 32-bit int
 _SIGNATURES = {
@@ -40,6 +41,8 @@ _SIGNATURES = {
     "ssrl_mlp_branch_bwd_workspace": (_LL, [_I] * 3),
     "ssrl_mlp_branch_bwd": (_I, [_P] * 13 + [_I] * 3 + [_P]),
     "ssrl_mha_fits": (_I, [_I] * 2),
+    # L, d, bwd -> blocks per SM, warps a block, shared bytes, registers
+    "ssrl_mha_occupancy": (_I, [_I] * 3 + [_PI] * 4),
     # pointers, in strides (b, h, row), out strides, B, H, L, d, scale, post, stream
     "ssrl_mha_fwd": (_I, [_P] * 4 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_mha_bwd": (_I, [_P] * 7 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),

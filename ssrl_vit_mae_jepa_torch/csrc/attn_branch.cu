@@ -119,8 +119,7 @@ void ln_qkv(const bf16* x, const ssrl::BranchParams& p, bf16* y1, bf16* qkv, int
 
 namespace ssrl {
 
-// head dim <= 32; L bounded by the attention backward's shared memory
-// (L <= 160 at d = 32, ssrl::mha_fits)
+// head dim <= 32 and L <= 256, the attention core's fit (ssrl::mha_fits)
 bool attn_shape_ok(int B, int L, int D, int H) {
   if (B < 1 || L < 1 || D < 8 || D > 256 || H < 1 || D % H || D / H > 32) return false;
   return mha_fits(L, D / H);

@@ -103,15 +103,70 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) with ldmatrix fragment loads,
+// for the kernels that keep their tiles in registers (mha.cu, patch_embed.cu).
+// Lane l holds, with g = l / 4 and t = l % 4:
+//   A (16 x 16):  a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 8+2t..), a3 (g+8, 8+2t..)
+//   B (16 x 8):   b0 (k = 2t..2t+1, n = g), b1 (k = 8+2t.., n = g)
+//   C (16 x 8):   c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+// so the C tiles of two adjacent 8-column tiles are, packed to bf16, the A
+// fragment of the next product over those 16 columns.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// c += a b
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 values rounded to one bf16 pair, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// The element offset, in a row-major tile of leading dimension ld, whose
+// address lane `lane` gives ldmatrix.x4 for the 16 x 16 block at (r0, c0).
+//   ld_a: r[0..3] = a0..a3 of that block as an A operand (rows m, columns
+//         k), or, with .trans, b0, b1 of columns c0..c0+7 then of
+//         c0+8..c0+15 as a B operand stored k-major (rows k, columns n);
+//   ld_b: r[0..3] = b0, b1 of rows r0..r0+7 then of r0+8..r0+15 as a B
+//         operand stored n-major (rows n, columns k), or, with .trans,
+//         a0..a3 as an A operand stored k-major (rows k, columns m).
+__device__ __forceinline__ int ld_a(int r0, int c0, int ld, int lane) {
+  return (r0 + (lane & 15)) * ld + c0 + ((lane >> 4) << 3);
+}
+__device__ __forceinline__ int ld_b(int r0, int c0, int ld, int lane) {
+  return (r0 + (lane & 7) + ((lane >> 4) << 3)) * ld + c0 + (((lane >> 3) & 1) << 3);
 }
 
 // rows x cols tile (cols a multiple of 8) from a row-major matrix with leading
 // dimension gld, element (r0 + r, c0 + c), zero outside [0,rmax) x [0,cmax).
 // Aligned in-bounds 16-byte chunks go by cp.async (complete after the next
-// cp_async_wait_one + __syncthreads); ragged or unaligned ones are stored
+// cp_async_wait + __syncthreads); ragged or unaligned ones are stored
 // directly.
 __device__ __forceinline__ void load_tile(bf16* s, int sld, const bf16* g,
                                           int gld, int rows, int cols, int r0,
@@ -177,7 +232,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
   for (int k0 = kb; k0 < ke; k0 += BK, buf ^= 1) {
     if (k0 + BK < ke) load_stage(buf ^ 1, k0 + BK);
     cp_async_commit();
-    cp_async_wait_one();  // this step's tiles have landed
+    cp_async_wait<1>();  // this step's tiles have landed
     __syncthreads();
     const bf16* Ab = As[buf];
     const bf16* Bb = Bs[buf];

@@ -43,7 +43,8 @@ struct MhaArgs {
   int post;  // MhaScale
 };
 
-// Whether (L, d) fits the kernels: d <= 32 and the backward's shared memory.
+// Whether (L, d) fits the kernels: d <= 32 and L <= 256 (the backward's
+// shared memory then leaves two blocks per SM).
 bool mha_fits(int L, int d);
 // Launch on `st`; return cudaGetLastError() after the launch.
 cudaError_t mha_fwd(const MhaArgs& a, cudaStream_t st);

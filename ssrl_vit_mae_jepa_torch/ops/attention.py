@@ -6,7 +6,7 @@ before PV, the PV product accumulated in f32 and rounded once. The policies
 ``use_packed``, ``use_stacked_split`` and ``multi_head_attention`` keep the
 JAX package's semantics, with two substitutions: "on the TPU" becomes "the
 tensor is on a CUDA device", and the kernels' VMEM ``supported`` becomes the
-shared-memory fit of ``csrc/mha.cu`` (``attention_core.fits``). A forced
+fit of ``csrc/mha.cu`` (``attention_core.fits``: L <= 256, d <= 32). A forced
 ``"packed"`` or ``"pallas"`` on a shape the kernel cannot take raises.
 """
 

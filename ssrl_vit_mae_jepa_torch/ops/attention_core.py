@@ -18,6 +18,13 @@ Two rounding contracts (``csrc/mha.cuh``):
 Both round P and dS to the input dtype before their second product, keep
 scores, softmax and accumulation in f32, and round each output once.
 
+The kernel stores nothing L×L: a warp makes each 16×16 tile of the scores
+when it needs it. The forward's softmax is exact (row max, then row sum,
+then division); the backward runs in two phases, per 16-query strip (the
+row max and sum and rowsum(dP∘P), then dS and dq) and per 16-key strip (P
+recomputed from those statistics, dS, then dk and dv). Its fit is d ≤ 32
+and L ≤ 256 (:func:`fits`).
+
 :func:`attend` routes by device: a CPU tensor takes the plain version, a
 ``torch.autograd.Function`` whose forward and backward repeat the kernel's
 arithmetic in tensor ops (autograd over a bf16 forward would round
@@ -39,8 +46,7 @@ LAUNCHES = {
     for pas in ("fwd", "bwd")
 }
 
-SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
-_ATT_WARPS, _BWD_WARPS, _TLD = 4, 5, 20
+MAX_L, MAX_D = 256, 32  # the kernel's fit (csrc/mha.cu: ssrl::mha_fits)
 
 
 def reset_launch_counts() -> None:
@@ -50,14 +56,9 @@ def reset_launch_counts() -> None:
 
 def fits(L: int, d: int) -> bool:
     """Whether the kernel takes (L, d): ``ssrl::mha_fits`` of ``csrc/mha.cu``,
-    the head dim at most 32 and the backward's shared memory (bf16 q, k, v,
-    dO and the whole head's P and dS, plus one f32 strip per warp)."""
-    if L < 1 or not 1 <= d <= 32:
-        return False
-    LP, DP = -(-L // 16) * 16, -(-d // 16) * 16
-    per_warp = 16 * (LP + 4) * 4 + 16 * _TLD * 4 + 3 * DP * 4
-    smem = 4 * LP * (DP + 8) * 2 + 2 * LP * (LP + 8) * 2 + _BWD_WARPS * per_warp
-    return smem <= SMEM_MAX
+    the head dim at most 32 (one or two 16-column tiles) and L ≤ 256 (the
+    backward's shared memory then leaves two blocks per SM)."""
+    return 1 <= L <= MAX_L and 1 <= d <= MAX_D
 
 
 def heads_of(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -225,7 +226,7 @@ def _check_cuda(entry: Entry, xs, num_heads) -> None:
     _, _, L, d = entry.views(xs, num_heads)[0].shape
     if not fits(L, d):
         raise ValueError(
-            f"{entry.name}: L={L}, d={d} is beyond the kernel's shared-memory fit"
+            f"{entry.name}: L={L}, d={d} is beyond the kernel's fit (L <= {MAX_L}, d <= {MAX_D})"
         )
 
 

@@ -5,7 +5,7 @@ its post-scaled contract (``ops/attention_core.py``): the f32 scores are
 scaled after QKᵀ, and dq and dk are scaled after their products. At the
 model's head dims (24, 32) 1/√d is not a power of two, so this rounds
 differently in bf16 from the pre-scaled entries. ``csrc/mha.cu`` runs it
-with one block per (image, head).
+on the (B, H, L, d) layout in place.
 
 :func:`mha_pallas` launches the kernel for a CUDA tensor and runs
 :func:`mha_pallas_ref` (plain, explicit backward) for a CPU tensor.

@@ -3,8 +3,8 @@
 Port of ``ssrl_vit_mae_jepa_tpu/ops/attention_pallas_stacked.py``: the same
 function and rounding points (pre-scaled q; ``ops/attention_core.py``), not
 the TPU layout: the head-stacked queries, slot masks and head groups there
-exist for the MXU's 128-lane tiles. Here one block per (image, head) of
-``csrc/mha.cu`` reads its head's columns in place.
+exist for the MXU's 128-lane tiles. Here ``csrc/mha.cu`` reads each
+head's columns in place.
 
 - :func:`mha_stacked_qkv` takes the fused (B, L, 3D) qkv tensor straight
   from the qkv projection and returns (B, L, D); its gradient is one

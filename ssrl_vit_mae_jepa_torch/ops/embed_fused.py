@@ -38,8 +38,9 @@ from ssrl_vit_mae_jepa_torch.ops.masking import get_at_index
 #: kernel launches by wrapper entry; a wrapper adds one where it launches
 LAUNCHES = {"patch_embed_fwd": 0, "patch_embed_bwd": 0}
 
-# the kernel's limits (csrc/patch_embed.cu: shape_ok)
-MAX_TOKENS, MAX_KEPT = 256, 1024
+# the kernel's limits (csrc/patch_embed.cu: shape_ok); D and Pc bound the
+# weight the kernels keep in shared memory
+MAX_TOKENS, MAX_KEPT, MAX_WIDTH = 256, 1024, 256
 
 
 def reset_launch_counts() -> None:
@@ -105,10 +106,11 @@ def _check(patches, w, b, cls, pos, idx_keep) -> None:
             raise ValueError(f"idx_keep must be a (B, K) int64 CUDA tensor, got "
                              f"{tuple(idx_keep.shape)} {idx_keep.dtype} on {idx_keep.device}")
         K = idx_keep.shape[1]
-    if L > MAX_TOKENS or not 1 <= K <= MAX_KEPT or Pc % 8 or D % 8:
+    if (L > MAX_TOKENS or not 1 <= K <= MAX_KEPT or Pc % 8 or D % 8
+            or not (8 <= Pc <= MAX_WIDTH and 8 <= D <= MAX_WIDTH)):
         raise ValueError(f"the patch-embed kernel takes L <= {MAX_TOKENS}, "
-                         f"1 <= K <= {MAX_KEPT} and Pc, D multiples of 8; "
-                         f"got L={L}, K={K}, Pc={Pc}, D={D}")
+                         f"1 <= K <= {MAX_KEPT} and Pc, D multiples of 8 from 8 to "
+                         f"{MAX_WIDTH}; got L={L}, K={K}, Pc={Pc}, D={D}")
 
 
 def _operands(w, b, cls, pos):

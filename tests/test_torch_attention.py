@@ -188,7 +188,7 @@ ROUTES = {
     "chain_forced": (lambda: _chain(), True),
     "chain_depth_1": (lambda: _chain(depth=1), ValueError),
     "chain_d_mod_h": (lambda: _chain(D=100, H=6), ValueError),
-    "chain_beyond_fit": (lambda: _chain(L=161, D=64, H=2), ValueError),
+    "chain_beyond_fit": (lambda: _chain(L=257, D=64, H=2), ValueError),
     "auto_never_chains": (lambda: _chain(impl="auto"), False),
 }
 
@@ -226,9 +226,76 @@ def test_vit_from_config_takes_attn_impl():
 def test_fits_the_kernels_shared_memory():
     assert attention_core.fits(145, 32) and attention_core.fits(160, 32)
     assert attention_core.fits(37, 24) and attention_core.fits(145, 16)
-    assert not attention_core.fits(161, 32)  # the backward's P and dS outgrow 227 KB
+    assert attention_core.fits(176, 16) and attention_core.fits(256, 32)
+    assert not attention_core.fits(257, 32)  # beyond the longest sequence the kernel takes
     assert not attention_core.fits(37, 33)  # head dims above 32
     assert not attention_core.fits(0, 8)
+
+
+def _two_phase_bwd(q, k, v, g, post):
+    """The backward's order of work in ``csrc/mha.cu``, in torch ops on
+    (B, H, L, d). Phase A, per 16-row query strip, in two passes over
+    16-key tiles: the row max m, the sum l of exp(s - m) and rowsum(dP∘P) as
+    sum(exp(s - m)·dP) / l (both sums rescaled as m grows); then P, dS and
+    dq. Phase B, per 16-key strip, one 16-query tile at a time: P recomputed
+    from those statistics, dS, dk and dv. Rounds to q's dtype where the
+    kernel does; returns f32 (dq, dk, dv) before their one rounding."""
+    dt, L, d = q.dtype, q.shape[-2], q.shape[-1]
+    scale = attention_core._scale(d)
+    mul = scale if post else 1.0
+    qk = q if post else (q.float() * scale).to(dt)
+    qf, kf, vf, gf = qk.float(), k.float(), v.float(), g.float()
+    strips = [slice(i, min(i + 16, L)) for i in range(0, L, 16)]
+    m = torch.full(q.shape[:-1], -torch.inf)
+    l, D = torch.zeros(q.shape[:-1]), torch.zeros(q.shape[:-1])
+    dq, dk, dv = (torch.zeros(q.shape) for _ in range(3))
+
+    def probs(r, c):  # P[r, c] from the statistics
+        return torch.exp(qf[..., r, :] @ kf[..., c, :].mT * mul - m[..., r, None]) / l[..., r, None]
+
+    for r in strips:  # phase A
+        u = torch.zeros_like(l[..., r])
+        for c in strips:
+            s = qf[..., r, :] @ kf[..., c, :].mT * mul
+            mn = torch.maximum(m[..., r], s.amax(-1))
+            f, e = torch.exp(m[..., r] - mn), torch.exp(s - mn[..., None])
+            l[..., r] = l[..., r] * f + e.sum(-1)
+            u = u * f + (e * (gf[..., r, :] @ vf[..., c, :].mT)).sum(-1)
+            m[..., r] = mn
+        D[..., r] = u / l[..., r]
+        for c in strips:
+            ds = probs(r, c) * (gf[..., r, :] @ vf[..., c, :].mT - D[..., r, None])
+            dq[..., r, :] += ds.to(dt).float() @ kf[..., c, :]
+    for c in strips:  # phase B
+        for r in strips:
+            pt = probs(r, c).mT
+            dst = pt * (vf[..., c, :] @ gf[..., r, :].mT - D[..., None, r])
+            dv[..., c, :] += pt.to(dt).float() @ gf[..., r, :]
+            dk[..., c, :] += dst.to(dt).float() @ qf[..., r, :]
+    return dq * scale, dk * mul, dv
+
+
+@pytest.mark.parametrize("post", [False, True], ids=["pre_scaled", "post_scaled"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,L,d", [(2, 3, 37, 24), (1, 2, 17, 8), (1, 2, 145, 32),
+                                     (2, 1, 33, 16), (1, 1, 1, 8)])
+def test_two_phase_backward_matches_plain(B, H, L, d, dtype, post):
+    """The kernel's two-phase backward schedule computes the plain backward:
+    f32 to 1e-5; bf16, rounded once like the kernel's outputs, to 2% of each
+    gradient's largest magnitude (the card's tolerance, tests/test_torch_cuda.py)."""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.default_rng(B * L + d)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, H, L, d)).astype(np.float32)).to(tdt)
+                  for _ in range(4))
+    got = _two_phase_bwd(q, k, v, g, post)
+    want = attention_core.plain_bwd_f32(q, k, v, g, post)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if tdt == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=name)
+        else:
+            a, b = a.to(tdt).float(), b.to(tdt).float()
+            bound = 2e-2 * b.abs().max().item()
+            torch.testing.assert_close(a, b, atol=bound, rtol=0, msg=name)
 
 
 def test_dispatch_policies():

@@ -231,7 +231,7 @@ def test_block_kernels_refuse_what_they_do_not_take(cuda):
         bc.fused_block_chain(x.float(), params, 4)
     with pytest.raises(ValueError):  # a CPU parameter with a CUDA activation
         bf.fused_block(x, [params[0][0].cpu()] + params[0][1:], 4)
-    long, _, lparams = _stack_inputs(2, 161, 64, 2, cuda)  # d=32, L > 160
+    long, _, lparams = _stack_inputs(2, 257, 64, 2, cuda)  # d=32, L > 256
     with pytest.raises(ValueError, match="do not take"):
         bf.fused_block(long, lparams[0], 2)
     with pytest.raises(ValueError, match="do not take"):
@@ -246,9 +246,14 @@ ATTENTION = {
     "mha_pallas": (mha_pallas, mha_pallas_ref),
 }
 # (B, L, D, H): encoder, decoder, JEPA predictor at B=768; ragged small
-# shapes at head dims 12 and 8; the longest L that fits at d=32
+# shapes at head dims 12 and 8; the longest L the kernel took at d=32 and
+# d=16 when it kept whole-head P and dS in shared memory, and the longest it
+# takes now; then ragged L at every head dim (one 16-row strip and its
+# edges, several heads a block at L < 96, one head a block beyond)
 ATTN_SHAPES = [(768, 37, 144, 6), (768, 145, 192, 6), (768, 145, 96, 6),
-               (3, 17, 48, 4), (2, 23, 16, 2), (2, 160, 64, 2)]
+               (3, 17, 48, 4), (2, 23, 16, 2), (2, 160, 64, 2), (2, 176, 32, 2),
+               (2, 256, 64, 2)]
+ATTN_SHAPES += [(3, L, 2 * d, 2) for L in (1, 15, 16, 17, 33, 48, 144) for d in (8, 16, 24, 32)]
 
 
 def _attention_inputs(entry, B, L, D, H, device, dtype=torch.bfloat16):
@@ -297,6 +302,40 @@ def test_attention_kernel_matches_plain(cuda, entry, B, L, D, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", list(ATTENTION))
+def test_attention_kernel_is_deterministic(cuda, entry):
+    """Two backward calls on the same inputs give the same bits (no
+    atomics: every sum has one order)."""
+    B, L, D, H = 768, 145, 192, 6
+    leaves, do = _attention_inputs(entry, B, L, D, H, cuda)
+    xs = [t.clone().requires_grad_() for t in leaves]
+    out = _attention_call(entry, ATTENTION[entry][0], xs, H)
+    first = torch.autograd.grad(out, xs, do, retain_graph=True)
+    again = torch.autograd.grad(out, xs, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H", [(64, 37, 144, 6), (64, 145, 192, 6), (3, 17, 48, 4)])
+def test_branch_dbqkv_is_the_column_sums_of_dqkv(cuda, B, L, D, H):
+    """The attention branch's dbqkv, summed from the attention core's
+    per-image column sums (``colpart``), against the column sums of dq | dk |
+    dv from the attention kernel run alone on the branch's qkv and da."""
+    x, dy, params = _inputs("attn", B, L, D, cuda)
+    leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    dbqkv = torch.autograd.grad(bf.fused_attn_branch(*leaves, H), leaves, dy)[4]
+    ln_s, ln_b, wqkv, bqkv, wp, _ = params
+    dt = torch.bfloat16
+    y1 = bf.layer_norm(x, ln_s, ln_b).to(dt)
+    qkv = (y1.float() @ wqkv.to(dt).float().t() + bqkv.to(dt).float()).to(dt).requires_grad_()
+    da = (dy.float() @ wp.to(dt).float()).to(dt)
+    (dqkv,) = torch.autograd.grad(mha_stacked_qkv(qkv, H), [qkv], da)
+    want = dqkv.float().sum((0, 1))
+    bound = 2e-2 * want.abs().max().item() + 1e-3
+    torch.testing.assert_close(dbqkv.float(), want, atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", list(ATTENTION))
 def test_attention_rejects_float32(cuda, entry):
     leaves, _ = _attention_inputs(entry, 2, 17, 48, 4, cuda, torch.float32)
     with pytest.raises(TypeError):
@@ -306,8 +345,8 @@ def test_attention_rejects_float32(cuda, entry):
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", list(ATTENTION))
 def test_attention_refuses_shapes_beyond_the_fit(cuda, entry):
-    leaves, _ = _attention_inputs(entry, 2, 161, 64, 2, cuda)  # d=32, L > 160
-    with pytest.raises(ValueError, match="shared-memory fit"):
+    leaves, _ = _attention_inputs(entry, 2, 257, 64, 2, cuda)  # d=32, L > 256
+    with pytest.raises(ValueError, match="beyond the kernel's fit"):
         _attention_call(entry, ATTENTION[entry][0], leaves, 2)
 
 
@@ -315,7 +354,7 @@ def test_attention_refuses_shapes_beyond_the_fit(cuda, entry):
 def test_fit_matches_the_library(cuda):
     lib = _build.load()
     for d in (1, 8, 12, 16, 17, 24, 32, 33):
-        for L in (1, 16, 37, 145, 160, 161, 200, 300, 400):
+        for L in (1, 16, 37, 145, 160, 161, 176, 177, 200, 256, 257, 300, 400):
             assert bool(lib.ssrl_mha_fits(L, d)) == core.fits(L, d), (L, d)
 
 
@@ -375,6 +414,42 @@ def test_embed_kernel_matches_plain(cuda, B, N, Pc, D, K, dup):
         assert a.dtype == b.dtype and a.shape == b.shape
         bound = 2e-2 * b.float().abs().max().item() + 1e-3
         torch.testing.assert_close(a.float(), b.float(), atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+def test_embed_index_out_of_range(cuda):
+    """An index outside [0, L) gives a NaN row and no gradient: the other
+    rows and every gradient are those of the index without it."""
+    B, N, Pc, D, K = 4, 20, 48, 40, 8
+    patches, params, idx, dy = _embed_inputs(B, N, Pc, D, K, cuda)
+    bad = idx.clone()
+    bad[:, 3] = N + 1
+    bad[0, 5] = -1
+    keep = [k for k in range(K) if k not in (3, 5)]
+    out_k, grads_k = _embed_run(ef.fused_patch_embed, patches, params, bad, dy)
+    assert torch.isnan(out_k[:, 3].float()).all() and torch.isnan(out_k[0, 5].float()).all()
+    live = [k for k in range(K) if k != 3]
+    assert not torch.isnan(out_k[1:, live].float()).any()
+    dy_live = dy.clone()
+    dy_live[:, 3] = 0
+    dy_live[0, 5] = 0
+    out_r, grads_r = _embed_run(ef.fused_patch_embed_ref, patches, params, idx, dy_live)
+    torch.testing.assert_close(out_k[:, keep].float(), out_r[:, keep].float(), atol=6e-2, rtol=0)
+    for a, b in zip(grads_k, grads_r):
+        bound = 2e-2 * b.float().abs().max().item() + 1e-3
+        torch.testing.assert_close(a.float(), b.float(), atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [37, None], ids=["k37", "full"])
+def test_embed_kernel_is_deterministic(cuda, K):
+    """Two calls on the same inputs give the same bits, forward and every
+    gradient, with an index and on the full sequence without one."""
+    patches, params, idx, dy = _embed_inputs(768, 144, 192, 144, K, cuda)
+    out, grads = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    out2, grads2 = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    assert torch.equal(out, out2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
 
 
 @pytest.mark.cuda

@@ -30,21 +30,12 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import PRE_CFG, card  # noqa: E402
+from chip_smoke import PRE_CFG, card, device_us  # noqa: E402
 from ssrl_vit_mae_jepa_torch.config import load_config  # noqa: E402
 from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask  # noqa: E402
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask  # noqa: E402
 
 STEPS, WARMUP, TOP = 5, 3, 40  # timed and profiled steps, warm-up, kernels listed
-
-
-def _device_us(evt) -> float:
-    """Self device time of a profiler event in µs (the name of the field
-    changed across PyTorch versions)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    raise AttributeError("profiler event without a device time")
 
 
 def make_task(name: str, impl: str):
@@ -85,7 +76,7 @@ def profile(name: str, impl: str) -> dict:
         torch.cuda.synchronize()
     kernels = {}
     for evt in prof.key_averages():
-        us = _device_us(evt)
+        us = device_us(evt)
         if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = (us / 1e3 / steps, evt.count / steps)
     device_ms = sum(ms for ms, _ in kernels.values())
