@@ -15,7 +15,11 @@ Phases (any failure exits nonzero; nothing is caught):
      D=144, predictor L=145, D=96 and target encoder L=145, D=144, the
      last under no-grad) each branch kernel, forward and all seven backward
      outputs, against its plain PyTorch version on the card, with the
-     kernel's and the plain version's times;
+     kernel's and the plain version's times; then every GEMM of those
+     kernels alone (``bf.gemm``, the wgmma + TMA kernel of
+     ``csrc/gemm_sm90.cuh``) at the same shapes against ``gemm_ref``, with
+     its device time beside ``torch.matmul``'s (a yardstick, never a route)
+     and its bound (a ``{"gemm_table": [...]}`` line);
   3b. the four attention entries of ``csrc/mha.cu``, forward and backward,
      at the encoder and decoder shapes (``mha_stacked`` also at the JEPA
      predictor's), against their plain versions on the card, with the
@@ -426,6 +430,104 @@ def check_kernels() -> dict:
             print(line + f"; fwd max abs err {fwd_err:.3e}", flush=True)
             del out_k, out_r, out_ns, leaves
     return {k: summarize(per[k], errs[k], STEP_CALLS) for k in KERNELS}
+
+
+def gemm_products(L: int, D: int) -> dict:
+    """The products of rows 1-5 at (B, L, D), F = 4D, as ``bf.gemm`` takes
+    them: name -> (layout, epilogue, M, N, K, branch pass). Per block, the
+    forward runs qkv, proj, fc1, fc2; the backward runs qkv and fc1 again
+    and the rest."""
+    M, F_ = BATCH * L, 4 * D
+    return {
+        "qkv": ("nt", "bias_bf16", M, 3 * D, D, "attn fwd"),
+        "proj": ("nt", "bias_resid", M, D, D, "attn fwd"),
+        "dWp": ("tn", "f32", D, D, M, "attn bwd"),
+        "da": ("nn", "bf16", M, D, D, "attn bwd"),
+        "dWqkv": ("tn", "f32", 3 * D, D, M, "attn bwd"),
+        "dy1": ("nn", "f32", M, D, 3 * D, "attn bwd"),
+        "fc1": ("nt", "bias_gelu", M, F_, D, "mlp fwd"),
+        "fc2": ("nt", "bias_resid", M, D, F_, "mlp fwd"),
+        "dW2": ("tn", "f32", D, F_, M, "mlp bwd"),
+        "dz": ("nn", "gelu_bwd", M, F_, D, "mlp bwd"),
+        "dW1": ("tn", "f32", F_, D, M, "mlp bwd"),
+        "dy2": ("nn", "f32", M, D, F_, "mlp bwd"),
+    }
+
+
+def gemm_calls(name: str, grad: bool) -> int:
+    """Calls of a product per block: qkv and fc1 twice with grad (the
+    backward recomputes them), the backward's products only with grad."""
+    if name in ("qkv", "fc1"):
+        return 2 if grad else 1
+    return 1 if name in ("proj", "fc2") or grad else 0
+
+
+def gemm_bound(layout: str, epi: str, M: int, N: int, K: int):
+    """Least time of one product: A and B read once, C written once (f32
+    or bf16), the epilogue's extra tensor read (residual, pre-activation)
+    or written (pre-activation) once; 2MNK operations."""
+    c = M * N * (4 if epi == "f32" else 2)
+    extra = {"bias_resid": 2, "bias_gelu": 2, "gelu_bwd": 2}.get(epi, 0) * M * N
+    return bound(2 * (M * K + K * N) + c + extra, 2 * M * N * K)
+
+
+def gemm_table() -> list:
+    """Phase 3's per-GEMM table: every product of rows 1-5 at the main
+    paths' shapes through ``bf.gemm``, checked against ``gemm_ref`` (each
+    output within 1% of the plain version's largest magnitude), with the
+    device time of its wgmma kernel alone (``gemm_sm90`` kernels; the
+    weight gradients' reduction and the db1 column reduction apart), of
+    ``torch.matmul`` on the same bf16 operands (a yardstick, never a route)
+    and its bound; and the kernels' device time per MAE and JEPA step."""
+    rows = []
+    per_step = {"mae": 0.0, "jepa": 0.0}
+    for geo, (L, D, _) in GEOMETRIES.items():
+        grad = geo != "tgt"
+        for name, (layout, epi, M, N, K, pas) in gemm_products(L, D).items():
+            calls = gemm_calls(name, grad)
+            if not calls:
+                continue
+            g = torch.Generator().manual_seed(M + N + K)
+            a = torch.randn(*((K, M) if layout == "tn" else (M, K)), generator=g)
+            b = torch.randn(*((N, K) if layout == "nt" else (K, N)), generator=g) * K**-0.5
+            a, b = a.to(torch.bfloat16).cuda(), b.to(torch.bfloat16).cuda()
+            ex = {"bias": (0.1 * torch.randn(N, generator=g)).to(torch.bfloat16).cuda(),
+                  "resid": torch.randn(M, N, generator=g).to(torch.bfloat16).cuda(),
+                  "z": torch.randn(M, N, generator=g).to(torch.bfloat16).cuda()}
+            got = bf.gemm(a, b, layout, epi, **ex)
+            want = bf.gemm_ref(a, b, layout, epi, **ex)
+            torch.cuda.synchronize()
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+            lim = 1e-2 * max(y.float().abs().max().item() for y in want) + 1e-4
+            if not err <= lim:
+                fail(f"gemm {name}@{geo} ({layout} {epi}): max abs err {err} > {lim}")
+            del got, want
+            # one profiler session for both: the wgmma kernel, the wrapper's
+            # reductions (colsum_kernel) and the rest, torch.matmul's kernels
+            at, bt = (a.t() if layout == "tn" else a), (b.t() if layout == "nt" else b)
+            shares: dict = {}
+            device_ms(lambda: (bf.gemm(a, b, layout, epi, **ex), torch.matmul(at, bt)),
+                      by_kernel=shares)
+            k_ms = sum(v for k, v in shares.items() if "gemm_sm90" in k)
+            red_ms = sum(v for k, v in shares.items() if "colsum" in k)
+            m_ms = sum(shares.values()) - k_ms - red_ms
+            total = k_ms + red_ms
+            b_ms, b_by = gemm_bound(layout, epi, M, N, K)
+            rows.append({"geo": geo, "product": name, "pass": pas, "layout": layout, "epi": epi,
+                         "M": M, "N": N, "K": K, "calls_per_block": calls, "max_abs_err": err,
+                         "kernel_ms": k_ms, "with_reductions_ms": total, "matmul_ms": m_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"  gemm {geo} {name:5s} {layout} {epi:10s} M={M} N={N} K={K}: kernel "
+                  f"{k_ms:.4f} ms (with reductions {total:.4f}), matmul {m_ms:.4f}, bound "
+                  f"{b_ms:.4f} ({b_by}); kernel/matmul {k_ms / m_ms:.2f}, bound share "
+                  f"{b_ms / k_ms:.2f}; max abs err {err:.2e}", flush=True)
+            for step, blocks in STEP_CALLS.items():
+                per_step[step] += blocks.get(geo, 0) * calls * k_ms
+            del a, b, ex
+    torch.cuda.empty_cache()
+    print(f"  GEMM kernels' device ms per step (table sum): MAE {per_step['mae']:.3f}, "
+          f"JEPA {per_step['jepa']:.3f}", flush=True)
+    return rows
 
 
 def stack_inputs(L: int, D: int, N: int, seed: int):
@@ -1007,6 +1109,8 @@ def main() -> None:
 
     print("phase 3: branch kernels vs plain versions (B=768, bf16)", flush=True)
     res = check_kernels()
+    print("phase 3: the branch GEMM per product vs gemm_ref and torch.matmul", flush=True)
+    print(json.dumps({"gemm_table": gemm_table()}), flush=True)
     print("phase 3b: attention kernels vs plain versions (B=768, bf16)", flush=True)
     res.update(check_attention())
     print("phase 3c: patch-embed kernels vs plain version (B=768, bf16)", flush=True)

@@ -59,6 +59,9 @@ _SIGNATURES = {
     "ssrl_block_chain_fwd": (_I, [_P, _PP] + [_P] * 3 + [_I] * 6 + [_F, _P]),
     "ssrl_block_chain_bwd_workspace": (_LL, [_I] * 4),
     "ssrl_block_chain_bwd": (_I, [_P, _PP] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+    # layout, M, N, K / layout, epi, 11 pointers, M, N, K, stream
+    "ssrl_gemm_workspace": (_LL, [_I] * 4),
+    "ssrl_gemm": (_I, [_I] * 2 + [_P] * 11 + [_I] * 3 + [_P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -17,19 +17,20 @@
 // What this design does about it: a few simple launches per pass, each
 // reading bf16 and writing bf16 only once --
 //   1. LayerNorm (warp per row, f32 statistics) -> y1;
-//   2. tiled WMMA GEMM with the bias in the epilogue -> qkv;
+//   2. the wgmma + TMA GEMM of csrc/gemm_sm90.cuh with the bias in the
+//      epilogue -> qkv;
 //   3. attention through the core of mha.cu (one block per (image, head);
 //      q, k, v, the probabilities and dS stay in shared memory as bf16
 //      tiles, so the L x L scores never reach device memory), reading q, k
 //      and v straight out of the qkv buffer; its backward also writes the
 //      per-image dbqkv partials;
-//   4. tiled GEMM with bias and residual in the epilogue -> out.
+//   4. the same GEMM with bias and residual in the epilogue -> out.
 // The backward recomputes LN1 and qkv (one GEMM) instead of storing them, as
-// the TPU kernel does; weight gradients use split-K GEMMs into f32 partials
-// followed by a deterministic column reduction. The no-grad forward is the
-// same sequence with `a` written to a scratch buffer that the caller drops.
-// Separate launches, WMMA fragments and a two-stage cp.async pipeline in the
-// GEMM; fusing the launches, wgmma and TMA belong to later work on speed.
+// the TPU kernel does; weight gradients are TN products split over the B*L
+// rows into f32 partials, followed by a deterministic column reduction. The
+// no-grad forward is the same sequence with `a` written to a scratch buffer
+// that the caller drops. Fusing the launches (LayerNorm into the GEMMs)
+// belongs to later work on speed.
 //
 // Numerics contract: LN statistics in f32 (two-pass, eps 1e-6); y1 and qkv
 // rounded to bf16; q scaled in f32 then rounded to bf16 before QK^T; softmax
@@ -70,17 +71,18 @@ size_t fwd_carve(Carver& c, size_t M, int D, bool stash, bf16** y1, bf16** qkv,
 }
 
 struct BwdPlan {
-  int s_wp, k_wp, s_wqkv, k_wqkv;
+  int k_wp, k_wqkv;
   size_t part, tmp;
 };
 
 BwdPlan bwd_plan(int B, int L, int D) {
   BwdPlan p;
   const int M = B * L;
-  p.k_wp = splitk_chunk(cdiv(D, BM) * cdiv(D, BN), M, &p.s_wp);
-  p.k_wqkv = splitk_chunk(cdiv(3 * D, BM) * cdiv(D, BN), M, &p.s_wqkv);
-  size_t part = (size_t)p.s_wp * D * D;
-  const size_t cands[3] = {(size_t)B * 3 * D, (size_t)p.s_wqkv * 3 * D * D,
+  int s_wp, s_wqkv;
+  p.k_wp = ssrl::gemm_splitk(D, D, M, &s_wp);
+  p.k_wqkv = ssrl::gemm_splitk(3 * D, D, M, &s_wqkv);
+  size_t part = (size_t)s_wp * D * D;
+  const size_t cands[3] = {(size_t)B * 3 * D, (size_t)s_wqkv * 3 * D * D,
                            (size_t)ln_bwd_blocks(M) * 3 * D};
   for (size_t x : cands) part = x > part ? x : part;
   p.part = part;
@@ -103,8 +105,8 @@ size_t bwd_carve(Carver& c, int B, int L, int D, bf16** y1, bf16** qkv, bf16** d
 }
 
 // y1 = LN1(x); qkv = bf16(y1 @ Wqkv^T + bqkv)
-void ln_qkv(const bf16* x, const ssrl::BranchParams& p, bf16* y1, bf16* qkv, int M,
-            int D, cudaStream_t st) {
+cudaError_t ln_qkv(const bf16* x, const ssrl::BranchParams& p, bf16* y1, bf16* qkv, int M,
+                   int D, cudaStream_t st) {
   launch_ln_fwd(x, p.ln_s, p.ln_b, y1, M, D, st);
   GemmArgs g{};
   g.A = y1; g.lda = D;
@@ -112,7 +114,7 @@ void ln_qkv(const bf16* x, const ssrl::BranchParams& p, bf16* y1, bf16* qkv, int
   g.M = M; g.N = 3 * D; g.K = D;
   g.C = qkv; g.ldc = 3 * D;
   g.bias = p.ba;
-  launch_gemm<false, true, EPI_BIAS_BF16>(g, 1, st);
+  return ssrl::gemm(ssrl::GEMM_NT, EPI_BIAS_BF16, g, st);
 }
 
 }  // namespace
@@ -141,7 +143,7 @@ cudaError_t attn_fwd(const bf16* x, const BranchParams& p, bf16* out, bf16* a,
   fwd_carve(c, M, D, a != nullptr, &y1, &qkv, &a_scratch);
   bf16* abuf = a ? a : a_scratch;
 
-  ln_qkv(x, p, y1, qkv, M, D, st);
+  SSRL_TRY(ln_qkv(x, p, y1, qkv, M, D, st));
   MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
   m.o = abuf;
   cudaError_t e = mha_fwd(m, st);
@@ -154,7 +156,7 @@ cudaError_t attn_fwd(const bf16* x, const BranchParams& p, bf16* out, bf16* a,
   o.C = out; o.ldc = D;
   o.bias = p.bb;
   o.R = x;
-  launch_gemm<false, true, EPI_BIAS_RESID>(o, 1, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_NT, EPI_BIAS_RESID, o, st));
   return cudaGetLastError();
 }
 
@@ -177,7 +179,7 @@ cudaError_t attn_bwd(const bf16* x, const BranchParams& p, const bf16* a, GradIn
   bwd_carve(c, B, L, D, &y1, &qkv, &da, &dqkv, &dy1, &part, &tmp);
 
   // recompute y1 = LN1(x) and qkv
-  ln_qkv(x, p, y1, qkv, M, D, st);
+  SSRL_TRY(ln_qkv(x, p, y1, qkv, M, D, st));
 
   // dWp = dy^T a (split over the B*L rows)
   GemmArgs w{};
@@ -186,8 +188,8 @@ cudaError_t attn_bwd(const bf16* x, const BranchParams& p, const bf16* a, GradIn
   w.M = D; w.N = D; w.K = M;
   w.k_chunk = plan.k_wp;
   w.C = part; w.ldc = D; w.c_split = (long long)D * D;
-  launch_gemm<true, false, EPI_F32>(w, plan.s_wp, st);
-  reduce_rows(part, plan.s_wp, D * D, d.dwb, tmp, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_TN, EPI_F32, w, st));
+  reduce_rows(part, cdiv(M, plan.k_wp), D * D, d.dwb, tmp, st);
 
   // da = bf16(dy @ Wp)
   GemmArgs g{};
@@ -195,7 +197,7 @@ cudaError_t attn_bwd(const bf16* x, const BranchParams& p, const bf16* a, GradIn
   g.B = p.wb; g.ldb = D;
   g.M = M; g.N = D; g.K = D;
   g.C = da; g.ldc = D;
-  launch_gemm<false, false, EPI_BF16>(g, 1, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_NN, EPI_BF16, g, st));
 
   // attention backward -> dqkv (bf16) and dbqkv
   MhaArgs m = qkv_args(qkv, B, L, D, H, scale);
@@ -215,8 +217,8 @@ cudaError_t attn_bwd(const bf16* x, const BranchParams& p, const bf16* a, GradIn
   wq.M = 3 * D; wq.N = D; wq.K = M;
   wq.k_chunk = plan.k_wqkv;
   wq.C = part; wq.ldc = D; wq.c_split = (long long)3 * D * D;
-  launch_gemm<true, false, EPI_F32>(wq, plan.s_wqkv, st);
-  reduce_rows(part, plan.s_wqkv, 3 * D * D, d.dwa, tmp, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_TN, EPI_F32, wq, st));
+  reduce_rows(part, cdiv(M, plan.k_wqkv), 3 * D * D, d.dwa, tmp, st);
 
   // dy1 = dqkv @ Wqkv (f32)
   GemmArgs y{};
@@ -224,7 +226,7 @@ cudaError_t attn_bwd(const bf16* x, const BranchParams& p, const bf16* a, GradIn
   y.B = p.wa; y.ldb = D;
   y.M = M; y.N = D; y.K = 3 * D;
   y.C = dy1; y.ldc = D;
-  launch_gemm<false, false, EPI_F32>(y, 1, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_NN, EPI_F32, y, st));
 
   // dx = dy + LN1'(dy1); d ln_s, d ln_b and d bp = sum(dy)
   launch_ln_bwd(x, p.ln_s, dy1, gy.op, gy.f32, dx.bf, dx.f32, d.dln3, part, tmp, M,

@@ -1,23 +1,24 @@
 // Shared device code for the transformer-branch kernels (sm_90a).
 //
-// One tiled bf16 GEMM (WMMA 16x16x16 fragments, f32 accumulation) with the
-// epilogues the two branches need, a warp-per-row LayerNorm forward and
-// backward, and a deterministic two-pass column reduction that turns
-// per-block f32 partial sums into weight and bias gradients.
+// The mma.sync / ldmatrix / cp.async helpers of the register-tiled kernels
+// (mha.cu, patch_embed.cu), a warp-per-row LayerNorm forward and backward,
+// and a deterministic two-pass column reduction that turns per-block f32
+// partial sums into weight and bias gradients. The branch kernels' GEMM is
+// csrc/gemm.cuh (declarations) and csrc/gemm_sm90.cuh (wgmma + TMA).
 //
 // Numerics follow the TPU kernels in ssrl_vit_mae_jepa_tpu/ops/block_pallas.py
 // (:28-32, :501-533, :573-651): bf16 operands with f32 accumulation, LayerNorm
 // statistics in f32 (two-pass, eps 1e-6), bias added in f32 before the single
-// rounding to bf16, exact-erf GELU on the bf16-rounded pre-activation (or, for
-// the whole-block kernel, on the f32 one: block_pallas.py:271).
+// rounding to bf16, erf GELU (erf_as: the TPU kernels' rational erf) on the
+// bf16-rounded pre-activation (or, for the whole-block kernel, on the f32
+// one: block_pallas.py:271).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "gemm.cuh"
 
 namespace {
 
@@ -44,57 +45,46 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// erf by Abramowitz-Stegun 7.1.26 (max abs error 1.5e-7), the TPU branch
+// kernels' own (ssrl_vit_mae_jepa_tpu/ops/block_pallas.py::_erf, the GELU of
+// _mlp_branch_fwd_kernel and _mlp_branch_bwd_kernel): branch-free, with the
+// card's approximate reciprocal and exponential (a few ulp each), exact to
+// well below bf16 resolution. The GEMM epilogues take a GELU of every
+// element of fc1's output; with erff they took 5-10% longer (H100 80GB
+// HBM3, chip_smoke.py's per-GEMM table).
+__device__ __forceinline__ float erf_as(float x) {
+  const float a = fabsf(x);
+  const float t = __fdividef(1.f, fmaf(0.3275911f, a, 1.f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  return copysignf(1.f - poly * __expf(-a * a), x);
+}
+
 __device__ __forceinline__ float gelu_f(float z) {
-  return 0.5f * z * (1.f + erff(z * kInvSqrt2));
+  return 0.5f * z * (1.f + erf_as(z * kInvSqrt2));
 }
 
 // d gelu / dz = Phi(z) + z * phi(z)
 __device__ __forceinline__ float gelu_grad(float z) {
-  const float cdf = 0.5f * (1.f + erff(z * kInvSqrt2));
-  const float pdf = expf(-0.5f * z * z) * kInvSqrt2Pi;
+  const float cdf = 0.5f * (1.f + erf_as(z * kInvSqrt2));
+  const float pdf = __expf(-0.5f * z * z) * kInvSqrt2Pi;
   return cdf + z * pdf;
 }
 
-// ---------------------------------------------------------------------------
-// Tiled GEMM: C[m][n] = sum_k A(m,k) * B(k,n), bf16 in, f32 accumulate.
-//   A(m,k) = AT ? A[k*lda + m] : A[m*lda + k]
-//   B(k,n) = BT ? B[n*ldb + k] : B[k*ldb + n]
-// The three uses: NT (x @ W^T, W in torch's (out, in) layout), NN (dY @ W)
-// and TN (dY^T @ X, the weight gradient, split over K = the B*L rows).
-// Ragged edges (M = B*L, and K chunks of split-K) are zero-filled on load and
-// masked on store.
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64, BN = 64, BK = 32, GEMM_THREADS = 128;
-
-enum Epi : int {
-  EPI_F32 = 0,         // C f32 (split-K partials: + blockIdx.z * c_split)
-  EPI_BF16 = 1,        // C = bf16(acc)
-  EPI_BIAS_BF16 = 2,   // C = bf16(acc + bias)
-  EPI_BIAS_RESID = 3,  // C = bf16(R + bf16(acc + bias))
-  EPI_BIAS_GELU = 4,   // z = bf16(acc + bias); C = bf16(gelu(z)); Zout = z
-  EPI_GELU_BWD = 5,    // dz = acc * gelu'(Zin); C = bf16(dz); colpart += dz
-  EPI_BIAS_GELU32 = 6, // z = acc + bias in f32; C = bf16(gelu(z)); Zout32 = z
-  EPI_GELU32_BWD = 7,  // EPI_GELU_BWD with the f32 pre-activation Zin32
-};
-
-struct GemmArgs {
-  const bf16* A;
-  const bf16* B;
-  int lda, ldb;
-  int M, N, K;
-  int k_chunk;             // split-K chunk, a multiple of BK
-  void* C;
-  int ldc;
-  long long c_split;       // element stride between split-K partials
-  const bf16* bias;        // [N]
-  const bf16* R;           // residual, [M][ldc]
-  const bf16* Zin;         // gelu pre-activation, [M][ldc]
-  bf16* Zout;              // gelu pre-activation out, [M][ldc] (may be null)
-  const float* Zin32;      // f32 forms of Zin and Zout (EPI_*GELU32*)
-  float* Zout32;
-  float* colpart;          // [gridDim.y][N] column sums of dz
-};
+// the GEMM's names (gemm.cuh), for the branch sequences
+using ssrl::GemmArgs;
+using ssrl::kGemmBK;
+using ssrl::kGemmBM;
+using ssrl::EPI_F32;
+using ssrl::EPI_BF16;
+using ssrl::EPI_BIAS_BF16;
+using ssrl::EPI_BIAS_RESID;
+using ssrl::EPI_BIAS_GELU;
+using ssrl::EPI_GELU_BWD;
+using ssrl::EPI_BIAS_GELU32;
+using ssrl::EPI_GELU32_BWD;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -163,181 +153,14 @@ __device__ __forceinline__ int ld_b(int r0, int c0, int ld, int lane) {
   return (r0 + (lane & 7) + ((lane >> 4) << 3)) * ld + c0 + (((lane >> 3) & 1) << 3);
 }
 
-// rows x cols tile (cols a multiple of 8) from a row-major matrix with leading
-// dimension gld, element (r0 + r, c0 + c), zero outside [0,rmax) x [0,cmax).
-// Aligned in-bounds 16-byte chunks go by cp.async (complete after the next
-// cp_async_wait + __syncthreads); ragged or unaligned ones are stored
-// directly.
-__device__ __forceinline__ void load_tile(bf16* s, int sld, const bf16* g,
-                                          int gld, int rows, int cols, int r0,
-                                          int c0, int rmax, int cmax) {
-  const int cpr = cols / 8;
-  const int total = rows * cpr;
-  const bool vec_ok =
-      ((gld & 7) == 0) && ((reinterpret_cast<uintptr_t>(g) & 15) == 0);
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int r = i / cpr;
-    const int c = (i - r * cpr) * 8;
-    const int gr = r0 + r, gc = c0 + c;
-    union {
-      uint4 u;
-      bf16 h[8];
-    } v;
-    if (gr < rmax && vec_ok && gc + 8 <= cmax) {
-      cp_async16(s + r * sld + c, g + (size_t)gr * gld + gc);
-      continue;
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v.h[e] = (gr < rmax && gc + e < cmax) ? g[(size_t)gr * gld + gc + e]
-                                            : __float2bfloat16(0.f);
-    *reinterpret_cast<uint4*>(s + r * sld + c) = v.u;
-  }
-}
-
-template <bool AT, bool BT, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  using namespace nvcuda;
-  constexpr int A_LD = AT ? BM + 8 : BK + 8;
-  constexpr int B_LD = BT ? BK + 8 : BN + 8;
-  constexpr int C_LD = BN + 4;
-  // two stages of A and B tiles: the next K step loads while this one computes
-  __shared__ __align__(128) bf16 As[2][AT ? BK * (BM + 8) : BM * (BK + 8)];
-  __shared__ __align__(128) bf16 Bs[2][BT ? BN * (BK + 8) : BK * (BN + 8)];
-  __shared__ __align__(128) float Cs[BM * C_LD];
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * p.k_chunk;
-  const int ke = min(p.K, kb + p.k_chunk);
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps, 32 x 32 each
-
-  using LayoutA = typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  auto load_stage = [&](int buf, int k0) {
-    if (!AT) load_tile(As[buf], A_LD, p.A, p.lda, BM, BK, m0, k0, p.M, ke);
-    else     load_tile(As[buf], A_LD, p.A, p.lda, BK, BM, k0, m0, ke, p.M);
-    if (!BT) load_tile(Bs[buf], B_LD, p.B, p.ldb, BK, BN, k0, n0, ke, p.N);
-    else     load_tile(Bs[buf], B_LD, p.B, p.ldb, BN, BK, n0, k0, p.N, ke);
-  };
-  if (kb < ke) load_stage(0, kb);
-  cp_async_commit();
-  int buf = 0;
-  for (int k0 = kb; k0 < ke; k0 += BK, buf ^= 1) {
-    if (k0 + BK < ke) load_stage(buf ^ 1, k0 + BK);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's tiles have landed
-    __syncthreads();
-    const bf16* Ab = As[buf];
-    const bf16* Bb = Bs[buf];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int mo = wm * 32 + i * 16;
-        const bf16* pa = AT ? Ab + kk * A_LD + mo : Ab + mo * A_LD + kk;
-        wmma::load_matrix_sync(fa[i], pa, A_LD);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int no = wn * 32 + j * 16;
-        const bf16* pb = BT ? Bb + no * B_LD + kk : Bb + kk * B_LD + no;
-        wmma::load_matrix_sync(fb[j], pb, B_LD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16,
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < BM * BN; idx += GEMM_THREADS) {
-    const int r = idx / BN, c = idx - (idx / BN) * BN;
-    const int m = m0 + r, n = n0 + c;
-    const bool in = (m < p.M) && (n < p.N);
-    const float v = Cs[r * C_LD + c];
-    const size_t o = (size_t)m * p.ldc + n;
-    if (EPI == EPI_GELU_BWD || EPI == EPI_GELU32_BWD) {
-      float dz = 0.f;
-      if (in) {
-        dz = v * gelu_grad(EPI == EPI_GELU_BWD ? bf(p.Zin[o]) : p.Zin32[o]);
-        static_cast<bf16*>(p.C)[o] = tobf(dz);
-      }
-      Cs[r * C_LD + c] = dz;  // own element only; summed per column below
-      continue;
-    }
-    if (!in) continue;
-    if (EPI == EPI_F32) {
-      static_cast<float*>(p.C)[(size_t)blockIdx.z * p.c_split + o] = v;
-    } else if (EPI == EPI_BF16) {
-      static_cast<bf16*>(p.C)[o] = tobf(v);
-    } else if (EPI == EPI_BIAS_BF16) {
-      static_cast<bf16*>(p.C)[o] = tobf(v + bf(p.bias[n]));
-    } else if (EPI == EPI_BIAS_RESID) {
-      static_cast<bf16*>(p.C)[o] = tobf(bf(p.R[o]) + rbf(v + bf(p.bias[n])));
-    } else if (EPI == EPI_BIAS_GELU) {
-      const bf16 z = tobf(v + bf(p.bias[n]));
-      if (p.Zout) p.Zout[o] = z;
-      static_cast<bf16*>(p.C)[o] = tobf(gelu_f(bf(z)));
-    } else if (EPI == EPI_BIAS_GELU32) {
-      const float z = v + bf(p.bias[n]);
-      if (p.Zout32) p.Zout32[o] = z;
-      static_cast<bf16*>(p.C)[o] = tobf(gelu_f(z));
-    }
-  }
-  if (EPI == EPI_GELU_BWD || EPI == EPI_GELU32_BWD) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < BN; c += GEMM_THREADS) {
-      const int n = n0 + c;
-      if (n >= p.N) continue;
-      float s = 0.f;
-      for (int r = 0; r < BM; ++r) s += Cs[r * C_LD + c];
-      p.colpart[(size_t)blockIdx.y * p.N + n] = s;
-    }
-  }
-}
-
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// Split-K factor for a weight-gradient GEMM: enough blocks to fill the card
-// (~8 per SM) while each split still covers >= 256 rows of the reduction.
-inline int splitk_chunk(int tiles_mn, int K, int* splits) {
-  int s = cdiv(1056, tiles_mn);
-  s = s < cdiv(K, 256) ? s : cdiv(K, 256);
-  if (s < 1) s = 1;
-  if (s > 64) s = 64;
-  int chunk = cdiv(K, s);
-  chunk = cdiv(chunk, BK) * BK;
-  *splits = cdiv(K, chunk);
-  return chunk;
-}
-
-template <bool AT, bool BT, int EPI>
-void launch_gemm(GemmArgs p, int splits, cudaStream_t st) {
-  if (splits <= 1) {
-    splits = 1;
-    p.k_chunk = cdiv(p.K, BK) * BK;
-  }
-  dim3 grid(cdiv(p.N, BN), cdiv(p.M, BM), splits);
-  gemm_kernel<AT, BT, EPI><<<grid, GEMM_THREADS, 0, st>>>(p);
-}
+// return the error of a launch sequence's step, if any
+#define SSRL_TRY(expr)                      \
+  do {                                      \
+    const cudaError_t e_ = (expr);          \
+    if (e_ != cudaSuccess) return e_;       \
+  } while (0)
 
 // ---------------------------------------------------------------------------
 // Column reduction: out[n] = sum_r in[r][n], two deterministic passes.

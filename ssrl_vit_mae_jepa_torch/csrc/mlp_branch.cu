@@ -9,17 +9,18 @@
 // What bounds it on the H100: K is D = 144/192 for fc1 and F = 4D for fc2,
 // so at B*L rows the branch does ~2*4*D*F FLOPs per row against ~2*(D + F)
 // bf16 bytes of activations per row for each GEMM: a few hundred FLOP/byte
-// at best, at or below the ridge, and in practice bound by the small 64x64
-// WMMA tiles of this first version and by the launch count.
+// at best, at or below the ridge, so bound by the bytes of its activations.
 //
 // What this design does about it: LayerNorm in its own warp-per-row pass,
-// then two tiled WMMA GEMMs whose epilogues carry everything elementwise --
-// bias + bf16 rounding + exact-erf GELU after fc1, bias + bf16 rounding +
-// residual after fc2 -- so z and h are each written once in bf16 and nothing
-// is written in f32 on the forward. The backward recomputes LN2, fc1 and the
+// then two GEMMs on wgmma fed by TMA (csrc/gemm_sm90.cuh) whose epilogues
+// carry everything elementwise from the accumulator registers -- bias +
+// bf16 rounding + exact-erf GELU after fc1, bias + bf16 rounding + residual
+// after fc2 -- so z and h are each written once in bf16 and nothing is
+// written in f32 on the forward. The backward recomputes LN2, fc1 and the
 // GELU (as the TPU kernel does) and folds gelu'(z) and the f32 column sums
-// for db1 into the dh GEMM's epilogue; weight gradients use split-K GEMMs
-// into f32 partials and a deterministic column reduction.
+// for db1 into the dh GEMM's epilogue; weight gradients are TN products
+// split over the B*L rows into f32 partials and a deterministic column
+// reduction.
 //
 // Numerics contract: LN statistics in f32 (two-pass, eps 1e-6); y2 in bf16;
 // z rounded to bf16 before the exact-erf GELU; h in bf16; the fc2 output
@@ -39,16 +40,17 @@ size_t fwd_carve(Carver& c, size_t M, int D, int F, bf16** y2, bf16** h) {
 }
 
 struct BwdPlan {
-  int s_w2, k_w2, s_w1, k_w1;
+  int k_w2, k_w1;
   size_t part, tmp;
 };
 
 BwdPlan bwd_plan(int M, int D, int F) {
   BwdPlan p;
-  p.k_w2 = splitk_chunk(cdiv(D, BM) * cdiv(F, BN), M, &p.s_w2);
-  p.k_w1 = splitk_chunk(cdiv(F, BM) * cdiv(D, BN), M, &p.s_w1);
-  size_t part = (size_t)p.s_w2 * D * F;
-  const size_t cands[3] = {(size_t)p.s_w1 * F * D, (size_t)cdiv(M, BM) * F,
+  int s_w2, s_w1;
+  p.k_w2 = ssrl::gemm_splitk(D, F, M, &s_w2);
+  p.k_w1 = ssrl::gemm_splitk(F, D, M, &s_w1);
+  size_t part = (size_t)s_w2 * D * F;
+  const size_t cands[3] = {(size_t)s_w1 * F * D, (size_t)cdiv(M, kGemmBM) * F,
                            (size_t)ln_bwd_blocks(M) * 3 * D};
   for (size_t x : cands) part = x > part ? x : part;
   p.part = part;
@@ -74,9 +76,9 @@ size_t bwd_carve(Carver& c, int M, int D, int F, bool z_f32, bf16** y2, bf16** z
 
 // y2 = LN2(x); h = bf16(gelu(z)), z = y2 @ W1^T + b1, rounded to bf16 unless
 // z_f32 (stored to zout / zout32 if set)
-void fc1_gelu(const bf16* x, const ssrl::BranchParams& p, bf16* y2, bf16* h,
-              bf16* zout, float* zout32, int M, int D, int F, bool z_f32,
-              cudaStream_t st) {
+cudaError_t fc1_gelu(const bf16* x, const ssrl::BranchParams& p, bf16* y2, bf16* h,
+                     bf16* zout, float* zout32, int M, int D, int F, bool z_f32,
+                     cudaStream_t st) {
   launch_ln_fwd(x, p.ln_s, p.ln_b, y2, M, D, st);
   GemmArgs g{};
   g.A = y2; g.lda = D;
@@ -86,8 +88,7 @@ void fc1_gelu(const bf16* x, const ssrl::BranchParams& p, bf16* y2, bf16* h,
   g.bias = p.ba;
   g.Zout = zout;
   g.Zout32 = zout32;
-  if (z_f32) launch_gemm<false, true, EPI_BIAS_GELU32>(g, 1, st);
-  else       launch_gemm<false, true, EPI_BIAS_GELU>(g, 1, st);
+  return ssrl::gemm(ssrl::GEMM_NT, z_f32 ? EPI_BIAS_GELU32 : EPI_BIAS_GELU, g, st);
 }
 
 }  // namespace
@@ -110,7 +111,7 @@ cudaError_t mlp_fwd(const bf16* x, const BranchParams& p, bf16* out, void* ws, i
   Carver c{static_cast<char*>(ws)};
   bf16 *y2, *h;
   fwd_carve(c, M, D, F, &y2, &h);
-  fc1_gelu(x, p, y2, h, nullptr, nullptr, M, D, F, z_f32, st);
+  SSRL_TRY(fc1_gelu(x, p, y2, h, nullptr, nullptr, M, D, F, z_f32, st));
   GemmArgs g{};
   g.A = h; g.lda = F;
   g.B = p.wb; g.ldb = F;
@@ -118,7 +119,7 @@ cudaError_t mlp_fwd(const bf16* x, const BranchParams& p, bf16* out, void* ws, i
   g.C = out; g.ldc = D;
   g.bias = p.bb;
   g.R = x;
-  launch_gemm<false, true, EPI_BIAS_RESID>(g, 1, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_NT, EPI_BIAS_RESID, g, st));
   return cudaGetLastError();
 }
 
@@ -139,17 +140,17 @@ cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
   float *z32, *dy2, *part, *tmp;
   bwd_carve(c, M, D, F, z_f32, &y2, &z, &z32, &h, &dz, &dy2, &part, &tmp);
 
-  fc1_gelu(x, p, y2, h, z, z32, M, D, F, z_f32, st);
+  SSRL_TRY(fc1_gelu(x, p, y2, h, z, z32, M, D, F, z_f32, st));
 
-  // dW2 = dy^T h
+  // dW2 = dy^T h (split over the B*L rows)
   GemmArgs w{};
   w.A = gy.op; w.lda = D;
   w.B = h; w.ldb = F;
   w.M = D; w.N = F; w.K = M;
   w.k_chunk = plan.k_w2;
   w.C = part; w.ldc = F; w.c_split = (long long)D * F;
-  launch_gemm<true, false, EPI_F32>(w, plan.s_w2, st);
-  reduce_rows(part, plan.s_w2, D * F, d.dwb, tmp, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_TN, EPI_F32, w, st));
+  reduce_rows(part, cdiv(M, plan.k_w2), D * F, d.dwb, tmp, st);
 
   // dz = (dy @ W2) * gelu'(z), bf16; db1 from the f32 dz
   GemmArgs g{};
@@ -160,9 +161,8 @@ cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
   g.Zin = z;
   g.Zin32 = z32;
   g.colpart = part;
-  if (z_f32) launch_gemm<false, false, EPI_GELU32_BWD>(g, 1, st);
-  else       launch_gemm<false, false, EPI_GELU_BWD>(g, 1, st);
-  reduce_rows(part, cdiv(M, BM), F, d.dba, tmp, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_NN, z_f32 ? EPI_GELU32_BWD : EPI_GELU_BWD, g, st));
+  reduce_rows(part, cdiv(M, kGemmBM), F, d.dba, tmp, st);
 
   // dW1 = dz^T y2
   GemmArgs w1g{};
@@ -171,8 +171,8 @@ cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
   w1g.M = F; w1g.N = D; w1g.K = M;
   w1g.k_chunk = plan.k_w1;
   w1g.C = part; w1g.ldc = D; w1g.c_split = (long long)F * D;
-  launch_gemm<true, false, EPI_F32>(w1g, plan.s_w1, st);
-  reduce_rows(part, plan.s_w1, F * D, d.dwa, tmp, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_TN, EPI_F32, w1g, st));
+  reduce_rows(part, cdiv(M, plan.k_w1), F * D, d.dwa, tmp, st);
 
   // dy2 = dz @ W1 (f32)
   GemmArgs y{};
@@ -180,7 +180,7 @@ cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
   y.B = p.wa; y.ldb = D;
   y.M = M; y.N = D; y.K = F;
   y.C = dy2; y.ldc = D;
-  launch_gemm<false, false, EPI_F32>(y, 1, st);
+  SSRL_TRY(ssrl::gemm(ssrl::GEMM_NN, EPI_F32, y, st));
 
   launch_ln_bwd(x, p.ln_s, dy2, gy.op, gy.f32, dx.bf, dx.f32, d.dln3, part, tmp, M, D,
                 st);

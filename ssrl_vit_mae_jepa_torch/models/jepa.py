@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ssrl_vit_mae_jepa_torch.models.mae import MAEDecoder
-from ssrl_vit_mae_jepa_torch.models.vit import VisionTransformer, dense, init_weights
+from ssrl_vit_mae_jepa_torch.models.vit import VisionTransformer, dense, lecun_normal_
 from ssrl_vit_mae_jepa_torch.ops.masking import get_at_index, repeat_token, set_at_index
 
 
@@ -54,7 +54,10 @@ class JEPA(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         self.encoder.init_weights(generator)
         self.predictor.init_weights(generator)
-        init_weights(self.predictor_proj, generator)
+        # nn.Dense with flax's default kernel init (models/jepa.py:81-83 of
+        # the JAX package)
+        lecun_normal_(self.predictor_proj.weight, self.predictor_proj.in_features, generator)
+        nn.init.zeros_(self.predictor_proj.bias)
 
     def encode_context(self, images, idx_ctx_tokens) -> torch.Tensor:
         """Context encoder over CLS + context tokens."""

@@ -73,6 +73,17 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
     return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+# the std of a standard normal cut at +-2: flax's variance_scaling divides
+# by it, so that its truncated draw keeps the std it was asked for
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
+    """flax's ``lecun_normal``: a standard normal cut at +-2, scaled by
+    ``fan_in^-0.5 / 0.8796``, so the draw's std is ``fan_in^-0.5``."""
+    return trunc_normal_(t, fan_in**-0.5 / _TRUNC_STD, generator)
+
+
 class Mlp(nn.Module):
     """fc1 → exact-erf GELU → fc2 (timm names); the JAX package computes it
     in XLA, outside any Pallas kernel (``models/vit.py:78-98``)."""
@@ -191,8 +202,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
         elif isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
-            trunc_normal_(m.weight, fan_in**-0.5, generator)
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
             nn.init.zeros_(m.bias)
 
 

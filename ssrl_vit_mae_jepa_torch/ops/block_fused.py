@@ -50,6 +50,7 @@ LAUNCHES = {
     "block_fwd": 0,         # the whole block, in a graph
     "block_fwd_nograd": 0,  # the same kernel for no-grad callers
     "block_bwd": 0,
+    "gemm": 0,  # the GEMM alone (``gemm``), for its own checks; never on a step
 }
 
 
@@ -126,6 +127,124 @@ def _gelu_grad(z):
     """d gelu / dz = Φ(z) + z·φ(z), f32."""
     return (0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
             + z * torch.exp(-0.5 * z * z) * 0.3989422804014327)
+
+
+# ---------------------------------------------------------------------------
+# The branch kernels' GEMM (csrc/gemm.cuh, csrc/gemm_sm90.cuh): every product
+# of the branch sequences is one of these, and each epilogue is a rounding
+# contract that the plain branch versions above and below follow.
+# ---------------------------------------------------------------------------
+
+#: layout -> the epilogues it takes (``ssrl::gemm``); the numbers are ``ssrl::Epi``
+GEMM_EPIS = {
+    "nt": ("bias_bf16", "bias_resid", "bias_gelu", "bias_gelu32"),
+    "nn": ("bf16", "f32", "gelu_bwd", "gelu32_bwd"),
+    "tn": ("f32",),
+}
+_EPI_CODE = {"f32": 0, "bf16": 1, "bias_bf16": 2, "bias_resid": 3, "bias_gelu": 4,
+             "gelu_bwd": 5, "bias_gelu32": 6, "gelu32_bwd": 7}
+_LAYOUT_CODE = {"nt": 0, "nn": 1, "tn": 2}
+
+
+def _gemm_dims(a, b, layout: str):
+    """(M, N, K) of the product, from the operands' shapes: nt a (M, K) b
+    (N, K); nn a (M, K) b (K, N); tn a (K, M) b (K, N)."""
+    if layout not in GEMM_EPIS:
+        raise ValueError(f"unknown GEMM layout {layout!r}; expected one of {list(GEMM_EPIS)}")
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError("the GEMM takes 2-D operands")
+    if layout == "nt":
+        (M, K), (N, K2) = a.shape, b.shape
+    elif layout == "nn":
+        (M, K), (K2, N) = a.shape, b.shape
+    else:
+        (K, M), (K2, N) = a.shape, b.shape
+    if K != K2:
+        raise ValueError(f"{layout} operands disagree on K: {tuple(a.shape)}, {tuple(b.shape)}")
+    return M, N, K
+
+
+def gemm_ref(a, b, layout: str, epi: str, bias=None, resid=None, z=None):
+    """Plain version of one product of the branch GEMM, f32-accumulated, with
+    the epilogue's contract written out; rounding is to ``a``'s dtype.
+
+    Returns a tuple: (C,) for f32 / bf16 / bias_bf16 / bias_resid; (h, z)
+    for bias_gelu (z rounded) and bias_gelu32 (z in f32); (dz rounded, the
+    column sums of the f32 dz) for gelu_bwd / gelu32_bwd, whose ``z`` is the
+    pre-activation (rounded, or f32)."""
+    M, N, K = _gemm_dims(a, b, layout)
+    if epi not in GEMM_EPIS[layout]:
+        raise ValueError(f"layout {layout!r} takes the epilogues {GEMM_EPIS[layout]}, not {epi!r}")
+    dt = a.dtype
+    af, bf_ = a.float(), b.float()
+    acc = af @ bf_.t() if layout == "nt" else (af @ bf_ if layout == "nn" else af.t() @ bf_)
+    if epi == "f32":
+        return (acc,)
+    if epi == "bf16":
+        return (acc.to(dt),)
+    if epi in ("gelu_bwd", "gelu32_bwd"):
+        dz = acc * _gelu_grad(z.float())
+        return dz.to(dt), dz.sum(0)
+    pre = acc + bias.float()
+    if epi == "bias_bf16":
+        return (pre.to(dt),)
+    if epi == "bias_resid":  # bf16(R + bf16(acc + bias))
+        return ((resid.float() + pre.to(dt).float()).to(dt),)
+    if epi == "bias_gelu":  # z = bf16(acc + bias); h = bf16(gelu(z))
+        zr = pre.to(dt)
+        return F.gelu(zr.float()).to(dt), zr
+    return F.gelu(pre).to(dt), pre  # bias_gelu32: z kept in f32
+
+
+def gemm(a, b, layout: str, epi: str, bias=None, resid=None, z=None):
+    """One product of the branch GEMM: the wgmma + TMA kernel of
+    ``csrc/gemm_sm90.cuh`` on CUDA tensors (through ``ssrl_gemm``, which
+    also sums the weight gradient's split-K partials and the GELU
+    backward's column sums), ``gemm_ref`` on CPU tensors; the same outputs
+    as ``gemm_ref``. The branch kernels run the same kernel from C++; this
+    entry is for checking it alone."""
+    if a.device.type == "cpu":
+        return gemm_ref(a, b, layout, epi, bias, resid, z)
+    M, N, K = _gemm_dims(a, b, layout)
+    if epi not in GEMM_EPIS[layout]:
+        raise ValueError(f"layout {layout!r} takes the epilogues {GEMM_EPIS[layout]}, not {epi!r}")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"the GEMM takes bfloat16 operands, got {a.dtype}, {b.dtype}")
+    if N % 8 or (layout != "tn" and K % 8) or (layout == "tn" and M % 8):
+        raise ValueError(f"the GEMM takes N and the operands' row lengths in multiples of 8, "
+                         f"got M={M} N={N} K={K} ({layout})")
+    dev = a.device
+    a, b = a.contiguous(), b.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    c = torch.empty((M, N), **f32) if epi == "f32" else torch.empty((M, N), dtype=a.dtype,
+                                                                       device=dev)
+    zout = zout32 = colsum = zin = zin32 = None
+    if epi == "bias_gelu":
+        zout = torch.empty((M, N), dtype=a.dtype, device=dev)
+    elif epi == "bias_gelu32":
+        zout32 = torch.empty((M, N), **f32)
+    elif epi == "gelu_bwd":
+        zin, colsum = z.to(a.dtype).contiguous(), torch.empty((N,), **f32)
+    elif epi == "gelu32_bwd":
+        zin32, colsum = z.float().contiguous(), torch.empty((N,), **f32)
+    bias = bias.to(a.dtype).contiguous() if bias is not None else None
+    resid = resid.to(a.dtype).contiguous() if resid is not None else None
+    lib = _build.load()
+    ws = _workspace(lib.ssrl_gemm_workspace(_LAYOUT_CODE[layout], M, N, K), a)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    LAUNCHES["gemm"] += 1
+    _build.check(lib.ssrl_gemm(
+        _LAYOUT_CODE[layout], _EPI_CODE[epi], a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        ptr(bias), ptr(resid), ptr(zin), ptr(zout), ptr(zin32), ptr(zout32), ptr(colsum),
+        ws.data_ptr(), M, N, K, _stream(a),
+    ), f"gemm {layout} {epi}")
+    if epi == "bias_gelu":
+        return c, zout
+    if epi == "bias_gelu32":
+        return c, zout32
+    if colsum is not None:
+        return c, colsum
+    return (c,)
 
 
 def _ln_bwd(dy, x, scale):

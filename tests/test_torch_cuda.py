@@ -1,4 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
+branch GEMM alone (every layout and epilogue against ``gemm_ref``), the
 two branch kernels, the whole-block kernel of ``csrc/fused_block.cu``, the
 chained-block kernel of ``csrc/block_chain.cu``, the four attention entries
 of ``csrc/mha.cu`` and the fused patch embed of ``csrc/patch_embed.cu``.
@@ -236,6 +237,72 @@ def test_block_kernels_refuse_what_they_do_not_take(cuda):
         bf.fused_block(long, lparams[0], 2)
     with pytest.raises(ValueError, match="do not take"):
         bc.fused_block_chain(long, lparams, 2)
+
+
+# ---------------------------------------------------------------------------
+# the branch GEMM alone (csrc/gemm_sm90.cuh through ssrl_gemm)
+# ---------------------------------------------------------------------------
+
+# (M, N, K) as ``gemm`` names them (tn: M output rows = the operands' row
+# length, K = the B*L rows): flagship products (the MAE encoder's qkv and
+# fc1, the decoder's dy2 and dz, the weight gradients dWqkv and dW2), a
+# ragged M with D = 40 (a K tail of 40 < 64), K = 168 (two chunks and a
+# tail), N tiles of 96 / 144 / 192 and their splits, one row
+GEMM_SHAPES = {
+    "nt": [(28416, 432, 144), (28416, 576, 144), (111360, 192, 768), (333, 40, 40),
+           (77, 120, 168), (129, 288, 96), (1, 8, 8)],
+    "nn": [(111360, 192, 768), (111360, 768, 192), (28416, 144, 432), (333, 40, 40),
+           (77, 120, 168), (129, 384, 96), (1, 8, 8)],
+    "tn": [(432, 144, 28416), (192, 768, 111360), (768, 192, 111360), (40, 40, 333),
+           (120, 168, 77), (96, 384, 5000), (8, 8, 1)],
+}
+
+
+def _gemm_operands(layout, M, N, K, device, seed=0):
+    g = torch.Generator().manual_seed(seed + M + N + K)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    a = rn(K, M) if layout == "tn" else rn(M, K)
+    b = (rn(N, K) if layout == "nt" else rn(K, N)) * K**-0.5
+    extra = dict(bias=0.1 * rn(N), resid=rn(M, N), z=rn(M, N))
+    bf16 = lambda t: t.to(torch.bfloat16).to(device)  # noqa: E731
+    return bf16(a), bf16(b), {k: bf16(v) for k, v in extra.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,epi,M,N,K", [
+    (lay, e, *shape) for lay, es in bf.GEMM_EPIS.items() for e in es
+    for shape in GEMM_SHAPES[lay]])
+def test_gemm_matches_plain(cuda, layout, epi, M, N, K):
+    """Each output within 1% of the plain version's largest magnitude (a
+    bf16 rounding that flips is one unit in the last place; a layout or
+    swizzle fault is O(1)); one launch; the same bits on a second call."""
+    a, b, ex = _gemm_operands(layout, M, N, K, cuda)
+    if epi == "gelu32_bwd":
+        ex["z"] = ex["z"].float()
+    before = bf.LAUNCHES["gemm"]
+    got = bf.gemm(a, b, layout, epi, **ex)
+    assert bf.LAUNCHES["gemm"] == before + 1
+    want = bf.gemm_ref(a, b, layout, epi, **ex)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= 1e-2 * y.float().abs().max().item() + 1e-4, (err, y.float().abs().max())
+    again = bf.gemm(a, b, layout, epi, **ex)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_gemm_refuses_what_it_does_not_take(cuda):
+    a, b, ex = _gemm_operands("nt", 64, 16, 16, cuda)
+    with pytest.raises(TypeError):
+        bf.gemm(a.float(), b.float(), "nt", "bias_bf16", bias=ex["bias"])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        bf.gemm(a[:, :12].contiguous(), b[:, :12].contiguous(), "nt", "bias_bf16",
+                bias=ex["bias"])
+    with pytest.raises(ValueError, match="epilogues"):
+        bf.gemm(a, b, "nt", "f32")
 
 
 # entry -> (kernel wrapper, plain version); each called as in _attention_run

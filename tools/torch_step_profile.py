@@ -7,8 +7,9 @@ Runs the flagship pretraining step of the PyTorch port (the geometry of
 augmentation on) for each ``--task`` and each ``--attn-impl``: 3 warm-up
 steps, then 5 steps timed with CUDA events,
 then 5 steps under ``torch.profiler``. Prints, per run, the step time, the
-device time summed over all kernels, the device's idle share of the step
-and the kernels by device time per step; ``--out`` also writes them as
+device time summed over all kernels, the device's idle share of the step,
+the branch GEMM's kernels summed (ms and calls per step) and the kernels by
+device time per step; ``--out`` also writes them as
 JSON. ``SSRL_FUSED_EMBED=1`` in the environment switches the fused patch
 embed on. Needs a GPU::
 
@@ -36,6 +37,8 @@ from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask  # noqa: E402
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask  # noqa: E402
 
 STEPS, WARMUP, TOP = 5, 3, 40  # timed and profiled steps, warm-up, kernels listed
+# the branch kernels' GEMM (csrc/gemm_sm90.cuh): every instantiation's name has it
+GEMM_KERNEL = "gemm_sm90_kernel"
 
 
 def make_task(name: str, impl: str):
@@ -80,12 +83,15 @@ def profile(name: str, impl: str) -> dict:
         if us > 0 and getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = (us / 1e3 / steps, evt.count / steps)
     device_ms = sum(ms for ms, _ in kernels.values())
+    gemm = [v for k, v in kernels.items() if GEMM_KERNEL in k]
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return {
         "task": name, "attn_impl": impl, "batch": batch, "steps": steps,
         "step_ms": step_ms, "img_per_s": batch / step_ms * 1e3,
         "device_ms_per_step": device_ms,
         "idle_share": 1.0 - device_ms / step_ms,
+        "gemm_ms_per_step": sum(ms for ms, _ in gemm),
+        "gemm_calls_per_step": sum(n for _, n in gemm),
         "kernels": [{"name": k, "ms_per_step": ms, "calls_per_step": n}
                     for k, (ms, n) in ranked[:TOP]],
     }
@@ -110,6 +116,8 @@ def main() -> None:
         print(f"{name} attn_impl={impl} B={r['batch']}: {r['step_ms']:.3f} ms/step (CUDA events), "
               f"{r['img_per_s']:.1f} img/s; kernels {r['device_ms_per_step']:.3f} ms/step "
               f"on the device, idle {100 * r['idle_share']:.1f}%")
+        print(f"  {r['gemm_ms_per_step']:8.3f} ms/step  {r['gemm_calls_per_step']:6.1f} calls  "
+              f"branch GEMM ({GEMM_KERNEL}, all instantiations)")
         for k in r["kernels"]:
             print(f"  {k['ms_per_step']:8.3f} ms/step  {k['calls_per_step']:6.1f} calls  "
                   f"{k['name'][:110]}")
