@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port: kernels, then the MAE and JEPA
-pretraining steps.
+pretraining steps, then the classifier stage and the engine under it.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -13,7 +13,8 @@ Phases (any failure exits nonzero; nothing is caught):
   3. at the main paths' shapes (B=768, H=6, F=4D, bf16: the MAE encoder
      L=37, D=144 and decoder L=145, D=192; the JEPA context encoder L=45,
      D=144, predictor L=145, D=96 and target encoder L=145, D=144, the
-     last under no-grad) each branch kernel, forward and all seven backward
+     last under no-grad; the classifier's encoder "cls", L=145, D=144 with
+     its backward) each branch kernel, forward and all seven backward
      outputs, against its plain PyTorch version on the card, with the
      kernel's and the plain version's times; then every GEMM of those
      kernels alone (``bf.gemm``, the wgmma + TMA kernel of
@@ -73,16 +74,38 @@ Phases (any failure exits nonzero; nothing is caught):
      backwards (6 + 6) and the target encoder's 4 no-grad forwards, or
      their chain forwards and backwards (2 + 2) and the target's one
      no-grad chain forward; the EMA target moved.
+  15. the flagship classifier step through ``ClassifierTask``
+     (configs/mae.yaml's model and train sections, B=768, bf16,
+     augmentation on, auto) under the full fine-tune, the linear probe
+     (``freeze_encoder``) and ``unfreeze_last_layers=2``, then its eval
+     step: finite losses, every trainable tensor moved and every frozen one
+     bit-identical, and per step exactly the launches of ``CLS_LAUNCHES``
+     (the frozen blocks through the no-grad attention forward, no
+     backward);
+  16. the same three steps and the eval step at B=16 on the card and
+     through the plain path on the CPU, from the same weights and draws:
+     the losses within rtol 2e-2, the eval's ``acc_sum`` within 1;
+  17. the stage end to end through the port's entry points on a synthetic
+     STL-10 written by ``write_synthetic_stl10`` (texture signal):
+     ``Trainer.fit`` of MAE for 2 epochs at B=768 (``best.ckpt``,
+     ``last.ckpt``, ``metrics.jsonl``), ``encoder_params_from_checkpoint``
+     of its ``best.ckpt`` merged into a classifier, ``Trainer.fit`` of the
+     full fine-tune for 2 epochs at B=256 and ``Trainer.test``, a resume
+     from ``last.ckpt`` at the next epoch, and the exact launches of the
+     whole phase; beside it, the host loader's sustained img/s to the card
+     at B=768 and B=2000.
 
-Each main-path run (phases 4, 6-9, 11-14) zeroes every launch count just
-before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
+Each main-path run (phases 4, 6-9, 11-15, 17) zeroes every launch count
+just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
 
 The line before the last is ``{"kernels": [...]}`` (21 entries): per
 kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
 ``step`` (the MAE step where it runs the kernel, else the JEPA step),
-``*_jepa`` the same per JEPA step, ``*_<geometry>`` per call. ``ms`` and
+``*_jepa`` the same per JEPA step, ``*_classifier`` per full fine-tune
+step of the classifier, ``*_<geometry>`` per call (``*_cls`` the
+classifier's geometry). ``ms`` and
 the other times are CUDA-event means of the wrapper's call, host work
 included; ``device_ms`` and ``library_device_ms`` (attention and embed
 rows) are the summed durations of the device kernels one call launches.
@@ -121,8 +144,18 @@ from ssrl_vit_mae_jepa_torch.ops.attention_stacked import (
     mha_stacked_qkv_ref,
     mha_stacked_ref,
 )
+from ssrl_vit_mae_jepa_torch.data.loaders import (
+    get_pretrain_dataloaders,
+    get_test_dataloader,
+    get_train_dataloaders,
+)
+from ssrl_vit_mae_jepa_torch.data.pipeline import HostLoader, device_prefetch
+from ssrl_vit_mae_jepa_torch.data.stl10 import write_synthetic_stl10
+from ssrl_vit_mae_jepa_torch.runtime.native import native_available
 from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask
-from ssrl_vit_mae_jepa_torch.training.tasks import MAETask
+from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask, MAETask
+from ssrl_vit_mae_jepa_torch.training.trainer import Trainer
+from ssrl_vit_mae_jepa_torch.utils.load import encoder_params_from_checkpoint, merge_encoder
 
 REPO = pathlib.Path(__file__).resolve().parent
 BATCH = 768
@@ -133,15 +166,18 @@ PRE_CFG = {
     "total_epochs": 800, "warmup_epochs": 20, "batch_size": BATCH,
     "base_learning_rate": 1.5e-4, "weight_decay": 0.05, "augment": True,
 }
-# name -> (L, D, H) of the transformer blocks
+# name -> (L, D, H) of the transformer blocks; "cls" is the classifier's
+# encoder over all 145 tokens, the JEPA target's shape with a backward
 GEOMETRIES = {"enc": (37, 144, 6), "dec": (145, 192, 6), "ctx": (45, 144, 6),
-              "pred": (145, 96, 6), "tgt": (145, 144, 6)}
+              "pred": (145, 96, 6), "tgt": (145, 144, 6), "cls": (145, 144, 6)}
 # blocks per training step at each geometry, by main path; the JEPA target
-# encoder ("tgt") runs under no-grad, so only forward kernels
-STEP_CALLS = {"mae": {"enc": 4, "dec": 2}, "jepa": {"ctx": 4, "pred": 2, "tgt": 4}}
+# encoder ("tgt") runs under no-grad, so only forward kernels; the
+# classifier's full fine-tune runs its 4 blocks at "cls"
+STEP_CALLS = {"mae": {"enc": 4, "dec": 2}, "jepa": {"ctx": 4, "pred": 2, "tgt": 4},
+              "classifier": {"cls": 4}}
 _TPU = "ssrl_vit_mae_jepa_tpu/ops/"
 # branch kernel -> (source, TPU kernel, geometries it runs at)
-_GRAD_GEOS = ("enc", "dec", "ctx", "pred")
+_GRAD_GEOS = ("enc", "dec", "ctx", "pred", "cls")
 KERNELS = {
     "attn_branch_fwd": ("attn_branch.cu", _TPU + "block_pallas.py:722", _GRAD_GEOS),
     "attn_branch_fwd_nograd": ("attn_branch.cu", _TPU + "block_pallas.py:692", ("tgt",)),
@@ -183,8 +219,21 @@ BLOCK_KERNELS = {"block_fwd": _TPU + "block_pallas.py:408",
 CHAIN_KERNELS = {"chain_fwd": _TPU + "block_chain.py:261",
                  "chain_fwd_nograd": _TPU + "block_chain.py:235",
                  "chain_bwd": _TPU + "block_chain.py:288"}
-CHAIN_DEPTH = {"enc": 4, "dec": 2, "ctx": 4, "pred": 2, "tgt": 4}
-CHAIN_CALLS = {"mae": {"enc": 1, "dec": 1}, "jepa": {"ctx": 1, "pred": 1, "tgt": 1}}
+CHAIN_DEPTH = {"enc": 4, "dec": 2, "ctx": 4, "pred": 2, "tgt": 4, "cls": 4}
+CHAIN_CALLS = {"mae": {"enc": 1, "dec": 1}, "jepa": {"ctx": 1, "pred": 1, "tgt": 1},
+               "classifier": {"cls": 1}}
+# the classifier stage's freeze policies, policy -> (freeze_encoder,
+# unfreeze_last_layers), and the launches of a step on the flagship encoder
+# (4 blocks at (145, 144)) under each, and of an eval step
+FREEZE = {"full": (False, None), "probe": (True, None), "unfreeze2": (False, 2)}
+CLS_LAUNCHES = {
+    "full": {"attn_branch_fwd": 4, "attn_branch_bwd": 4, "mlp_branch_fwd": 4,
+             "mlp_branch_bwd": 4},
+    "probe": {"attn_branch_fwd_nograd": 4, "mlp_branch_fwd": 4},
+    "unfreeze2": {"attn_branch_fwd": 2, "attn_branch_fwd_nograd": 2, "attn_branch_bwd": 2,
+                  "mlp_branch_fwd": 4, "mlp_branch_bwd": 2},
+    "eval": {"attn_branch_fwd_nograd": 4, "mlp_branch_fwd": 4},
+}
 # the attention entry each forced impl's main path must launch
 IMPL_ENTRY = {"packed": "mha_stacked_qkv", "pallas": "mha_pallas"}
 # the card's peaks (NVIDIA's H100 SXM data sheet): dense bf16 tensor-core
@@ -197,6 +246,10 @@ FWD_ATOL = 6e-2       # bf16 forward tolerance of tests/test_block_kernel.py
 # relative error of a layout or indexing fault
 BWD_REL = 2e-2
 LOSS_RTOL = 2e-2      # bf16 step, kernels on the card vs plain on the CPU
+# a bf16 step's parameter gradients, card vs CPU: each within 10% of the CPU
+# tensor's largest magnitude (tests/test_torch_classifier.py's bf16 bound
+# against the JAX step); a wrong backward is off by O(1) of it
+STEP_GRAD_REL = 1e-1
 
 
 def fail(msg: str) -> None:
@@ -234,13 +287,22 @@ def device_us(evt) -> float:
     raise AttributeError("profiler event without a device time")
 
 
+# a profiler session now and then records no device activity, up to three
+# in a row in one call; after this many such sessions device_ms falls back
+# to CUDA events
+PROFILER_SESSIONS = 6
+
+
 def device_ms(fn, iters: int = 10, by_kernel: dict | None = None) -> float:
     """Device time of one call of ``fn``: the summed durations of the device
     kernels it launches, under ``torch.profiler``, over ``iters`` calls after
-    a warm-up call; ``by_kernel`` gets each kernel's share."""
+    a warm-up call; ``by_kernel`` gets each kernel's share. Where no session
+    of PROFILER_SESSIONS records device time, the CUDA-event time of the
+    calls (``cuda_ms``), which also holds the gaps between the kernels, and
+    ``by_kernel`` stays empty."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no device activity
+    for _ in range(PROFILER_SESSIONS):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -248,13 +310,14 @@ def device_ms(fn, iters: int = 10, by_kernel: dict | None = None) -> float:
         shares = {e.key: device_us(e) / 1e3 / iters for e in prof.key_averages()
                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
         if sum(shares.values()) > 0:
-            break
+            if by_kernel is not None:
+                by_kernel.update(shares)
+            return sum(shares.values())
         print("  (torch.profiler recorded no device time; profiling again)", flush=True)
-    else:
-        fail("torch.profiler saw no device time in three sessions")
-    if by_kernel is not None:
-        by_kernel.update(shares)
-    return sum(shares.values())
+        time.sleep(0.1)
+    print(f"  (no device time in {PROFILER_SESSIONS} profiler sessions: CUDA events instead)",
+          flush=True)
+    return cuda_ms(fn, iters)
 
 
 def kernel_shares(shares: dict) -> str:
@@ -334,9 +397,11 @@ def per_step(per_geo: dict, key: str, calls: dict) -> float:
 
 def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
     """A kernel's line: ``ms``/``plain_ms``/``library_ms``/``bound_ms`` per
-    step of the first main path that runs it (MAE before JEPA), the JEPA
-    step's under ``*_jepa``, every geometry's per call under ``*_<geo>``."""
-    runs = [s for s in ("mae", "jepa") if any(g in per_geo for g in calls_by_step.get(s, {}))]
+    step of the first main path that runs it (MAE, then JEPA, then the
+    classifier's full fine-tune), a later path's per step under ``*_jepa``
+    and ``*_classifier``, every geometry's per call under ``*_<geo>``."""
+    runs = [s for s in ("mae", "jepa", "classifier")
+            if any(g in per_geo for g in calls_by_step.get(s, {}))]
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                         "library_device_ms")
             if all(k in v for v in per_geo.values())]
@@ -344,8 +409,8 @@ def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
     r = {"max_abs_err": err, "bound_by": worst["bound_by"], "step": runs[0]}
     for k in keys:
         r[k] = per_step(per_geo, k, calls_by_step[runs[0]])
-        if "jepa" in runs:
-            r[f"{k}_jepa"] = per_step(per_geo, k, calls_by_step["jepa"])
+        for later in runs[1:]:
+            r[f"{k}_{later}"] = per_step(per_geo, k, calls_by_step[later])
         r.update({f"{k}_{g}": v[k] for g, v in per_geo.items()})
     return r
 
@@ -480,7 +545,7 @@ def gemm_table() -> list:
     ``torch.matmul`` on the same bf16 operands (a yardstick, never a route)
     and its bound; and the kernels' device time per MAE and JEPA step."""
     rows = []
-    per_step = {"mae": 0.0, "jepa": 0.0}
+    per_step = dict.fromkeys(STEP_CALLS, 0.0)
     for geo, (L, D, _) in GEOMETRIES.items():
         grad = geo != "tgt"
         for name, (layout, epi, M, N, K, pas) in gemm_products(L, D).items():
@@ -511,6 +576,9 @@ def gemm_table() -> list:
             k_ms = sum(v for k, v in shares.items() if "gemm_sm90" in k)
             red_ms = sum(v for k, v in shares.items() if "colsum" in k)
             m_ms = sum(shares.values()) - k_ms - red_ms
+            if not shares:  # the profiler fell back: each side by CUDA events
+                k_ms, red_ms = cuda_ms(lambda: bf.gemm(a, b, layout, epi, **ex)), 0.0
+                m_ms = cuda_ms(lambda: torch.matmul(at, bt))
             total = k_ms + red_ms
             b_ms, b_by = gemm_bound(layout, epi, M, N, K)
             rows.append({"geo": geo, "product": name, "pass": pas, "layout": layout, "epi": epi,
@@ -526,7 +594,8 @@ def gemm_table() -> list:
             del a, b, ex
     torch.cuda.empty_cache()
     print(f"  GEMM kernels' device ms per step (table sum): MAE {per_step['mae']:.3f}, "
-          f"JEPA {per_step['jepa']:.3f}", flush=True)
+          f"JEPA {per_step['jepa']:.3f}, classifier full fine-tune {per_step['classifier']:.3f}",
+          flush=True)
     return rows
 
 
@@ -926,9 +995,14 @@ def fused_embed(on: bool):
             os.environ["SSRL_FUSED_EMBED"] = old
 
 
-def flagship_images(seed: int = 0):
-    images = np.random.default_rng(seed).integers(0, 256, (BATCH, 96, 96, 3)).astype(np.uint8)
-    return {"image": torch.from_numpy(images).cuda(), "weight": torch.ones(BATCH, device="cuda")}
+def flagship_images(seed: int = 0, n: int = BATCH, device="cuda"):
+    """uint8 images, STL-10 labels and unit weights from a seed."""
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n, 96, 96, 3)).astype(np.uint8)
+    labels = rng.integers(0, 10, n).astype(np.int32)
+    return {"image": torch.from_numpy(images).to(device),
+            "label": torch.from_numpy(labels).to(device),
+            "weight": torch.ones(n, device=device)}
 
 
 def timed_steps(task, state, batch, name: str, what: str):
@@ -961,7 +1035,7 @@ def timed_steps(task, state, batch, name: str, what: str):
     print(f"  launches over {STEPS} steps: {launches}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{what}: non-finite loss: {losses}")
-    return state, sums, launches
+    return state, sums, launches, ms
 
 
 def check_moved(before: dict, after: dict, what: str) -> None:
@@ -970,22 +1044,55 @@ def check_moved(before: dict, after: dict, what: str) -> None:
         fail(f"{what}: only {moved} of {len(before)} tensors changed")
 
 
-def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False) -> dict:
+def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False):
     """Phases 4, 6, 7, 9, 11, 12: the flagship step through MAETask on the
-    card."""
+    card; returns its launches and ms/step."""
     with fused_embed(fused):
         task = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
         what = f"MAE step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
-        state, _, launches = timed_steps(task, state, flagship_images(), name, what)
+        state, _, launches, ms = timed_steps(task, state, flagship_images(), name, what)
     check_moved(before, state.params, what)
     want = expected(mae_launches(impl, fused), STEPS)
     if launches != want:
         fail(f"{what}: launches in {STEPS} steps {launches}, expected {want}")
     del task, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, ms
+
+
+def step_grads(task, state, batch: dict, draws: tuple, ctx):
+    """The trainable names and their gradients that ``task.train_step``
+    takes from ``batch`` and ``draws``, without the update."""
+    u, flip, *task_draws = draws
+    images = task.preprocess_train(u, flip, batch["image"])
+    loss, _ = task.loss_and_metric_sums_in_step(state, images, batch, task_draws, ctx)
+    names = task.tx.trainable(state.params)
+    return names, torch.autograd.grad(loss, [state.params[k] for k in names])
+
+
+def check_step_grads(what: str, gpu, gs, gbatch: dict, cpu, cs, cbatch: dict, draws: tuple,
+                     ctx=None) -> None:
+    """One step's trainable gradients, kernels on the card against the plain
+    path on the CPU from the same weights and draws, before the step updates
+    the params: each within STEP_GRAD_REL of the CPU tensor's largest
+    magnitude."""
+    names, g_gpu = step_grads(gpu, gs, gbatch, draws, ctx)
+    names_cpu, g_cpu = step_grads(cpu, cs, cbatch, tuple(d.cpu() for d in draws), ctx)
+    if names != names_cpu:
+        fail(f"{what}: the card trains {len(names)} tensors, the CPU {len(names_cpu)}")
+    worst, worst_name = 0.0, ""
+    for k, a, b in zip(names, g_gpu, g_cpu):
+        err = (a.float().cpu() - b.float()).abs().max().item()
+        lim = STEP_GRAD_REL * b.float().abs().max().item() + 1e-6
+        if err / lim > worst:
+            worst, worst_name = err / lim, k
+        if not err <= lim:
+            fail(f"{what} gradient {k}: card vs CPU max abs err {err:.3e} > {lim:.3e}")
+    print(f"  {what}: {len(names)} trainable gradients, card vs CPU, the worst at "
+          f"{worst:.3f} of its bound ({worst_name}; bound {STEP_GRAD_REL:g} of each CPU "
+          f"tensor's largest magnitude)")
 
 
 def cpu_agreement(model_cfg: dict, impl: str) -> None:
@@ -1002,7 +1109,9 @@ def cpu_agreement(model_cfg: dict, impl: str) -> None:
     ctx = gpu.epoch_context(0)
     draws = gpu.draw(gs.generator, n, ctx)
     weight = torch.ones(n)
-    before = {k: v.detach().cpu().clone() for k, v in cs.params.items()}
+    check_step_grads(f"attn_impl={impl} B={n}", gpu, gs,
+                     {"image": images.cuda(), "weight": weight.cuda()},
+                     cpu, cs, {"image": images, "weight": weight}, draws, ctx)
     reset_counts()
     _, s_gpu = gpu.train_step(gs, {"image": images.cuda(), "weight": weight.cuda()},
                               0, ctx, draws)
@@ -1017,15 +1126,6 @@ def cpu_agreement(model_cfg: dict, impl: str) -> None:
           f"plain on the CPU {lc:.6f}")
     if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
         fail(f"loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
-    lr = s_cpu["lr"]
-    worst = max((gs.params[k].detach().cpu() - cs.params[k].detach()).abs().max().item()
-                for k in cs.params)
-    step = max((cs.params[k].detach() - before[k]).abs().max().item() for k in cs.params)
-    print(f"  after one step: max |param gpu - cpu| {worst:.3e}, lr {lr:.3e}, "
-          f"largest update {step:.3e}")
-    # Adam's first step is about +-lr per element, whatever the gradient's size
-    if not worst <= 2.5 * lr:
-        fail(f"updated params disagree by {worst} > 2.5 lr")
 
 
 def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
@@ -1039,7 +1139,7 @@ def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
         extra0 = {k: v.clone() for k, v in state.extra.items()}
-        state, sums, launches = timed_steps(task, state, flagship_images(), name, what)
+        state, sums, launches, _ = timed_steps(task, state, flagship_images(), name, what)
     check_moved(before, state.params, what)
     check_moved(extra0, state.extra, what + " (EMA target)")
     metrics = task.epoch_metrics_from_sums(
@@ -1071,6 +1171,9 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto") -> N
         np.random.default_rng(1).integers(0, 256, (n, 96, 96, 3)).astype(np.uint8))
     draws = gpu.draw(gs.generator, n, None)
     weight = torch.ones(n)
+    check_step_grads(f"JEPA attn_impl={impl} B={n}", gpu, gs,
+                     {"image": images.cuda(), "weight": weight.cuda()},
+                     cpu, cs, {"image": images, "weight": weight}, draws)
     reset_counts()
     _, s_gpu = gpu.train_step(gs, {"image": images.cuda(), "weight": weight.cuda()},
                               0, None, draws)
@@ -1085,12 +1188,218 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto") -> N
           f"plain on the CPU {lc:.6f}")
     if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
         fail(f"JEPA loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
-    lr = s_cpu["lr"]
-    worst = max((gs.params[k].detach().cpu() - cs.params[k].detach()).abs().max().item()
-                for k in cs.params)
-    print(f"  after one step: max |param gpu - cpu| {worst:.3e}, lr {lr:.3e}")
-    if not worst <= 2.5 * lr:
-        fail(f"updated params disagree by {worst} > 2.5 lr")
+
+
+def classifier_task(model_cfg: dict, train_cfg: dict, policy: str, device: str,
+                    impl: str = "auto"):
+    """``ClassifierTask`` on the configuration's train section, bf16, under
+    one freeze policy of ``FREEZE``."""
+    task = ClassifierTask(model_cfg, train_cfg, dtype=torch.bfloat16, device=device,
+                          attn_impl=impl)
+    freeze_encoder, unfreeze = FREEZE[policy]
+    task.set_freeze_policy(freeze_encoder=freeze_encoder, unfreeze_last_layers=unfreeze)
+    return task
+
+
+def check_frozen(task, before: dict, after: dict, what: str) -> None:
+    """Every trainable tensor moved, every frozen one kept its bits."""
+    trainable = set(task.tx.trainable(after))
+    moved = {k for k, v in after.items() if not torch.equal(before[k], v.detach().to(before[k].device))}
+    if moved != trainable:
+        fail(f"{what}: moved {len(moved)} tensors, {len(trainable)} trainable; frozen that "
+             f"moved: {sorted(moved - trainable)[:4]}, trainable that did not: "
+             f"{sorted(trainable - moved)[:4]}")
+    print(f"  {what}: {len(trainable)} of {len(after)} tensors trainable, all moved; "
+          f"the other {len(after) - len(trainable)} bit-identical")
+
+
+def classifier_steps(model_cfg: dict, train_cfg: dict, name: str) -> dict:
+    """Phase 15: the flagship classifier step through ``ClassifierTask``
+    under each freeze policy, then its eval step; exact launches per step."""
+    launches = dict.fromkeys(launch_counts(), 0)
+    batch = flagship_images()
+    for policy in FREEZE:
+        task = classifier_task(model_cfg, train_cfg, policy, "cuda")
+        state = task.init_state(0)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        what = f"classifier step {policy}"
+        state, sums, got, _ = timed_steps(task, state, batch, name, what)
+        check_frozen(task, before, state.params, what)
+        want = expected(CLS_LAUNCHES[policy], STEPS)
+        if got != want:
+            fail(f"{what}: launches in {STEPS} steps {got}, expected {want}")
+        metrics = task.epoch_metrics_from_sums({k: float(v) for k, v in sums[-1].items()},
+                                               "train")
+        print(f"  last step: {metrics}")
+        for k, v in got.items():
+            launches[k] += v
+        if policy == "full":
+            gen = torch.Generator("cuda").manual_seed(0)
+            for _ in range(WARMUP):
+                task.eval_step(state, batch, gen)
+            torch.cuda.synchronize()
+            reset_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(STEPS):
+                s = task.eval_step(state, batch, gen)
+            end.record()
+            torch.cuda.synchronize()
+            got = launch_counts()
+            ms = start.elapsed_time(end) / STEPS
+            m = task.epoch_metrics_from_sums({k: float(v) for k, v in s.items()}, "val")
+            print(f"  classifier eval step B={BATCH} bf16 on {name}: {ms:.3f} ms/step "
+                  f"(CUDA events), {BATCH / ms * 1e3:.1f} img/s; {m}", flush=True)
+            if got != expected(CLS_LAUNCHES["eval"], STEPS):
+                fail(f"classifier eval: launches in {STEPS} steps {got}, expected "
+                     f"{expected(CLS_LAUNCHES['eval'], STEPS)}")
+            if not all(math.isfinite(v) for v in m.values()):
+                fail(f"classifier eval: {m}")
+            for k, v in got.items():
+                launches[k] += v
+        del task, state
+        torch.cuda.empty_cache()
+    return launches
+
+
+def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict) -> None:
+    """Phase 16: B=16, same weights and draws, kernels on the card against
+    the plain path on the CPU, under each freeze policy (the loss, every
+    trainable gradient, the frozen tensors' bits); then the eval step's
+    sums."""
+    n = 16
+    for policy in FREEZE:
+        gpu = classifier_task(model_cfg, train_cfg, policy, "cuda")
+        cpu = classifier_task(model_cfg, train_cfg, policy, "cpu")
+        gs, cs = gpu.init_state(1), cpu.init_state(1)
+        cpu.model.load_state_dict(gpu.model.state_dict())
+        batch = flagship_images(1, n, "cpu")
+        if policy == "full":
+            reset_counts()
+            eg = gpu.eval_step(gs, {k: v.cuda() for k, v in batch.items()}, None)
+            launched = launch_counts()
+            ec = cpu.eval_step(cs, batch, None)
+            if launch_counts() != launched or launched != expected(CLS_LAUNCHES["eval"]):
+                fail(f"classifier eval launch counts: {launch_counts()}")
+            print(f"  eval B={n}: card {({k: round(float(v), 5) for k, v in eg.items()})}, "
+                  f"CPU {({k: round(float(v), 5) for k, v in ec.items()})}")
+            if not abs(float(eg["acc_sum"]) - float(ec["acc_sum"])) <= 1.0:
+                fail(f"eval acc_sum disagrees: {float(eg['acc_sum'])} vs {float(ec['acc_sum'])}")
+            lg, lc = float(eg["loss_sum"]), float(ec["loss_sum"])
+            if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
+                fail(f"eval loss_sum disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
+        draws = gpu.draw(gs.generator, n, None)
+        before = {k: v.detach().clone() for k, v in cs.params.items()}
+        check_step_grads(f"classifier {policy}", gpu, gs, {k: v.cuda() for k, v in batch.items()},
+                         cpu, cs, batch, draws)
+        reset_counts()
+        _, s_gpu = gpu.train_step(gs, {k: v.cuda() for k, v in batch.items()}, 0, None, draws)
+        launched = launch_counts()
+        _, s_cpu = cpu.train_step(cs, batch, 0, None, tuple(d.cpu() for d in draws))
+        if launch_counts() != launched or launched != expected(CLS_LAUNCHES[policy]):
+            fail(f"classifier {policy} launch counts: {launch_counts()}, expected "
+                 f"{CLS_LAUNCHES[policy]} on the card and nothing on the CPU")
+        lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
+        print(f"  classifier {policy} B={n} loss: kernels on the card {lg:.6f}, plain on "
+              f"the CPU {lc:.6f}")
+        if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
+            fail(f"classifier {policy} loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
+        check_frozen(cpu, before, cs.params, f"classifier {policy} on the CPU")
+        check_frozen(gpu, before, gs.params, f"classifier {policy} on the card")
+
+
+def loader_rate(loader, epochs: int = 3) -> float:
+    """Sustained img/s (real examples) of the host loader through
+    ``device_prefetch`` to the card, with no step consuming the batches."""
+    t0 = time.perf_counter()
+    for e in range(epochs):
+        for _ in device_prefetch(loader.epoch(e), "cuda", depth=loader.prefetch_depth):
+            pass
+    torch.cuda.synchronize()
+    return epochs * loader.num_examples / (time.perf_counter() - t0)
+
+
+def stage_end_to_end(cfg: dict, mae_ms: float) -> dict:
+    """Phase 17: the stage through the port's entry points on a synthetic
+    STL-10 (texture signal): MAE ``Trainer.fit`` for 2 epochs at B=768, the
+    encoder of its ``best.ckpt`` merged into a classifier, ``Trainer.fit``
+    of the full fine-tune for 2 epochs at B=256 and ``Trainer.test``, and
+    a resume from ``last.ckpt``; exact launches of the whole phase."""
+    import copy
+    import tempfile
+
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        write_synthetic_stl10(tmp / "data", num_train=1000, num_test=800, num_unlabeled=4000,
+                              seed=0, class_signal="texture")
+        print(f"  synthetic STL-10 (1000 train, 800 test, 4000 unlabeled, texture) written "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        c = copy.deepcopy(cfg)
+        c["pretrain"]["batch_size"] = BATCH
+        c["train"].update(samples_per_class=80, batch_size=256)
+        c["test"]["batch_size"] = 256
+        mtrain, mval = get_pretrain_dataloaders(c, tmp / "data")
+        native = native_available()  # builds the host gather before it is timed
+        for b in (BATCH, 2000):
+            ld = HostLoader(mtrain.dataset, mtrain.indices, b, shuffle=True)
+            ld.prefetch_depth = mtrain.prefetch_depth
+            rate = loader_rate(ld)
+            print(f"  host loader B={b}: {rate:.1f} img/s sustained to the card (depth "
+                  f"{ld.prefetch_depth}, native gather {native}); the MAE step "
+                  f"(phase 4) takes {BATCH / mae_ms * 1e3:.1f} img/s", flush=True)
+        reset_counts()
+        mae = Trainer(MAETask(c["model"], c["pretrain"], device="cuda"), 2, tmp / "mae",
+                      hyper_parameters=c)
+        m = mae.fit(mtrain, mval)
+        ckpts = tmp / "mae" / "checkpoints"
+        for f in (ckpts / "best.ckpt", ckpts / "last.ckpt", tmp / "mae" / "metrics.jsonl"):
+            if not f.is_file():
+                fail(f"MAE fit wrote no {f.name}")
+        lines = [json.loads(x) for x in (tmp / "mae" / "metrics.jsonl").read_text().split("\n") if x]
+        if len(lines) != 2 or not all(math.isfinite(x["train_loss"]) and math.isfinite(x["val_loss"])
+                                      for x in lines):
+            fail(f"MAE metrics.jsonl: {lines}")
+        enc, report = encoder_params_from_checkpoint(ckpts / "best.ckpt",
+                                                     c["model"]["encoder"]["depth"])
+        if report["missing"]:
+            fail(f"encoder of best.ckpt: {report}")
+        ctrain, cval = get_train_dataloaders(c, tmp / "data")
+        test = get_test_dataloader(c, tmp / "data")
+        cls = Trainer(ClassifierTask(c["model"], c["train"], device="cuda"), 2, tmp / "cls",
+                      hyper_parameters=c)
+        cm = cls.fit(ctrain, cval, init_params_override=lambda p: merge_encoder(p, enc))
+        tm = cls.test(test)
+        print(f"  test: {tm}", flush=True)
+        if not (0.0 <= tm["test_acc"] <= 1.0 and math.isfinite(tm["test_loss"])
+                and all(math.isfinite(cm[k]) for k in ("train_loss", "val_loss"))):
+            fail(f"classifier stage: fit {cm}, test {tm}")
+        resumed = Trainer(ClassifierTask(c["model"], c["train"], device="cuda"), 3,
+                          tmp / "cls_resumed")
+        resumed.fit(ctrain, cval, resume_from=tmp / "cls" / "checkpoints" / "last.ckpt")
+        lines = [json.loads(x) for x in
+                 (tmp / "cls_resumed" / "metrics.jsonl").read_text().split("\n") if x]
+        if [x["epoch"] for x in lines] != [2] or resumed.global_step != 3 * len(ctrain):
+            fail(f"resume: epochs {[x['epoch'] for x in lines]}, global step "
+                 f"{resumed.global_step} (expected [2] and {3 * len(ctrain)})")
+        got = launch_counts()
+    # MAE: 6 blocks a step (4 encoder, 2 decoder), forward and backward, and
+    # 6 no-grad forwards a val batch; classifier: 4 blocks a step, 4 no-grad
+    # forwards an eval batch (val each epoch, test once)
+    mae_steps, mae_evals = 2 * len(mtrain), 2 * len(mval)
+    cls_steps = 3 * len(ctrain)
+    cls_evals = 3 * len(cval) + len(test)
+    grad = 6 * mae_steps + 4 * cls_steps
+    nograd = 6 * mae_evals + 4 * cls_evals
+    want = expected({"attn_branch_fwd": grad, "attn_branch_bwd": grad,
+                     "mlp_branch_fwd": grad + nograd, "mlp_branch_bwd": grad,
+                     "attn_branch_fwd_nograd": nograd})
+    if got != want:
+        fail(f"stage launches {got}, expected {want}")
+    print(f"  launches of the stage: {got}", flush=True)
+    return got
 
 
 def main() -> None:
@@ -1129,9 +1438,11 @@ def main() -> None:
         for k, v in counts.items():
             launches[k] += v
 
+    mae_ms = {}
     for phase, impl in ((4, "auto"), (6, "packed"), (7, "pallas")):
         print(f"phase {phase}: MAE pretraining step, attn_impl={impl}", flush=True)
-        add(mae_step(model_cfg, name, impl))
+        counts, mae_ms[impl] = mae_step(model_cfg, name, impl)
+        add(counts)
         print(f"phase {5 if impl == 'auto' else phase}: B=16 step, attn_impl={impl}, "
               "kernels vs plain CPU path", flush=True)
         cpu_agreement(model_cfg, impl)
@@ -1139,19 +1450,29 @@ def main() -> None:
     add(jepa_step(model_cfg, jepa_cfg, name, fused=False))
     print("phase 9: JEPA and MAE steps with SSRL_FUSED_EMBED=1", flush=True)
     add(jepa_step(model_cfg, jepa_cfg, name, fused=True))
-    add(mae_step(model_cfg, name, "auto", fused=True))
+    add(mae_step(model_cfg, name, "auto", fused=True)[0])
     print("phase 10: B=16 JEPA step, kernels vs plain CPU path", flush=True)
     jepa_cpu_agreement(model_cfg, jepa_cfg)
     for phase, impl in ((11, "block"), (12, "chain")):
         print(f"phase {phase}: MAE pretraining step, attn_impl={impl}, then B=16 "
               "kernels vs plain CPU path", flush=True)
-        add(mae_step(model_cfg, name, impl))
+        add(mae_step(model_cfg, name, impl)[0])
         cpu_agreement(model_cfg, impl)
     for phase, impl in ((13, "block"), (14, "chain")):
         print(f"phase {phase}: JEPA pretraining step, attn_impl={impl}, then B=16 "
               "kernels vs plain CPU path", flush=True)
         add(jepa_step(model_cfg, jepa_cfg, name, fused=False, impl=impl))
         jepa_cpu_agreement(model_cfg, jepa_cfg, impl)
+    train_cfg = {**cfg["train"], "batch_size": BATCH}
+    print("phase 15: classifier step (full fine-tune, probe, unfreeze 2) and eval step, "
+          "attn_impl=auto", flush=True)
+    add(classifier_steps(model_cfg, train_cfg, name))
+    print("phase 16: B=16 classifier steps and eval step, kernels vs plain CPU path",
+          flush=True)
+    classifier_cpu_agreement(model_cfg, train_cfg)
+    print("phase 17: the stage end to end: MAE fit, classifier fit from its best.ckpt, "
+          "test, resume", flush=True)
+    add(stage_end_to_end(cfg, mae_ms["auto"]))
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]

@@ -1,0 +1,76 @@
+"""Dataloader factories matching the reference's ``src/data.py`` API.
+
+Port of ``ssrl_vit_mae_jepa_tpu/data/loaders.py``:
+``get_pretrain_dataloaders`` / ``get_train_dataloaders`` /
+``get_test_dataloader`` (reference ``src/data.py:45,109,167``) with the same
+split indices (seed 73 by default, quirk Q4's first-n fraction, quirk Q5's
+per-class RNG reset; see ``data/stl10.py``). The loaders move uint8 pixels
+only; augmentation runs on the device in the task. One process: the batch
+size in the config is the loader's (data parallelism is not ported yet).
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Tuple
+
+import numpy as np
+
+from ssrl_vit_mae_jepa_torch.data.pipeline import HostLoader
+from ssrl_vit_mae_jepa_torch.data.stl10 import (
+    STL10,
+    pretrain_split_indices,
+    stratified_split_indices,
+)
+
+ROOT_DIR = Path(__file__).resolve().parents[2]
+DATA_DIR = Path(os.environ.get("SSRL_DATA_DIR", ROOT_DIR / "data"))
+
+
+def _depth(section: dict) -> int:
+    """Batches in flight, from the reference's ``num_workers`` knob."""
+    return max(2, section.get("num_workers", 4) // 2)
+
+
+def get_pretrain_dataloaders(cfg: dict, data_dir: str | Path | None = None
+                             ) -> Tuple[HostLoader, HostLoader]:
+    """Unlabeled STL-10 → (train, val) loaders (reference ``src/data.py:45-106``)."""
+    pre_cfg = cfg["pretrain"]
+    seed = cfg.get("seed", 73)
+    ds = STL10(data_dir or DATA_DIR, split="unlabeled")
+    train_idx, val_idx = pretrain_split_indices(
+        len(ds), pre_cfg.get("data_fraction", 1.0), pre_cfg.get("val_split", 0.1), seed)
+    batch_size = pre_cfg.get("batch_size", 512)
+    train = HostLoader(ds, train_idx, batch_size, shuffle=True, seed=seed)
+    val = HostLoader(ds, val_idx, batch_size, shuffle=False, seed=seed)
+    train.prefetch_depth = val.prefetch_depth = _depth(pre_cfg)
+    print(f"Unlabeled pretrain split: {len(train_idx)} train, {len(val_idx)} val "
+          f"({pre_cfg.get('val_split', 0.1) * 100:.1f}% validation)")
+    return train, val
+
+
+def get_train_dataloaders(cfg: dict, data_dir: str | Path | None = None
+                          ) -> Tuple[HostLoader, HostLoader]:
+    """Labeled STL-10 → (train, val) loaders (reference ``src/data.py:109-164``)."""
+    train_cfg = cfg["train"]
+    seed = cfg.get("seed", 73)
+    ds = STL10(data_dir or DATA_DIR, split="train")
+    samples_per_class = train_cfg.get("samples_per_class", 400)
+    train_idx, val_idx = stratified_split_indices(np.asarray(ds.labels), samples_per_class,
+                                                  seed)
+    print(f"Using {samples_per_class} samples/class: {len(train_idx)} train, "
+          f"{len(val_idx)} val")
+    batch_size = train_cfg.get("batch_size", 256)
+    train = HostLoader(ds, train_idx, batch_size, shuffle=True, seed=seed)
+    val = HostLoader(ds, val_idx, batch_size, shuffle=False, seed=seed)
+    train.prefetch_depth = val.prefetch_depth = _depth(train_cfg)
+    return train, val
+
+
+def get_test_dataloader(cfg: dict, data_dir: str | Path | None = None) -> HostLoader:
+    """STL-10 test split loader (reference ``src/data.py:167-185``)."""
+    test_cfg = cfg.get("test", {})
+    ds = STL10(data_dir or DATA_DIR, split="test")
+    print(f"Loaded STL-10 test split: {len(ds)} samples")
+    return HostLoader(ds, np.arange(len(ds)), test_cfg.get("batch_size", 256), shuffle=False)

@@ -1,7 +1,7 @@
 """On-device image augmentation: random-resized-crop, flip and normalize,
-fused with patchify.
+fused with patchify; and the eval transform.
 
-Port of ``ssrl_vit_mae_jepa_tpu/ops/augment.py:35-205``. The bilinear crop
+Port of ``ssrl_vit_mae_jepa_tpu/ops/augment.py:35-205`` and ``:226-249``. The bilinear crop
 resample is two batched contractions against per-image weight matrices
 (each row has at most two nonzeros), with the horizontal flip folded into
 the source coordinates. Crop semantics follow torchvision's
@@ -92,3 +92,50 @@ def apply_augment_patches(
         images, tops, lefts, hs, ws, (out_size, out_size), flip_x=flip
     )
     return patchify_hcw(cols, patch_size).to(dtype)
+
+
+def _resize_weights(in_n: int, out_n: int, device) -> torch.Tensor:
+    """(in_n, out_n) weights of ``jax.image.resize(..., "linear")`` along one
+    axis (``compute_weight_mat`` of ``jax._src.image.scale``): the triangle
+    kernel at half-pixel centres, widened by in/out when shrinking (the
+    antialias), each column normalised to sum 1, in f32."""
+    inv_scale = 1.0 / (out_n / in_n)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(out_n, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(in_n, dtype=torch.float32, device=device)
+    w = (1.0 - (sample[None, :] - src[:, None]).abs() / kernel_scale).clamp_min(0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_n - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_linear(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
+    """(B, H, W, C) f32 → (B, new_h, new_w, C), as ``jax.image.resize`` with
+    ``method="linear"`` (antialiased when it shrinks); an axis whose size
+    does not change is left as it is."""
+    _, H, W, _ = x.shape
+    if H != new_h:
+        x = torch.einsum("bhwc,hy->bywc", x, _resize_weights(H, new_h, x.device))
+    if W != new_w:
+        x = torch.einsum("bhwc,wx->bhxc", x, _resize_weights(W, new_w, x.device))
+    return x
+
+
+def eval_transform(images_u8: torch.Tensor, out_size: int = 96,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Resize(out_size) of the short side + CenterCrop(out_size) + normalize:
+    uint8 (B, H, W, C) → (B, out, out, C) in [-1, 1]. For STL-10's 96×96
+    inputs at out_size 96 the geometric part is the identity."""
+    B, H, W, C = images_u8.shape
+    x = normalize(images_u8, dtype=torch.float32)
+    if (H, W) != (out_size, out_size):
+        short = min(H, W)
+        new_h, new_w = ((out_size, int(round(out_size * W / short))) if H <= W
+                        else (int(round(out_size * H / short)), out_size))
+        x = resize_linear(x, new_h, new_w)
+        top, left = (new_h - out_size) // 2, (new_w - out_size) // 2
+        x = x[:, top:top + out_size, left:left + out_size]
+    return x.to(dtype).contiguous()

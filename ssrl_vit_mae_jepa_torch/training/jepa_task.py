@@ -78,9 +78,6 @@ class JEPATask(Task):
         cscale = jepa_cfg.get("context_scale", [0.85, 1.0])
         self.context_scale = (float(cscale[0]), float(cscale[1]))
 
-    def epoch_context(self, epoch: int):
-        return None
-
     def draw_task(self, generator: torch.Generator, batch: int, ctx):
         """(target patch indices (B, T), context patch indices (B, C))."""
         return sample_jepa_masks(

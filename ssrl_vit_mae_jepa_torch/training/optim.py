@@ -12,6 +12,14 @@ Port of ``ssrl_vit_mae_jepa_tpu/training/optim.py:29-62``, i.e.
   Adam direction before the learning rate scales it;
 - the learning rate is state, set per epoch (``set_learning_rate``).
 
+The freeze policy (``optim.py:64-120`` of the JAX package) is
+``optax.masked`` over that chain with ``stop_gradient`` on frozen leaves.
+Here a frozen parameter gets ``requires_grad_(False)`` (so autograd never
+computes its gradient and the branch kernels take their no-grad forwards
+where nothing upstream needs one), and the optimizer's ``trainable_mask``
+leaves it out of the clip norm, the Adam state and the weight decay: it
+comes out of a step bit-identical.
+
 Parameters and moments are updated in place (``torch._foreach_*``), which
 the JAX package's pure updates do not need to do; it saves a copy of every
 parameter per step.
@@ -37,24 +45,34 @@ class AdamWState:
 
 class AdamW:
     def __init__(self, learning_rate: float, weight_decay: float,
-                 grad_clip: Optional[float] = 1.0):
+                 grad_clip: Optional[float] = 1.0,
+                 trainable_mask: Optional[Dict[str, bool]] = None):
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
+        self.trainable_mask = trainable_mask
+
+    def trainable(self, params: Dict[str, torch.Tensor]) -> List[str]:
+        """The names the optimizer updates, in ``params``' order."""
+        m = self.trainable_mask
+        return [k for k in params if m is None or m[k]]
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
-        zeros = [torch.zeros_like(p, memory_format=torch.contiguous_format)
-                 for p in params.values()]
+        """Zero moments for the trainable parameters only."""
+        zeros = [torch.zeros_like(params[k], memory_format=torch.contiguous_format)
+                 for k in self.trainable(params)]
         return AdamWState(self.learning_rate, 0, zeros,
                           [torch.zeros_like(z) for z in zeros])
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
                params: Dict[str, torch.Tensor]) -> None:
-        """One step, in place on ``params`` and ``state``; ``grads`` has the
-        same keys in the same order as ``params``."""
-        p = list(params.values())
-        g = [grads[k] for k in params]
+        """One step, in place on the trainable ``params`` and ``state``;
+        ``grads`` holds a gradient for each trainable name and may hold
+        nothing for a frozen one."""
+        names = self.trainable(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
         if self.grad_clip is not None:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
@@ -73,11 +91,64 @@ class AdamW:
 
 
 def make_optimizer(learning_rate: float, weight_decay: float,
-                   grad_clip: Optional[float] = 1.0) -> AdamW:
-    """AdamW (β 0.9/0.999, eps 1e-8) behind an optional global-norm clip."""
-    return AdamW(learning_rate, weight_decay, grad_clip)
+                   grad_clip: Optional[float] = 1.0,
+                   trainable_mask: Optional[Dict[str, bool]] = None) -> AdamW:
+    """AdamW (β 0.9/0.999, eps 1e-8) behind an optional global-norm clip,
+    over the parameters ``trainable_mask`` marks True (all without it)."""
+    return AdamW(learning_rate, weight_decay, grad_clip, trainable_mask)
 
 
 def set_learning_rate(opt_state: AdamWState, lr: float) -> AdamWState:
     opt_state.learning_rate = float(lr)
     return opt_state
+
+
+def _block_index(name: str) -> Optional[int]:
+    """i of an ``encoder.blocks.{i}.`` parameter, else None."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[0] == "encoder" and parts[1] == "blocks":
+        return int(parts[2])
+    return None
+
+
+def trainable_mask(params: Dict[str, torch.Tensor], freeze_encoder: bool = False,
+                   unfreeze_last_layers: Optional[int] = None,
+                   depth: Optional[int] = None) -> Dict[str, bool]:
+    """name → True where trainable, with the reference's precedence
+    (``scripts/training/train_mae.py:166-176``): ``unfreeze_last_layers`` >
+    ``freeze_encoder`` > all trainable. Unfreezing n trains the last n
+    encoder blocks, the final ``encoder.norm`` (not the block norms) and the
+    head; n outside [0, depth] raises. ``freeze_encoder`` trains what has
+    "head" in its name."""
+
+    def decide(name: str) -> bool:
+        if unfreeze_last_layers is not None:
+            if depth is None:
+                raise ValueError("depth required for unfreeze_last_layers")
+            n = int(unfreeze_last_layers)
+            if n < 0 or n > depth:
+                raise ValueError(f"n_layers must be between 0 and {depth}, got {n}")
+            if "head" in name:
+                return True
+            i = _block_index(name)
+            if i is not None and depth - n <= i < depth:
+                return True
+            return name.startswith("encoder.norm.")
+        if freeze_encoder:
+            return "head" in name
+        return True
+
+    return {k: decide(k) for k in params}
+
+
+def stop_gradients_on_frozen(params: Dict[str, torch.Tensor],
+                             mask: Dict[str, bool]) -> Dict[str, torch.Tensor]:
+    """``requires_grad`` from the mask, in place: autograd then computes no
+    gradient of a frozen parameter (the JAX package's ``stop_gradient``)."""
+    for k, p in params.items():
+        p.requires_grad_(bool(mask[k]))
+    return params
+
+
+def count_trainable(params: Dict[str, torch.Tensor], mask: Dict[str, bool]) -> int:
+    return int(sum(p.numel() for k, p in params.items() if mask[k]))

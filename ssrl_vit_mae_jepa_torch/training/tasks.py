@@ -1,24 +1,40 @@
-"""Training tasks: the objective, the optimizer and the train step.
+"""Training tasks: the objective, the optimizer, the train and eval steps.
 
 Port of ``ssrl_vit_mae_jepa_tpu/training/tasks.py``: ``Task.train_step`` is
-``Task._local_train_step`` (:317-358) on one device, and ``MAETask``
-(:480-589) is the gathered-loss MAE objective. A step draws its randomness
-from ``state.generator`` (augmentation first, then the token mask), applies
-the fused augment+patchify, computes the weighted loss and its gradients,
-and takes one clipped AdamW step at the epoch's learning rate. The draws can
-be injected instead, so tests can feed the JAX package's.
+``Task._local_train_step`` (:317-358) on one device, ``Task.eval_step`` the
+eval step (:360-384), ``ClassifierTask`` (:394-477) the supervised stage
+with its freeze policies, and ``MAETask`` (:480-589) the gathered-loss MAE
+objective. A train step draws its randomness from ``state.generator``
+(augmentation first, then the task's draws), applies the fused
+augment+patchify, computes the weighted loss and the gradients of the
+trainable parameters, and takes one clipped AdamW step at the epoch's
+learning rate. An eval step runs under ``torch.no_grad()`` on
+``eval_transform`` images (B, H, W, C) and draws the task's masks from the
+generator it is given. The draws can be injected instead, so tests can
+feed the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ssrl_vit_mae_jepa_torch.models.classifier import classifier_from_config
 from ssrl_vit_mae_jepa_torch.models.mae import mae_from_config
-from ssrl_vit_mae_jepa_torch.ops.augment import apply_augment_patches, draw_augment_params
+from ssrl_vit_mae_jepa_torch.ops.augment import (
+    apply_augment_patches,
+    draw_augment_params,
+    eval_transform,
+)
 from ssrl_vit_mae_jepa_torch.ops.masking import num_masked_tokens, random_token_mask
-from ssrl_vit_mae_jepa_torch.training.optim import make_optimizer, set_learning_rate
+from ssrl_vit_mae_jepa_torch.training.optim import (
+    make_optimizer,
+    set_learning_rate,
+    stop_gradients_on_frozen,
+    trainable_mask,
+)
 from ssrl_vit_mae_jepa_torch.training.schedules import (
     effective_pretrain_lr,
     mask_ratio_at_epoch,
@@ -26,38 +42,66 @@ from ssrl_vit_mae_jepa_torch.training.schedules import (
 )
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
 
+Sums = Dict[str, torch.Tensor]
+
 
 def _weighted(per_example: torch.Tensor, weight: torch.Tensor):
     return torch.sum(per_example.float() * weight), torch.sum(weight)
 
 
 class Task:
-    """Base: owns the model and optimizer and takes the train step.
+    """Base: owns the model and optimizer and takes the train and eval steps.
 
     Subclasses set ``model``, ``base_lr``, ``weight_decay``, ``grad_clip``,
     ``warmup_epochs``, ``total_epochs`` and ``image_size`` and implement
-    ``draw_task`` and ``loss_and_metric_sums``; the hooks ``init_extra``,
-    ``loss_and_metric_sums_in_step``, ``post_update`` and ``on_fit_start``
-    are the JAX ``Task``'s (``tasks.py:143-214``)."""
+    ``draw_task``, ``loss_and_metric_sums`` and ``epoch_metrics_from_sums``;
+    the hooks ``init_extra``, ``build_mask``, ``epoch_context``,
+    ``host_epoch_metrics``, ``loss_and_metric_sums_in_step``,
+    ``eval_metric_sums``, ``post_update`` and ``on_fit_start`` are the JAX
+    ``Task``'s (``tasks.py:134-238``). ``monitor``/``monitor_mode`` name the
+    metric the trainer's best checkpoint follows."""
 
     model: torch.nn.Module
+    monitor = "val_loss"
+    monitor_mode = "min"
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.tx = None
+        #: name -> trainable, from ``build_mask`` (None: every parameter)
+        self.mask: Optional[Dict[str, bool]] = None
 
     def lr_value(self, epoch) -> float:
         return self.base_lr * warmup_cosine_factor(
             epoch, self.warmup_epochs, self.total_epochs
         )
 
+    def epoch_context(self, epoch: int):
+        """Per-epoch context of the steps (MAE's masked-token count)."""
+        return None
+
+    def host_epoch_metrics(self, epoch: int) -> Dict[str, float]:
+        """Schedule values logged beside the epoch's metrics."""
+        return {}
+
     def init_extra(self, params: Dict[str, torch.Tensor]):
         """Task state that is not a model parameter (JEPA's EMA target)."""
         return None
 
+    def build_mask(self, params: Dict[str, torch.Tensor]) -> Optional[Dict[str, bool]]:
+        """The freeze policy: name -> trainable, or None for all."""
+        return None
+
+    def draw_task(self, generator: torch.Generator, batch: int, ctx) -> Tuple:
+        """The task's own draws of one step (masks), after the augmentation's."""
+        return ()
+
     def loss_and_metric_sums_in_step(self, state: TrainState, images, batch, task_draws, ctx):
         """The step's loss entry, which may read the whole state."""
-        return self.loss_and_metric_sums(images, batch, task_draws, ctx)
+        return self.loss_and_metric_sums(images, batch, task_draws, ctx, extra=state.extra)
+
+    def eval_metric_sums(self, images, batch, task_draws, ctx, extra=None) -> Sums:
+        return self.loss_and_metric_sums(images, batch, task_draws, ctx, extra=extra)[1]
 
     def post_update(self, state: TrainState, epoch) -> TrainState:
         """Hook after the optimizer update; ``state.step`` already counts it."""
@@ -67,15 +111,24 @@ class Task:
         """Hook before the first step with the epoch length, for schedules
         that need the total step count (JEPA's EMA)."""
 
-    def init_state(self, seed: int) -> TrainState:
+    def init_state(self, seed: int,
+                   init_params_override: Optional[Callable[[Dict], Dict]] = None) -> TrainState:
         """Seeded weights (made on the CPU, then moved), fresh optimizer
-        state, the task's extra state and a device generator for the
-        per-step draws."""
+        state over the trainable parameters, the task's extra state and a
+        device generator for the per-step draws. ``init_params_override``
+        maps the initial state dict to the one to load (``strict=True``),
+        e.g. ``utils/load.py::merge_encoder`` of a pretrained encoder."""
         gen = torch.Generator().manual_seed(seed)
         self.model.init_weights(gen)
+        if init_params_override is not None:
+            self.model.load_state_dict(init_params_override(self.model.state_dict()),
+                                       strict=True)
         self.model.to(self.device)
         params = dict(self.model.named_parameters())
-        self.tx = make_optimizer(self.base_lr, self.weight_decay, self.grad_clip)
+        self.mask = self.build_mask(params)
+        if self.mask is not None:
+            stop_gradients_on_frozen(params, self.mask)
+        self.tx = make_optimizer(self.base_lr, self.weight_decay, self.grad_clip, self.mask)
         step_seed = int(torch.randint(2**62, (1,), generator=gen))
         generator = torch.Generator(self.device).manual_seed(step_seed)
         return TrainState(params, self.tx.init(params), generator,
@@ -92,6 +145,9 @@ class Task:
             out_size=self.image_size, dtype=torch.float32,
         )
 
+    def preprocess_eval(self, images_u8: torch.Tensor) -> torch.Tensor:
+        return eval_transform(images_u8, out_size=self.image_size, dtype=torch.float32)
+
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor], epoch,
                    ctx=None, draws: Optional[Tuple] = None):
         """One step; returns ``(state, sums)`` with ``state`` updated in place
@@ -102,7 +158,7 @@ class Task:
         u, flip, *task_draws = draws
         images = self.preprocess_train(u, flip, images_u8)
         loss, sums = self.loss_and_metric_sums_in_step(state, images, batch, task_draws, ctx)
-        names = list(state.params)
+        names = self.tx.trainable(state.params)
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
         lr = self.lr_value(epoch)
         set_learning_rate(state.opt_state, lr)
@@ -112,6 +168,81 @@ class Task:
         sums = {k: v.detach() for k, v in sums.items()}
         sums["lr"] = lr
         return state, sums
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator], ctx=None,
+                  draws: Optional[Tuple] = None) -> Sums:
+        """The metric sums of one eval batch under the state's weights
+        (``state.extra`` for JEPA's target); the task's masks come from
+        ``generator`` unless ``draws`` gives them."""
+        images = self.preprocess_eval(batch["image"])
+        if draws is None:
+            draws = self.draw_task(generator, images.shape[0], ctx)
+        return self.eval_metric_sums(images, batch, tuple(draws), ctx, extra=state.extra)
+
+
+class ClassifierTask(Task):
+    """Supervised CE training of ``ViTClassifier`` (reference
+    ``src/training/classifier.py:16-171``): CE from an f32 log-softmax,
+    accuracy and top-5 sums, AdamW over the trainable parameters at the
+    configured lr with warmup×cosine and no batch scaling (quirk Q3), and
+    the freeze policy as the optimizer's mask (``training/optim.py``)."""
+
+    monitor = "val_acc"
+    monitor_mode = "max"
+
+    def __init__(self, model_cfg: dict, training_cfg: dict, num_classes: int = 10,
+                 dtype=torch.bfloat16, device="cuda", attn_impl: str = "auto",
+                 augment: bool = True):
+        super().__init__(device)
+        self.model = classifier_from_config(model_cfg, num_classes=num_classes,
+                                            dtype=dtype, attn_impl=attn_impl)
+        self.base_lr = float(training_cfg.get("learning_rate", 3e-4))
+        self.weight_decay = float(training_cfg.get("weight_decay", 0.05))
+        self.warmup_epochs = int(training_cfg.get("warmup_epochs", 5))
+        self.total_epochs = int(training_cfg.get("total_epochs", 100))
+        self.grad_clip = 1.0
+        if not augment:
+            raise NotImplementedError("the un-augmented classifier path is not ported yet")
+        self.image_size = self.model.img_size
+        self._freeze_encoder = bool(training_cfg.get("freeze_encoder", True))
+        self._unfreeze_last = training_cfg.get("unfreeze_last_layers", None)
+
+    def set_freeze_policy(self, freeze_encoder: bool = False,
+                          unfreeze_last_layers: Optional[int] = None) -> None:
+        """The reference's config-override precedence
+        (``scripts/training/train_mae.py:166-176``), before ``init_state``."""
+        self._freeze_encoder = freeze_encoder
+        self._unfreeze_last = unfreeze_last_layers
+
+    def build_mask(self, params):
+        return trainable_mask(params, freeze_encoder=self._freeze_encoder,
+                              unfreeze_last_layers=self._unfreeze_last,
+                              depth=self.model.depth)
+
+    def loss_and_metric_sums(self, images, batch, task_draws, ctx, extra=None):
+        logits = self.model(images)
+        labels = batch["label"].long()
+        logp = F.log_softmax(logits.float(), dim=-1)
+        per_ex = -logp.gather(1, labels[:, None])[:, 0]
+        w = batch["weight"]
+        loss_sum, weight_sum = _weighted(per_ex, w)
+        correct = (torch.argmax(logits, dim=1) == labels).float()
+        top = torch.topk(logits, min(5, logits.shape[-1]), dim=1).indices
+        in_top5 = torch.any(top == labels[:, None], dim=1).float()
+        loss = loss_sum / torch.clamp_min(weight_sum, 1.0)
+        return loss, {"loss_sum": loss_sum, "acc_sum": torch.sum(correct * w),
+                      "top5_sum": torch.sum(in_top5 * w), "weight_sum": weight_sum}
+
+    @staticmethod
+    def epoch_metrics_from_sums(sums: Dict[str, float], prefix: str) -> Dict[str, float]:
+        w = max(sums.get("weight_sum", 0.0), 1e-9)
+        out = {f"{prefix}_loss": sums.get("loss_sum", 0.0) / w,
+               f"{prefix}_acc": sums.get("acc_sum", 0.0) / w}
+        if "top5_sum" in sums:
+            out[f"{prefix}_top5"] = sums["top5_sum"] / w
+        return out
 
 
 class MAETask(Task):
@@ -146,13 +277,22 @@ class MAETask(Task):
                                     self.ramp_epochs)
         return num_masked_tokens(self.sequence_length, ratio)
 
+    def host_epoch_metrics(self, epoch: int) -> Dict[str, float]:
+        return {"mask_ratio": mask_ratio_at_epoch(epoch, self.mask_start, self.mask_end,
+                                                  self.ramp_epochs)}
+
     def draw_task(self, generator: torch.Generator, batch: int, ctx):
         return random_token_mask(generator, batch, self.sequence_length, int(ctx))
 
-    def loss_and_metric_sums(self, images, batch, task_draws, ctx):
+    def loss_and_metric_sums(self, images, batch, task_draws, ctx, extra=None):
         idx_keep, idx_mask = task_draws
         pred, target = self.model(images, idx_keep, idx_mask)
         per_ex = torch.mean((pred.float() - target.float()) ** 2, dim=(1, 2))
         loss_sum, weight_sum = _weighted(per_ex, batch["weight"])
         loss = loss_sum / torch.clamp_min(weight_sum, 1.0)
         return loss, {"loss_sum": loss_sum, "weight_sum": weight_sum}
+
+    @staticmethod
+    def epoch_metrics_from_sums(sums: Dict[str, float], prefix: str) -> Dict[str, float]:
+        w = max(sums.get("weight_sum", 0.0), 1e-9)
+        return {f"{prefix}_loss": sums.get("loss_sum", 0.0) / w}

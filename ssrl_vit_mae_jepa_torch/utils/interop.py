@@ -5,9 +5,9 @@ layouts; the port's modules use the reference's torch (timm/lightly) names,
 so crossing over is one export and one strict ``load_state_dict``. The
 export is this module's own numpy copy of
 ``ssrl_vit_mae_jepa_tpu/utils/torch_interop.py::mae_params_to_state`` and
-the tables it walks (:89-106, :209-305), and the JEPA export built from the
-same tables (the JAX package has none); the port imports nothing of the JAX
-package.
+``classifier_params_to_state`` and the tables they walk (:89-106,
+:209-321), and the JEPA export built from the same tables (the JAX package
+has none); the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -160,3 +160,20 @@ def jepa_params_from_jax(params: dict, model: torch.nn.Module) -> torch.nn.Modul
     """Load JEPA params (a tree of numpy arrays) into the port's ``JEPA``
     with ``strict=True``; returns ``model``."""
     return _load_strict(model, jepa_params_to_state(params))
+
+
+def classifier_params_to_state(params: dict, in_chans: int = 3) -> Dict[str, np.ndarray]:
+    """ViTClassifier params → the reference's classifier names: timm keys
+    under ``encoder.`` and ``head.classification.{weight,bias}``."""
+    out = {f"encoder.{k}": v for k, v in vit_params_to_state(params["encoder"], in_chans).items()}
+    out.update(_export_entries(params, [
+        ("head.classification.weight", ["head", "classification", "kernel"], "T"),
+        ("head.classification.bias", ["head", "classification", "bias"], None),
+    ]))
+    return out
+
+
+def classifier_params_from_jax(params: dict, model: torch.nn.Module) -> torch.nn.Module:
+    """Load ViTClassifier params (a tree of numpy arrays) into the port's
+    ``ViTClassifier`` with ``strict=True``; returns ``model``."""
+    return _load_strict(model, classifier_params_to_state(params))

@@ -1,0 +1,163 @@
+"""Checkpoint loading with prefix detection.
+
+Port of ``ssrl_vit_mae_jepa_tpu/utils/load.py`` (reference
+``scripts/utils.py:40-148``) over torch-format files: the port's own
+checkpoints (``utils/checkpoint.py``), the reference's Lightning ``.ckpt``
+and ``.pt`` state dicts, and the JAX package's exports
+(``scripts.weight_utils.convert_to_torch``, ``export_reference_weights``).
+Each loader returns state dicts by the port's (the reference's) names, as
+CPU f32 tensors. A JAX-native checkpoint (flax msgpack in a zip) is
+refused with the command that converts it.
+"""
+
+from __future__ import annotations
+
+import json
+import zipfile
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ssrl_vit_mae_jepa_torch.utils.interop import _decoder_entries, _vit_entries
+
+ENCODER_PREFIXES = ["model.encoder.", "encoder.", "module.encoder."]
+JAX_FORMAT_KEY = "ssrl_vit_mae_jepa_tpu"
+
+State = Dict[str, torch.Tensor]
+
+
+def _is_jax_native(path: Path) -> bool:
+    try:
+        with zipfile.ZipFile(path, "r") as zf:
+            if "meta.json" not in zf.namelist():
+                return False
+            return json.loads(zf.read("meta.json")).get("__format__") == JAX_FORMAT_KEY
+    except (zipfile.BadZipFile, KeyError, ValueError):
+        return False
+
+
+def load_any(path: str | Path) -> Tuple[str, State, dict]:
+    """→ ("torch", flat state dict, meta): Lightning's ``state_dict`` is
+    unwrapped (reference ``train_mae.py:103``), and ``meta`` holds the
+    file's other entries (epoch, callbacks, ...) where it has them."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(
+            f"Checkpoint not found: {path}: expected a torch .pt/.ckpt or a "
+            "weights export (see scripts.weight_utils)")
+    if _is_jax_native(path):
+        raise ValueError(
+            f"{path} is a JAX-native checkpoint (flax msgpack); convert it first with "
+            "`python -m scripts.weight_utils.convert_to_torch <in> <out.pt>`")
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
+    meta: dict = {}
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        meta = {k: v for k, v in ckpt.items() if k != "state_dict"}
+        ckpt = ckpt["state_dict"]
+    state = {k: v.detach().float() if torch.is_tensor(v) else torch.as_tensor(v)
+             for k, v in ckpt.items()}
+    return "torch", state, meta
+
+
+def detect_prefix(keys, candidates: List[str] = ENCODER_PREFIXES) -> Optional[str]:
+    """The first candidate prefix present among ``keys``."""
+    keys = list(keys)
+    for p in candidates:
+        if any(k.startswith(p) for k in keys):
+            return p
+    return None
+
+
+def strip_prefix(state: State, prefix: str) -> State:
+    return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def _vit_names(depth: int) -> List[str]:
+    return [k for k, _, _ in _vit_entries(depth)]
+
+
+def _report(state: State, want: List[str]) -> dict:
+    return {"missing": [k for k in want if k not in state],
+            "unexpected": sorted(set(state) - set(want))}
+
+
+def _timm_vit(state: State, depth: int) -> Tuple[State, dict]:
+    """A timm ViT state dict (lightly's ``vit.`` prefix accepted) → the
+    port's ``VisionTransformer`` names and a missing/unexpected report."""
+    if detect_prefix(state, ["vit."]):
+        state = {k[len("vit."):] if k.startswith("vit.") else k: v for k, v in state.items()}
+    want = _vit_names(depth)
+    return {k: state[k] for k in want if k in state}, _report(state, want)
+
+
+def encoder_params_from_checkpoint(path: str | Path, depth: int) -> Tuple[State, dict]:
+    """The ViT encoder of any checkpoint, by timm names → (state, report)
+    (reference ``scripts/training/train_mae.py:92-146``)."""
+    _, state, _ = load_any(path)
+    prefix = detect_prefix(state)
+    if prefix is None:
+        raise ValueError("Could not find encoder weights in checkpoint. Expected keys "
+                         "starting with one of: " + ", ".join(ENCODER_PREFIXES))
+    print(f"Detected encoder prefix in checkpoint: '{prefix}'")
+    enc, report = _timm_vit(strip_prefix(state, prefix), depth)
+    print(f"Loaded encoder weights: {len(enc)} tensors ({len(report['missing'])} missing, "
+          f"{len(report['unexpected'])} unexpected)")
+    return enc, report
+
+
+def classifier_params_from_checkpoint(path: str | Path, depth: int
+                                      ) -> Tuple[State, dict, dict]:
+    """A whole ``ViTClassifier`` state dict (``encoder.*`` timm keys and
+    ``head.classification.*``, perhaps under ``model.``) → (state, report,
+    meta)."""
+    _, state, meta = load_any(path)
+    if detect_prefix(state, ["model."]):
+        state = strip_prefix(state, "model.")
+    enc, report = _timm_vit(strip_prefix(state, "encoder."), depth)
+    out = {f"encoder.{k}": v for k, v in enc.items()}
+    for k in ("head.classification.weight", "head.classification.bias"):
+        if k in state:
+            out[k] = state[k]
+        else:
+            report["missing"].append(k)
+    return out, report, meta
+
+
+def mae_params_from_checkpoint(path: str | Path, depth: int, decoder_depth: int
+                               ) -> Tuple[State, dict]:
+    """A whole ``MaskedAutoencoder`` state dict (``encoder.vit.*``,
+    ``encoder.mask_token`` and ``decoder.*``, perhaps under ``model.``)."""
+    _, state, _ = load_any(path)
+    if detect_prefix(state, ["model."]):
+        state = strip_prefix(state, "model.")
+    enc, report = _timm_vit(strip_prefix(state, "encoder."), depth)
+    dec_state = strip_prefix(state, "decoder.")
+    dec_want = [k for k, _, _ in _decoder_entries(decoder_depth)]
+    dec_report = _report(dec_state, dec_want)
+    out = {f"encoder.vit.{k}": v for k, v in enc.items()}
+    out["encoder.mask_token"] = state.get("encoder.mask_token",
+                                          torch.zeros_like(enc["cls_token"]))
+    out.update({f"decoder.{k}": dec_state[k] for k in dec_want if k in dec_state})
+    report["unexpected"] = [k for k in report["unexpected"] if k != "mask_token"]
+    return out, {"missing": report["missing"] + dec_report["missing"],
+                 "unexpected": report["unexpected"] + dec_report["unexpected"]}
+
+
+def merge_encoder(params: State, encoder_params: State) -> State:
+    """``params`` (a classifier's state dict) with its ``encoder.`` tensors
+    replaced by ``encoder_params`` (timm names), shape-checked and cast to
+    the classifier's dtypes (``utils/load.py:102-114`` of the JAX package)."""
+    merged = dict(params)
+    enc = strip_prefix(params, "encoder.")
+    if set(enc) != set(encoder_params):
+        raise ValueError(f"encoder tensors differ: missing "
+                         f"{sorted(set(enc) - set(encoder_params))}, unexpected "
+                         f"{sorted(set(encoder_params) - set(enc))}")
+    for k, a in enc.items():
+        b = torch.as_tensor(encoder_params[k])
+        if tuple(a.shape) != tuple(b.shape):
+            raise ValueError(f"encoder shape mismatch at {k}: {tuple(a.shape)} vs "
+                             f"{tuple(b.shape)}")
+        merged[f"encoder.{k}"] = b.to(dtype=a.dtype, device=a.device)
+    return merged

@@ -20,6 +20,8 @@ whole block and the chain are held to the same bounds against their
 ``*_ref`` versions, which round at the kernel's own points.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -37,11 +39,13 @@ from ssrl_vit_mae_jepa_torch.ops.attention_stacked import (
     mha_stacked_qkv_ref,
     mha_stacked_ref,
 )
+from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask
 
 # (B, L, D, H): the MAE encoder and decoder at B=768; the JEPA context
-# encoder, predictor (D=96, d=16, F=384) and target encoder at B=768; a head
-# dim of 12 with ragged L, and the longest sequence the attention backward
-# takes at d=32
+# encoder, predictor (D=96, d=16, F=384) and target encoder at B=768 (also
+# the classifier's encoder, whose backward runs there); a head dim of 12
+# with ragged L, and the longest sequence the attention backward takes at
+# d=32
 SHAPES = [(768, 37, 144, 6), (768, 145, 192, 6), (768, 45, 144, 6), (768, 145, 96, 6),
           (768, 145, 144, 6), (3, 17, 48, 4), (2, 160, 64, 2)]
 
@@ -545,3 +549,61 @@ def test_embed_refuses_what_it_does_not_take(cuda):
     long, lparams, _, _ = _embed_inputs(1, 300, 48, 40, None, cuda)  # L > 256
     with pytest.raises(ValueError, match="L <="):
         ef.fused_patch_embed(long, *lparams, None)
+
+
+# ---------------------------------------------------------------------------
+# the classifier step: which kernels each freeze policy launches
+# ---------------------------------------------------------------------------
+
+CLS_MODEL = {"general": {"image_size": 96, "patch_size": 8, "in_chans": 3},
+             "encoder": {"embed_dim": 48, "depth": 2, "num_heads": 4}}
+CLS_TRAIN = {"learning_rate": 1e-3, "warmup_epochs": 1, "total_epochs": 10}
+# policy -> (freeze_encoder, unfreeze_last_layers, launches of one step on
+# 2 blocks): frozen blocks whose input needs no gradient take the no-grad
+# attention forward and launch no backward
+CLS_POLICIES = {
+    "full": (False, None, {"attn_branch_fwd": 2, "attn_branch_bwd": 2, "mlp_branch_fwd": 2,
+                           "mlp_branch_bwd": 2}),
+    "probe": (True, None, {"attn_branch_fwd_nograd": 2, "mlp_branch_fwd": 2}),
+    "unfreeze1": (False, 1, {"attn_branch_fwd": 1, "attn_branch_fwd_nograd": 1,
+                             "attn_branch_bwd": 1, "mlp_branch_fwd": 2, "mlp_branch_bwd": 1}),
+}
+
+
+def _launched():
+    counts = {**bf.LAUNCHES, **bc.LAUNCHES, **core.LAUNCHES, **ef.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}
+
+
+def _reset():
+    for m in (bf, bc, core, ef):
+        m.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", list(CLS_POLICIES))
+def test_classifier_step_launches(cuda, policy):
+    """One bf16 classifier step per freeze policy launches exactly its
+    branch kernels; trainable params move, frozen ones keep their bits; the
+    eval step launches the no-grad forwards only."""
+    freeze, unfreeze, want = CLS_POLICIES[policy]
+    task = ClassifierTask(CLS_MODEL, CLS_TRAIN, device="cuda")
+    task.set_freeze_policy(freeze_encoder=freeze, unfreeze_last_layers=unfreeze)
+    state = task.init_state(0)
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (8, 96, 96, 3), generator=g, dtype=torch.uint8),
+             "label": torch.randint(0, 10, (8,), generator=g), "weight": torch.ones(8)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    _reset()
+    state, sums = task.train_step(state, batch, 0)
+    torch.cuda.synchronize()
+    assert _launched() == want
+    assert math.isfinite(float(sums["loss_sum"]))
+    trainable = set(task.tx.trainable(state.params))
+    for k, v in state.params.items():
+        assert torch.equal(v, before[k]) != (k in trainable), k
+    _reset()
+    task.eval_step(state, batch, None)
+    torch.cuda.synchronize()
+    assert _launched() == {"attn_branch_fwd_nograd": 2, "mlp_branch_fwd": 2}

@@ -1,5 +1,5 @@
 """The port's from-scratch initialisation against the JAX package's, on the
-CPU: for MAE and JEPA, every parameter tensor of the port's
+CPU: for MAE, JEPA and the classifier, every parameter tensor of the port's
 ``init_weights`` (through ``Task.init_state``) against the same tensor of
 the JAX ``init_params``, mapped by the port's own converters
 (``utils/interop.py``).
@@ -16,8 +16,10 @@ sets to a constant (biases, LayerNorm scales, the encoder's unused mask
 token) must be that constant in the port.
 
 Geometry: the toy MAE (96 px, patch 8, encoder 48/2/4, decoder 32/1/4) of
-``tests/test_torch_mae_step.py`` and the toy JEPA (predictor 32/1/4) of
-``tests/test_torch_jepa.py``; f32.
+``tests/test_torch_mae_step.py``, the toy JEPA (predictor 32/1/4) of
+``tests/test_torch_jepa.py`` and the toy classifier (the same encoder, 10
+classes) of ``tests/test_torch_classifier.py``; f32. The classifier's
+head is 480 draws, so its bounds are the widest.
 """
 
 import functools
@@ -29,9 +31,11 @@ import pytest
 import torch
 
 from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask as TJEPATask
+from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask as TClassifierTask
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask as TMAETask
 from ssrl_vit_mae_jepa_torch.utils import interop
 from ssrl_vit_mae_jepa_tpu.training.jepa_task import JEPATask as JJEPATask
+from ssrl_vit_mae_jepa_tpu.training.tasks import ClassifierTask as JClassifierTask
 from ssrl_vit_mae_jepa_tpu.training.tasks import MAETask as JMAETask
 
 GENERAL = {"image_size": 96, "patch_size": 8, "in_chans": 3}
@@ -47,6 +51,10 @@ JEPA_CFG = {"total_epochs": 4, "warmup_epochs": 1, "batch_size": 4,
             "predictor_embed_dim": 32, "predictor_depth": 1, "predictor_num_heads": 4,
             "num_target_blocks": 4, "target_scale": [0.15, 0.2],
             "target_aspect_ratio": [0.75, 1.5], "ema_start": 0.99, "ema_end": 1.0}
+CLS_MODEL = {"general": GENERAL, "encoder": ENCODER, "head": {"pool": "cls"}}
+CLS_CFG = {"learning_rate": 1e-2, "weight_decay": 0.05, "warmup_epochs": 1,
+           "total_epochs": 10, "batch_size": 4, "freeze_encoder": False}
+TASKS = ("mae", "jepa", "classifier")
 # the largest max|x|/std of a normal cut at +-2 of its pre-cut std
 MAX_RATIO = 2.0 / 0.87962566103423978
 SIGMAS = 5.0
@@ -55,6 +63,8 @@ SIGMAS = 5.0
 def _port_task(task: str):
     if task == "mae":
         return TMAETask(MAE_MODEL, MAE_CFG, dtype=torch.float32, device="cpu")
+    if task == "classifier":
+        return TClassifierTask(CLS_MODEL, CLS_CFG, dtype=torch.float32, device="cpu")
     return TJEPATask(JEPA_MODEL, JEPA_CFG, dtype=torch.float32, device="cpu")
 
 
@@ -64,6 +74,9 @@ def _states(task: str):
     if task == "mae":
         jtask = JMAETask(MAE_MODEL, MAE_CFG, dtype=jnp.float32)
         to_state = interop.mae_params_to_state
+    elif task == "classifier":
+        jtask = JClassifierTask(CLS_MODEL, CLS_CFG, dtype=jnp.float32)
+        to_state = interop.classifier_params_to_state
     else:
         jtask = JJEPATask(JEPA_MODEL, JEPA_CFG, dtype=jnp.float32)
         to_state = interop.jepa_params_to_state
@@ -80,7 +93,7 @@ def _names(task: str):
     return sorted(_port_task(task).model.state_dict())
 
 
-CASES = [(task, name) for task in ("mae", "jepa") for name in _names(task)]
+CASES = [(task, name) for task in TASKS for name in _names(task)]
 
 
 def test_every_fixed_tensor_is_covered():
@@ -88,10 +101,12 @@ def test_every_fixed_tensor_is_covered():
     assert ("jepa", "predictor_proj.weight") in CASES
     assert ("mae", "encoder.vit.patch_embed.proj.weight") in CASES
     assert ("jepa", "encoder.patch_embed.proj.weight") in CASES
+    assert ("classifier", "head.classification.weight") in CASES
+    assert ("classifier", "encoder.patch_embed.proj.weight") in CASES
 
 
 def test_the_converters_name_every_port_tensor():
-    for task in ("mae", "jepa"):
+    for task in TASKS:
         jax_state, port = _states(task)
         assert set(jax_state) == set(port), task
 

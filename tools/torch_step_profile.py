@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's MAE and JEPA steps goes, on one
-NVIDIA GPU.
+"""Where the device time of the port's MAE, JEPA and classifier steps goes,
+on one NVIDIA GPU.
 
-Runs the flagship pretraining step of the PyTorch port (the geometry of
+Runs the flagship step of the PyTorch port (the geometry of
 ``configs/mae.yaml`` and the settings of ``chip_smoke.py``: B=768, bf16,
-augmentation on) for each ``--task`` and each ``--attn-impl``: 3 warm-up
+augmentation on; ``cls-full``, ``cls-probe`` and ``cls-unfreeze2`` are the
+classifier under ``chip_smoke.FREEZE``'s policies) for each ``--task`` and
+each ``--attn-impl``: 3 warm-up
 steps, then 5 steps timed with CUDA events,
 then 5 steps under ``torch.profiler``. Prints, per run, the step time, the
 device time summed over all kernels, the device's idle share of the step,
@@ -14,6 +16,7 @@ JSON. ``SSRL_FUSED_EMBED=1`` in the environment switches the fused patch
 embed on. Needs a GPU::
 
     python3 tools/torch_step_profile.py --task mae jepa --attn-impl auto block chain --out prof.json
+    python3 tools/torch_step_profile.py --task cls-full cls-probe cls-unfreeze2 --attn-impl auto
 
 It imports no JAX and nothing of the JAX package.
 """
@@ -25,16 +28,24 @@ import json
 import pathlib
 import sys
 
-import numpy as np
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import PRE_CFG, card, device_us  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    FREEZE,
+    PRE_CFG,
+    card,
+    classifier_task,
+    device_us,
+    flagship_images,
+)
 from ssrl_vit_mae_jepa_torch.config import load_config  # noqa: E402
 from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask  # noqa: E402
 from ssrl_vit_mae_jepa_torch.training.tasks import MAETask  # noqa: E402
+
+TASKS = ["mae", "jepa"] + [f"cls-{p}" for p in FREEZE]
 
 STEPS, WARMUP, TOP = 5, 3, 40  # timed and profiled steps, warm-up, kernels listed
 # the branch kernels' GEMM (csrc/gemm_sm90.cuh): every instantiation's name has it
@@ -47,6 +58,9 @@ def make_task(name: str, impl: str):
         jepa_cfg = {**cfg["jepa"], "batch_size": PRE_CFG["batch_size"]}
         return JEPATask(cfg["model"], jepa_cfg, dtype=torch.bfloat16, device="cuda",
                         attn_impl=impl)
+    if name.startswith("cls-"):
+        train_cfg = {**cfg["train"], "batch_size": PRE_CFG["batch_size"]}
+        return classifier_task(cfg["model"], train_cfg, name[len("cls-"):], "cuda", impl)
     return MAETask(cfg["model"], PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
 
 
@@ -54,9 +68,7 @@ def profile(name: str, impl: str) -> dict:
     batch, steps = PRE_CFG["batch_size"], STEPS
     task = make_task(name, impl)
     state = task.init_state(0)
-    images = np.random.default_rng(0).integers(0, 256, (batch, 96, 96, 3)).astype(np.uint8)
-    data = {"image": torch.from_numpy(images).cuda(),
-            "weight": torch.ones(batch, device="cuda")}
+    data = flagship_images()
     ctx = task.epoch_context(0)
 
     def run(n):
@@ -99,7 +111,7 @@ def profile(name: str, impl: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--task", nargs="+", default=["mae"], choices=["mae", "jepa"])
+    ap.add_argument("--task", nargs="+", default=["mae"], choices=TASKS)
     ap.add_argument("--attn-impl", nargs="+", default=["auto", "packed", "pallas"])
     ap.add_argument("--out", type=pathlib.Path, help="also write the results as JSON")
     args = ap.parse_args()
