@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port: kernels, then the MAE and JEPA
-pretraining steps, then the classifier stage and the engine under it.
+pretraining steps, then the classifier stage and the engine under it, then
+the port's CLIs.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -63,6 +64,11 @@ Phases (any failure exits nonzero; nothing is caught):
      encoder N=4 through the no-grad forward) against ``chain_ref``, with
      times; the stash forward's output equals the no-grad forward's and the
      split kernels' bit for bit;
+  3f. the f32 forwards of ``csrc/branch_f32.cu`` (the attention branch
+     without stash and the MLP branch, f32 throughout, TF32 off) against
+     their plain versions at the feature extractor's (256, 145, 144) and the
+     reconstruction's (8, 37, 144) and (8, 145, 192), within 5e-5, with the
+     kernel's, the plain version's and the bound's times;
   10. the JEPA step at B=16 on the card and through the plain path on the
      CPU from the same weights and draws: the losses agree;
   11, 12. phases 4 and 5 with ``attn_impl="block"`` and ``"chain"``: each
@@ -94,18 +100,30 @@ Phases (any failure exits nonzero; nothing is caught):
      from ``last.ckpt`` at the next epoch, and the exact launches of the
      whole phase; beside it, the host loader's sustained img/s to the card
      at B=768 and B=2000.
+  18. the CLIs (``ssrl_vit_mae_jepa_torch/scripts``) at configs/mae.yaml's
+     widths on a synthetic STL-10 (texture) written by the data CLI: as
+     processes of their own, on their default device (the card),
+     pretrain_mae (B=768, 2 epochs), train_mae from its best.ckpt (B=256, 2
+     epochs), evaluate_classifier (test_acc in [0, 1]) and pretrain_jepa
+     (B=768, 1 epoch), every file of their output layout present; in this
+     process, train_mae from vit-jepa.pt, knn_eval, extract_features and
+     reconstruct_batch with exact launches (the f32 kernels only for the
+     last three), the last two held to the same functions on the CPU at
+     f32; then one cell of each ablation driver.
 
-Each main-path run (phases 4, 6-9, 11-15, 17) zeroes every launch count
+Each main-path run (phases 4, 6-9, 11-15, 17, 18) zeroes every launch count
 just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
 
-The line before the last is ``{"kernels": [...]}`` (21 entries): per
+The line before the last is ``{"kernels": [...]}`` (23 entries): per
 kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
 ``step`` (the MAE step where it runs the kernel, else the JEPA step),
 ``*_jepa`` the same per JEPA step, ``*_classifier`` per full fine-tune
 step of the classifier, ``*_<geometry>`` per call (``*_cls`` the
-classifier's geometry). ``ms`` and
+classifier's geometry); for the f32 forwards per ``extract_features``
+batch of 256 (``step`` "features"), ``*_reconstruction`` per
+``reconstruct_batch`` of 8, and their bound is the f32 CUDA-core rate. ``ms`` and
 the other times are CUDA-event means of the wrapper's call, host work
 included; ``device_ms`` and ``library_device_ms`` (attention and embed
 rows) are the summed durations of the device kernels one call launches.
@@ -236,9 +254,25 @@ CLS_LAUNCHES = {
 }
 # the attention entry each forced impl's main path must launch
 IMPL_ENTRY = {"packed": "mha_stacked_qkv", "pallas": "mha_pallas"}
+# the f32 forwards of csrc/branch_f32.cu (phase 3f): geometry -> (B, L, D, H);
+# "feat" is the feature extractor's and k-NN's encoder at batch 256 (the
+# default of extract_features), "rec_enc" / "rec_dec" the reconstruction's
+# MAE encoder (37 kept tokens) and decoder at --num_images 8
+F32_GEOMETRIES = {"feat": (256, 145, 144, 6), "rec_enc": (8, 37, 144, 6),
+                  "rec_dec": (8, 145, 192, 6)}
+# calls of each f32 kernel per extract_features batch (4 encoder blocks) and
+# per reconstruct_batch call (4 encoder and 2 decoder blocks)
+F32_CALLS = {"features": {"feat": 4}, "reconstruction": {"rec_enc": 4, "rec_dec": 2}}
+F32_KERNELS = {"attn_branch_fwd_nograd_f32": ("attn", _TPU + "block_pallas.py:692"),
+               "mlp_branch_fwd_f32": ("mlp", _TPU + "block_pallas.py:807")}
+# the f32 forwards against their plain versions (TF32 off), unit-scale
+# inputs: the f32 forward tolerance of tests/test_block_kernel.py
+F32_ATOL = 5e-5
 # the card's peaks (NVIDIA's H100 SXM data sheet): dense bf16 tensor-core
-# rate and device-memory rate
+# rate and device-memory rate; and the f32 rate outside the tensor cores,
+# which bounds the f32 forwards (no TF32 in their contract)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_F32_FLOPS = 67e12
 FWD_ATOL = 6e-2       # bf16 forward tolerance of tests/test_block_kernel.py
 # backward: both sides round to bf16 at different points (the plain version's
 # autograd rounds dW, dP and dy1 to bf16; the kernel keeps them in f32), so
@@ -397,11 +431,11 @@ def per_step(per_geo: dict, key: str, calls: dict) -> float:
 
 def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
     """A kernel's line: ``ms``/``plain_ms``/``library_ms``/``bound_ms`` per
-    step of the first main path that runs it (MAE, then JEPA, then the
-    classifier's full fine-tune), a later path's per step under ``*_jepa``
-    and ``*_classifier``, every geometry's per call under ``*_<geo>``."""
-    runs = [s for s in ("mae", "jepa", "classifier")
-            if any(g in per_geo for g in calls_by_step.get(s, {}))]
+    step of the first main path of ``calls_by_step`` that runs it (MAE, then
+    JEPA, then the classifier's full fine-tune; for the f32 forwards the
+    feature extractor's batch, then the reconstruction's), a later path's
+    per step under ``*_<path>``, every geometry's per call under ``*_<geo>``."""
+    runs = [s for s, calls in calls_by_step.items() if any(g in per_geo for g in calls)]
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                         "library_device_ms")
             if all(k in v for v in per_geo.values())]
@@ -415,7 +449,7 @@ def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
     return r
 
 
-def branch_inputs(kind: str, L: int, D: int, seed: int):
+def branch_inputs(kind: str, L: int, D: int, seed: int, batch: int = BATCH):
     """bf16 activations and f32 params at realistic scales, on the card."""
     g = torch.Generator().manual_seed(seed)
     n = 3 * D if kind == "attn" else 4 * D
@@ -423,8 +457,8 @@ def branch_inputs(kind: str, L: int, D: int, seed: int):
     wb_in = D if kind == "attn" else n
     params = [1.0 + 0.1 * rn(D), 0.1 * rn(D), rn(n, D) * D**-0.5, 0.1 * rn(n),
               rn(D, wb_in) * wb_in**-0.5, 0.1 * rn(D)]
-    x = rn(BATCH, L, D).to(torch.bfloat16)
-    dy = rn(BATCH, L, D).to(torch.bfloat16)
+    x = rn(batch, L, D).to(torch.bfloat16)
+    dy = rn(batch, L, D).to(torch.bfloat16)
     return x.cuda(), dy.cuda(), [p.cuda() for p in params]
 
 
@@ -495,6 +529,52 @@ def check_kernels() -> dict:
             print(line + f"; fwd max abs err {fwd_err:.3e}", flush=True)
             del out_k, out_r, out_ns, leaves
     return {k: summarize(per[k], errs[k], STEP_CALLS) for k in KERNELS}
+
+
+def f32_bound(kind: str, B: int, L: int, D: int):
+    """Least time of one f32 forward at (B, L, D), F = 4D: x read and the
+    output written once, the f32 weights read once; the products (qkv 6,
+    proj 2, or fc1 8 and fc2 8, x MD^2) and attention's 4BL^2D at the f32
+    CUDA-core peak."""
+    M = B * L
+    if kind == "attn":
+        w, flops = 4 * D * D + 6 * D, 8 * M * D * D + 4 * B * L * L * D
+    else:
+        w, flops = 8 * D * D + 7 * D, 16 * M * D * D
+    tb = (2 * M * D + w) * 4 / PEAK_BYTES * 1e3
+    to = flops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def check_f32() -> dict:
+    """Phase 3f: the f32 forwards of ``csrc/branch_f32.cu`` against their
+    plain versions (``attn_branch_ref`` / ``mlp_branch_ref`` at f32) on the
+    card with TF32 off, at F32_GEOMETRIES, with per-call times and bounds."""
+    per = {k: {} for k in F32_KERNELS}
+    errs = dict.fromkeys(F32_KERNELS, 0.0)
+    for geo, (B, L, D, H) in F32_GEOMETRIES.items():
+        for name, (kind, _) in F32_KERNELS.items():
+            x, _, params = branch_inputs(kind, L, D, seed=B + L + D, batch=B)
+            x = x.float()
+            extra = (H,) if kind == "attn" else ()
+            kern = bf.fused_attn_branch if kind == "attn" else bf.fused_mlp_branch
+            ref = bf.attn_branch_ref if kind == "attn" else bf.mlp_branch_ref
+            with torch.no_grad():
+                out = kern(x, *params, *extra)
+                want = ref(x, *params, *extra)
+                torch.cuda.synchronize()
+                err = (out - want).abs().max().item()
+                if not (out.dtype == torch.float32 and err <= F32_ATOL):
+                    fail(f"{name}@{geo}: {out.dtype}, max abs err {err} > {F32_ATOL}")
+                t_k = cuda_ms(lambda: kern(x, *params, *extra))
+                t_p = cuda_ms(lambda: ref(x, *params, *extra))
+            b_ms, b_by = f32_bound(kind, B, L, D)
+            per[name][geo] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by}
+            errs[name] = max(errs[name], err)
+            print(f"  {name}@{geo} B={B} L={L} D={D}: {t_k:.3f} ms (plain {t_p:.3f}, bound "
+                  f"{b_ms:.3f} by {b_by}); max abs err {err:.3e}", flush=True)
+            del x, out, want
+    return {k: summarize(per[k], errs[k], F32_CALLS) for k in F32_KERNELS}
 
 
 def gemm_products(L: int, D: int) -> dict:
@@ -1402,6 +1482,238 @@ def stage_end_to_end(cfg: dict, mae_ms: float) -> dict:
     return got
 
 
+# phase 18: the port's CLIs at configs/mae.yaml's widths on a synthetic
+# STL-10 (texture signal, phase 17's sizes), cut in epochs and data only
+CLI = "ssrl_vit_mae_jepa_torch.scripts"
+CLI_DATA = (1000, 800, 4000)  # train, test, unlabeled images
+CLI_LABELS = 80  # labeled images per class the classifier CLIs train on
+# what every training CLI writes into its run directory
+CLI_FILES = ("config.yaml", "metrics.jsonl", "checkpoints/best.ckpt", "checkpoints/last.ckpt")
+# extract_features and reconstruct_batch on the card against the same
+# functions on the CPU, both f32 (TF32 off), so they differ by summation
+# order only: features of O(1) are held to 5e-5 (the f32 tolerance of one
+# kernel, phase 3f) and images in [0, 1] and the masked-patch metrics to
+# 1e-5. A TF32-grade error (~1e-3 relative per GEMM) fails both.
+F32_FEATURE_ATOL, F32_IMAGE_ATOL = 5e-5, 1e-5
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Environment variables set (None: unset) inside the block."""
+    def put(items):
+        for k, v in items.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    old = {k: os.environ.get(k) for k in values}
+    put(values)
+    try:
+        yield
+    finally:
+        put(old)
+
+
+def run_cli(module: str, *args, cwd=REPO, env=None) -> str:
+    """``python -m ssrl_vit_mae_jepa_torch.scripts.<module>`` in a process of
+    its own, on its default device (``SSRL_TORCH_DEVICE`` unset: the card);
+    fails the smoke test on a nonzero exit; returns its stdout."""
+    full = {k: v for k, v in os.environ.items() if k != "SSRL_TORCH_DEVICE"}
+    full.update(env or {})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{CLI}.{module}", *map(str, args)], cwd=cwd,
+                          env=full, capture_output=True, text=True, timeout=600)
+    print(f"  python -m {CLI}.{module}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if proc.returncode != 0:
+        fail(f"{module} exited {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def check_files(run: pathlib.Path, names) -> None:
+    missing = [n for n in names if not (run / n).is_file()]
+    if missing:
+        fail(f"{run.name}: no {missing}")
+
+
+def cli_end_to_end(cfg: dict) -> dict:
+    """Phase 18: the CLIs on the card. As processes of their own: the data
+    CLI, pretrain_mae (B=768, 2 epochs), train_mae from its best.ckpt (B=256,
+    2 epochs), evaluate_classifier, pretrain_jepa (B=768, 1 epoch), and one
+    cell of each ablation driver; in this process, with exact launches:
+    train_mae from vit-jepa.pt, knn_eval, and extract_features and
+    reconstruct_batch (the f32 kernels only), each held to the same function
+    on the CPU. Returns the launches of the in-process runs."""
+    import copy
+    import re
+    import tempfile
+
+    import yaml
+
+    from ssrl_vit_mae_jepa_torch.data.stl10 import STL10
+    from ssrl_vit_mae_jepa_torch.ops.masking import num_masked_tokens, random_token_mask
+    from ssrl_vit_mae_jepa_torch.scripts.evaluation import knn_eval
+    from ssrl_vit_mae_jepa_torch.scripts.evaluation import visualize_reconstruction as vrec
+    from ssrl_vit_mae_jepa_torch.scripts.evaluation import visualize_representation as vrep
+    from ssrl_vit_mae_jepa_torch.scripts.training import train_mae
+
+    total = dict.fromkeys(launch_counts(), 0)
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = pathlib.Path(tmp)
+        data, out = tmp / "data", tmp / "outputs"
+        env = {"SSRL_DATA_DIR": str(data)}
+        n_train, n_test, n_unl = CLI_DATA
+        run_cli("data", "--synthetic", "--signal", "texture", "--data_dir", data,
+                "--synthetic_train", n_train, "--synthetic_test", n_test,
+                "--synthetic_unlabeled", n_unl)
+        c = copy.deepcopy(cfg)
+        c["pretrain"].update(batch_size=BATCH, total_epochs=2, warmup_epochs=1)
+        c["jepa"].update(batch_size=BATCH, total_epochs=1, warmup_epochs=1)
+        c["train"].update(samples_per_class=CLI_LABELS, batch_size=256, total_epochs=2,
+                          warmup_epochs=1)
+        c["test"]["batch_size"] = 256
+        c["logging"].update(output_dir_base=str(out), log_every_n_steps=2)
+        cfg_path = tmp / "cli.yaml"
+        cfg_path.write_text(yaml.safe_dump(c))
+
+        run_cli("training.pretrain_mae", "--config", cfg_path, "--output_dir_suffix", "mae",
+                env=env)
+        pre = out / "pretrain" / "mae"
+        check_files(pre, CLI_FILES + ("vit-mae.pt",))
+        run_cli("training.train_mae", "--config", cfg_path, "--encoder_ckpt",
+                pre / "checkpoints" / "best.ckpt", "--output_dir_suffix", "mae_probe", env=env)
+        probe = out / "train" / "mae_probe"
+        check_files(probe, CLI_FILES + ("vit-mae.pt",))
+        stdout = run_cli("evaluation.evaluate_classifier", "--config", cfg_path, "--checkpoint",
+                         probe / "checkpoints" / "best.ckpt", env=env)
+        m = re.search(r"Test Accuracy: ([0-9.eE+-]+)", stdout)
+        acc = float(m.group(1)) if m else float("nan")
+        print(f"  evaluate_classifier: test_acc {acc}", flush=True)
+        if not 0.0 <= acc <= 1.0:
+            fail(f"evaluate_classifier: test_acc {acc}\n{stdout[-2000:]}")
+        check_files(out / "test" / "default", ("metrics.jsonl",))
+        run_cli("training.pretrain_jepa", "--config", cfg_path, "--output_dir_suffix", "jepa",
+                env=env)
+        jepa = out / "pretrain" / "jepa"
+        check_files(jepa, CLI_FILES + ("vit-jepa.pt", "jepa_state.ckpt"))
+        steps = [json.loads(x) for x in (pre / "metrics.jsonl").read_text().split("\n") if x]
+        print(f"  pretrain_mae metrics.jsonl: {len(steps)} records "
+              f"({sum('val_loss' in r for r in steps)} epochs)", flush=True)
+
+        with env_vars(SSRL_DATA_DIR=str(data), SSRL_TORCH_DEVICE=None):
+            ctrain, cval = get_train_dataloaders(c, data)
+            reset_counts()
+            t0 = time.perf_counter()
+            train_mae.main(["--config", str(cfg_path), "--encoder_ckpt",
+                            str(jepa / "vit-jepa.pt"), "--output_dir_suffix", "jepa_probe"])
+            got = launch_counts()
+            # configs/mae.yaml fine-tunes the whole model: 4 blocks a step
+            # forward and backward, 4 no-grad forwards an eval batch
+            n_steps, n_evals = 2 * len(ctrain), 2 * len(cval)
+            want = expected({"attn_branch_fwd": 4 * n_steps, "attn_branch_bwd": 4 * n_steps,
+                             "mlp_branch_fwd": 4 * (n_steps + n_evals),
+                             "mlp_branch_bwd": 4 * n_steps,
+                             "attn_branch_fwd_nograd": 4 * n_evals})
+            print(f"  train_mae --encoder_ckpt vit-jepa.pt in process: "
+                  f"{time.perf_counter() - t0:.1f} s, launches {got}", flush=True)
+            if got != want:
+                fail(f"train_mae from vit-jepa.pt: launches {got}, expected {want}")
+            for k, v in got.items():
+                total[k] += v
+
+            # the f32 entry points: per encoder batch 4 blocks, per
+            # reconstruction 4 encoder and 2 decoder blocks, f32 kernels only
+            f32 = list(F32_KERNELS)
+            best = pre / "checkpoints" / "best.ckpt"
+            reset_counts()
+            t0 = time.perf_counter()
+            knn_acc = knn_eval.main(["--config", str(cfg_path), "--checkpoint", str(best),
+                                     "--batch_size", "256", "--eval", "both"])
+            got = launch_counts()
+            batches = -(-n_train // 256) + -(-n_test // 256)
+            print(f"  knn_eval in process: {time.perf_counter() - t0:.1f} s, k-NN test acc "
+                  f"{knn_acc}, launches {got}", flush=True)
+            if got != expected(dict.fromkeys(f32, 4 * batches)):
+                fail(f"knn_eval launches {got}, expected {4 * batches} of each f32 kernel")
+            for k, v in got.items():
+                total[k] += v
+
+            reset_counts()
+            t0 = time.perf_counter()
+            feats, labels = vrep.extract_features(c, best, split="test", batch_size=256)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = launch_counts()
+            n_batches = -(-n_test // 256)
+            if got != expected(dict.fromkeys(f32, 4 * n_batches)):
+                fail(f"extract_features launches {got}, expected {4 * n_batches} of each f32 "
+                     "kernel and nothing else")
+            for k, v in got.items():
+                total[k] += v
+            with env_vars(SSRL_TORCH_DEVICE="cpu"):
+                feats_cpu, labels_cpu = vrep.extract_features(c, best, split="test",
+                                                              batch_size=256)
+            err = float(np.abs(feats - feats_cpu).max())
+            print(f"  extract_features: {feats.shape} in {dt:.2f} s on the card "
+                  f"({n_test / dt:.0f} img/s, host included), launches {got}; card vs CPU "
+                  f"max abs err {err:.3e} (max |feature| {np.abs(feats_cpu).max():.3f})",
+                  flush=True)
+            width = c["model"]["encoder"]["embed_dim"]
+            if not (feats.shape == (n_test, width) and np.array_equal(labels, labels_cpu)
+                    and err <= F32_FEATURE_ATOL):
+                fail(f"extract_features: card vs CPU max abs err {err} > {F32_FEATURE_ATOL}")
+
+            images = STL10(data, "train").images_nhwc(np.arange(8))
+            masks = random_token_mask(torch.Generator().manual_seed(vrec.MASK_SEED), 8, 145,
+                                      num_masked_tokens(145, 0.75))
+            reset_counts()
+            rec = vrec.reconstruct_batch(c, pre / "vit-mae.pt", images, masks=masks)
+            got = launch_counts()
+            if got != expected(dict.fromkeys(f32, 6)):
+                fail(f"reconstruct_batch launches {got}, expected 6 of each f32 kernel and "
+                     "nothing else")
+            for k, v in got.items():
+                total[k] += v
+            with env_vars(SSRL_TORCH_DEVICE="cpu"):
+                rec_cpu = vrec.reconstruct_batch(c, pre / "vit-mae.pt", images, masks=masks)
+            err = max(float(np.abs(rec[k] - rec_cpu[k]).max())
+                      for k in ("original", "masked", "reconstructed"))
+            merr = max(abs(rec[k] - rec_cpu[k]) / max(abs(rec_cpu[k]), 1e-12)
+                       for k in ("mse", "mae", "psnr"))
+            print(f"  reconstruct_batch: mse {rec['mse']:.5f} psnr {rec['psnr']:.3f} dB, "
+                  f"launches {got}; card vs CPU images max abs err {err:.3e}, metrics max rel "
+                  f"err {merr:.3e}", flush=True)
+            if not (err <= F32_IMAGE_ATOL and merr <= F32_IMAGE_ATOL):
+                fail(f"reconstruct_batch: card vs CPU {err}, {merr} > {F32_IMAGE_ATOL}")
+
+        # one cell of each ablation driver, in a directory of its own (the
+        # drivers write configs/ under the working directory)
+        abl = tmp / "ablation"
+        abl.mkdir()
+        a = copy.deepcopy(c)
+        a["pretrain"]["total_epochs"] = a["train"]["total_epochs"] = 1
+        a["logging"]["output_dir_base"] = str(abl / "outputs")
+        (abl / "base.yaml").write_text(yaml.safe_dump(a))
+        aenv = {**env, "PYTHONPATH": str(REPO), "SSRL_ABLATION_CONFIG": str(abl / "base.yaml")}
+        run_cli("ablation.run_pretrain_ablation", cwd=abl,
+                env={**aenv, "SSRL_ABLATION_FRACTIONS": "1.0"})
+        run_cli("ablation.run_train_ablation", cwd=abl,
+                env={**aenv, "SSRL_ABLATION_FRACTIONS": "100",
+                     "SSRL_ABLATION_LABELS": str(CLI_LABELS)})
+        run_cli("ablation.run_baseline_ablation", cwd=abl,
+                env={**aenv, "SSRL_ABLATION_LABELS": str(CLI_LABELS)})
+        runs = ["pretrain/mae_100", f"train/mae_000_{CLI_LABELS}"] + [
+            f"train/mae_100_{CLI_LABELS}_{m}" for m in ("frozen", "unfreeze1", "unfreeze2",
+                                                         "full")]
+        for r in runs:
+            check_files(abl / "outputs" / r, ("checkpoints/best.ckpt",))
+        print(f"  ablation cells: {len(runs)} runs wrote their best.ckpt", flush=True)
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test needs an NVIDIA GPU")
@@ -1428,6 +1740,8 @@ def main() -> None:
     res.update(check_stack("block"))
     print("phase 3e: chained-block kernels vs plain version (B=768, bf16)", flush=True)
     res.update(check_stack("chain"))
+    print("phase 3f: f32 branch forwards vs plain versions (TF32 off)", flush=True)
+    res.update(check_f32())
 
     cfg = load_config(REPO / "configs" / "mae.yaml")
     model_cfg = cfg["model"]
@@ -1473,6 +1787,9 @@ def main() -> None:
     print("phase 17: the stage end to end: MAE fit, classifier fit from its best.ckpt, "
           "test, resume", flush=True)
     add(stage_end_to_end(cfg, mae_ms["auto"]))
+    print("phase 18: the CLIs on the card: pretrain, probe, evaluate, JEPA, k-NN, features, "
+          "reconstruction, ablation cells", flush=True)
+    add(cli_end_to_end(cfg))
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]
@@ -1485,6 +1802,8 @@ def main() -> None:
              for k, replaces in BLOCK_KERNELS.items()]
     rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/block_chain.cu", replaces)
              for k, replaces in CHAIN_KERNELS.items()]
+    rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/branch_f32.cu", replaces)
+             for k, (_, replaces) in F32_KERNELS.items()]
     kernels = []
     for k, src, replaces in rows:
         r = res[k]

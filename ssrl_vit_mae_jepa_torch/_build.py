@@ -62,6 +62,12 @@ _SIGNATURES = {
     # layout, M, N, K / layout, epi, 11 pointers, M, N, K, stream
     "ssrl_gemm_workspace": (_LL, [_I] * 4),
     "ssrl_gemm": (_I, [_I] * 2 + [_P] * 11 + [_I] * 3 + [_P]),
+    # the f32 forwards of csrc/branch_f32.cu (same argument order as the bf16 ones)
+    "ssrl_attn_f32_fits": (_I, [_I] * 2),
+    "ssrl_attn_branch_fwd_f32_workspace": (_LL, [_I] * 3),
+    "ssrl_attn_branch_fwd_f32": (_I, [_P] * 9 + [_I] * 4 + [_F, _P]),
+    "ssrl_mlp_branch_fwd_f32_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_branch_fwd_f32": (_I, [_P] * 9 + [_I] * 3 + [_P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,7 +1,7 @@
 """Config defaults and loading (the port's own copy of
 ``ssrl_vit_mae_jepa_tpu/config.py``, which imports no JAX): the reference
 YAML schema, the code defaults (``DEFAULTS``, including the ``jepa``
-section), ``_deep_merge`` and ``load_config``.
+section), ``_deep_merge``, ``load_config`` and ``save_config_snapshot``.
 """
 
 from __future__ import annotations
@@ -95,3 +95,14 @@ def load_config(path: str | Path, apply_defaults: bool = True) -> Dict[str, Any]
         cfg = _deep_merge(DEFAULTS, cfg)
     return cfg
 
+
+
+def save_config_snapshot(cfg: Dict[str, Any], output_dir: str | Path) -> Path:
+    """Write the run's ``config.yaml`` into its output directory (reference
+    ``scripts/training/pretrain_mae.py:62-65``)."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    snapshot = output_dir / "config.yaml"
+    with open(snapshot, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return snapshot

@@ -25,7 +25,12 @@ from ssrl_vit_mae_jepa_torch.data.stl10 import (
 )
 
 ROOT_DIR = Path(__file__).resolve().parents[2]
-DATA_DIR = Path(os.environ.get("SSRL_DATA_DIR", ROOT_DIR / "data"))
+
+
+def default_data_dir() -> Path:
+    """``$SSRL_DATA_DIR``, read at each call (so an in-process caller may set
+    it), else ``data/`` at the repository root."""
+    return Path(os.environ.get("SSRL_DATA_DIR", ROOT_DIR / "data"))
 
 
 def _depth(section: dict) -> int:
@@ -38,7 +43,7 @@ def get_pretrain_dataloaders(cfg: dict, data_dir: str | Path | None = None
     """Unlabeled STL-10 → (train, val) loaders (reference ``src/data.py:45-106``)."""
     pre_cfg = cfg["pretrain"]
     seed = cfg.get("seed", 73)
-    ds = STL10(data_dir or DATA_DIR, split="unlabeled")
+    ds = STL10(data_dir or default_data_dir(), split="unlabeled")
     train_idx, val_idx = pretrain_split_indices(
         len(ds), pre_cfg.get("data_fraction", 1.0), pre_cfg.get("val_split", 0.1), seed)
     batch_size = pre_cfg.get("batch_size", 512)
@@ -55,7 +60,7 @@ def get_train_dataloaders(cfg: dict, data_dir: str | Path | None = None
     """Labeled STL-10 → (train, val) loaders (reference ``src/data.py:109-164``)."""
     train_cfg = cfg["train"]
     seed = cfg.get("seed", 73)
-    ds = STL10(data_dir or DATA_DIR, split="train")
+    ds = STL10(data_dir or default_data_dir(), split="train")
     samples_per_class = train_cfg.get("samples_per_class", 400)
     train_idx, val_idx = stratified_split_indices(np.asarray(ds.labels), samples_per_class,
                                                   seed)
@@ -71,6 +76,6 @@ def get_train_dataloaders(cfg: dict, data_dir: str | Path | None = None
 def get_test_dataloader(cfg: dict, data_dir: str | Path | None = None) -> HostLoader:
     """STL-10 test split loader (reference ``src/data.py:167-185``)."""
     test_cfg = cfg.get("test", {})
-    ds = STL10(data_dir or DATA_DIR, split="test")
+    ds = STL10(data_dir or default_data_dir(), split="test")
     print(f"Loaded STL-10 test split: {len(ds)} samples")
     return HostLoader(ds, np.arange(len(ds)), test_cfg.get("batch_size", 256), shuffle=False)

@@ -17,6 +17,13 @@ CPU tensor they run the plain versions ``attn_branch_ref`` /
 same rounding points in tensor ops. There is no fallback: a CUDA tensor the
 kernel does not take raises.
 
+The split branches also take f32 activations without a gradient (the JAX
+kernels' f32 instantiation, which the feature and reconstruction entry
+points run): ``csrc/branch_f32.cu``, f32 throughout with no rounding point,
+whose plain versions are ``attn_branch_ref`` / ``mlp_branch_ref`` at f32. An
+f32 branch that needs a gradient raises ``NotImplementedError``: the f32
+backward kernels are not ported (ROADMAP queue 2).
+
 Numerics (``block_pallas.py:28-32``): LN statistics and softmax in f32, LN
 eps 1e-6, products of rounded operands accumulated in f32, bf16 rounding of
 y1, qkv, the scaled q, P, ``a``, the projection, z, h and the fc2 output;
@@ -51,6 +58,8 @@ LAUNCHES = {
     "block_fwd_nograd": 0,  # the same kernel for no-grad callers
     "block_bwd": 0,
     "gemm": 0,  # the GEMM alone (``gemm``), for its own checks; never on a step
+    "attn_branch_fwd_nograd_f32": 0,  # csrc/branch_f32.cu: f32, no grad
+    "mlp_branch_fwd_f32": 0,
 }
 
 
@@ -349,9 +358,10 @@ def _prep6(ln_s, ln_b, wa, ba, wb, bb, dt):
     return f32 + [t.detach().to(dt).contiguous() for t in (wa, ba, wb, bb)]
 
 
-def _check_x(x: torch.Tensor, D: int) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the block kernels take bfloat16 activations, got {x.dtype}")
+def _check_x(x: torch.Tensor, D: int, dtypes=(torch.bfloat16,)) -> None:
+    if x.dtype not in dtypes:
+        raise TypeError(f"the kernels take {' or '.join(map(str, dtypes))} activations, "
+                        f"got {x.dtype}")
     if x.dim() != 3 or x.shape[-1] != D:
         raise ValueError(f"expected (B, L, {D}) activations, got {tuple(x.shape)}")
 
@@ -573,6 +583,46 @@ class _MlpBranch(torch.autograd.Function):
         return (dx, *(d.to(t) for d, t in zip(dparams, ctx.param_dtypes)))
 
 
+# ---------------------------------------------------------------------------
+# f32 forward without a gradient (csrc/branch_f32.cu)
+# ---------------------------------------------------------------------------
+
+#: the split branches' activation dtypes on the card (f32: forward only)
+_BRANCH_DTYPES = (torch.bfloat16, torch.float32)
+F32_GRAD_TODO = ("the f32 branch kernels are forward-only: the f32 backward is not "
+                 "ported yet (ROADMAP queue 2, the f32 backward of rows 1, 2 and 5-7); "
+                 "train in bf16 or run this f32 forward under torch.no_grad()")
+
+
+def _attn_fwd_f32_cuda(x, kp, num_heads: int):
+    B, L, D = x.shape
+    lib = _build.load()
+    if not lib.ssrl_attn_f32_fits(L, D // num_heads):
+        raise ValueError(f"the f32 attention core does not take L={L} d={D // num_heads}")
+    out = torch.empty_like(x)
+    ws = _workspace(lib.ssrl_attn_branch_fwd_f32_workspace(B, L, D), x)
+    LAUNCHES["attn_branch_fwd_nograd_f32"] += 1
+    _build.check(lib.ssrl_attn_branch_fwd_f32(
+        x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(), ws.data_ptr(),
+        B, L, D, num_heads, _scale(D, num_heads), _stream(x),
+    ), "attn_branch_fwd_nograd_f32")
+    return out
+
+
+def _mlp_fwd_f32_cuda(x, kp):
+    B, L, D = x.shape
+    F_ = kp[2].shape[0]
+    lib = _build.load()
+    out = torch.empty_like(x)
+    ws = _workspace(lib.ssrl_mlp_branch_fwd_f32_workspace(B * L, D, F_), x)
+    LAUNCHES["mlp_branch_fwd_f32"] += 1
+    _build.check(lib.ssrl_mlp_branch_fwd_f32(
+        x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(), ws.data_ptr(),
+        B * L, D, F_, _stream(x),
+    ), "mlp_branch_fwd_f32")
+    return out
+
+
 def _needs_grad(x, params) -> bool:
     return torch.is_grad_enabled() and (
         x.requires_grad or any(p.requires_grad for p in params)
@@ -589,31 +639,41 @@ def fused_attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads)
     """x + proj(MHA(LN1(x) Wqkv^T + bqkv)): kernels on CUDA, plain on CPU.
 
     Without grad the CUDA forward stashes no attention output ``a`` (the
-    no-grad primal of ``block_pallas._fused_attn_branch``)."""
+    no-grad primal of ``block_pallas._fused_attn_branch``); f32 activations
+    take the f32 kernel, without grad only."""
     params = (ln_scale, ln_bias, wqkv, bqkv, wproj, bproj)
     if _route(x) == "cpu":
         return attn_branch_ref(x, *params, num_heads)
     D = x.shape[-1]
-    _check_x(x, D)
+    _check_x(x, D, _BRANCH_DTYPES)
     if D % num_heads:
         raise ValueError(f"D={D} is not a multiple of num_heads={num_heads}")
     _check_params(params, [(D,), (D,), (3 * D, D), (3 * D,), (D, D), (D,)])
     x = x.contiguous()
+    if x.dtype == torch.float32:
+        if _needs_grad(x, params):
+            raise NotImplementedError(F32_GRAD_TODO)
+        return _attn_fwd_f32_cuda(x, _prep6(*params, x.dtype), num_heads)
     if _needs_grad(x, params):
         return _AttnBranch.apply(x, *params, num_heads)
     return _attn_fwd_cuda(x, _prep6(*params, x.dtype), num_heads, stash=False)[0]
 
 
 def fused_mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2):
-    """x + fc2(GELU(fc1(LN2(x)))): kernels on CUDA, plain on CPU."""
+    """x + fc2(GELU(fc1(LN2(x)))): kernels on CUDA, plain on CPU; f32
+    activations take the f32 kernel, without grad only."""
     params = (ln_scale, ln_bias, w1, b1, w2, b2)
     if _route(x) == "cpu":
         return mlp_branch_ref(x, *params)
     D = x.shape[-1]
     F_ = w1.shape[0]
-    _check_x(x, D)
+    _check_x(x, D, _BRANCH_DTYPES)
     _check_params(params, [(D,), (D,), (F_, D), (F_,), (D, F_), (D,)])
     x = x.contiguous()
+    if x.dtype == torch.float32:
+        if _needs_grad(x, params):
+            raise NotImplementedError(F32_GRAD_TODO)
+        return _mlp_fwd_f32_cuda(x, _prep6(*params, x.dtype))
     if _needs_grad(x, params):
         return _MlpBranch.apply(x, *params)
     return _mlp_fwd_cuda(x, _prep6(*params, x.dtype))

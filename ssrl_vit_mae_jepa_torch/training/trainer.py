@@ -13,9 +13,13 @@ resume and ``load_params_into_state`` follow the JAX trainer. The
 checkpoints follow the task's monitor (``val_loss``/min for pretraining,
 ``val_acc``/max for the classifier) and keep the best and the last epoch.
 
-Not ported: the mesh and ``shard_map`` (one device here), the orbax
-checkpoint backend, per-step metric records (``log_every_n_steps``) and
-periodic weights-only files, which no caller of the port asks for yet.
+``log_every_n_steps`` adds a record of the step's own train metrics every
+n global steps (one host sync each; off by default, so an epoch syncs once)
+and ``periodic_ckpt_every`` the weights-only ``epoch-NNN.ckpt`` files, as the
+JAX trainer does (:153-165, ``CheckpointCallbacks(periodic_every=)``).
+
+Not ported: the mesh and ``shard_map`` (one device here) and the orbax
+checkpoint backend, a JAX format (the CLIs refuse ``ckpt_backend: orbax``).
 """
 
 from __future__ import annotations
@@ -65,15 +69,19 @@ def _host(sums: Optional[Dict]) -> Dict[str, float]:
 
 class Trainer:
     def __init__(self, task: Task, max_epochs: int, output_dir: str | Path, seed: int = 73,
-                 hyper_parameters: Optional[Dict[str, Any]] = None):
+                 hyper_parameters: Optional[Dict[str, Any]] = None,
+                 log_every_n_steps: Optional[int] = None,
+                 periodic_ckpt_every: Optional[int] = None):
         self.task = task
         self.max_epochs = max_epochs
         self.output_dir = Path(output_dir)
         self.seed = seed
+        self.log_every_n_steps = log_every_n_steps
         self.logger = MetricsLogger(self.output_dir)
         self.hyper_parameters = hyper_parameters or {}
         self.callbacks = CheckpointCallbacks(self.output_dir / "checkpoints",
-                                             monitor=task.monitor, mode=task.monitor_mode)
+                                             monitor=task.monitor, mode=task.monitor_mode,
+                                             periodic_every=periodic_ckpt_every)
         self.state: Optional[TrainState] = None
         self.global_step = 0
 
@@ -106,6 +114,10 @@ class Trainer:
                 sums = _add(sums, step_sums)
                 n_steps += 1
                 self.global_step += 1
+                if self.log_every_n_steps and self.global_step % self.log_every_n_steps == 0:
+                    self.logger.log(
+                        self.task.epoch_metrics_from_sums(_host(step_sums), "train"),
+                        step=self.global_step, epoch=epoch)
             sums = _host(sums)  # one host sync per epoch
             dt = time.time() - t0
             metrics = {**host_metrics, **self.task.epoch_metrics_from_sums(sums, "train")}

@@ -8,10 +8,16 @@ export is this module's own numpy copy of
 ``classifier_params_to_state`` and the tables they walk (:89-106,
 :209-321), and the JEPA export built from the same tables (the JAX package
 has none); the port imports nothing of the JAX package.
+
+The other way, ``export_reference_weights`` writes a port model's weights as
+the reference's terminal ``.pt`` file, as the JAX package's
+``utils/torch_interop.py::export_reference_weights`` (:324-343) does; the
+port's modules already carry the reference names, so it is a ``torch.save``.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -177,3 +183,15 @@ def classifier_params_from_jax(params: dict, model: torch.nn.Module) -> torch.nn
     """Load ViTClassifier params (a tree of numpy arrays) into the port's
     ``ViTClassifier`` with ``strict=True``; returns ``model``."""
     return _load_strict(model, classifier_params_to_state(params))
+
+
+def export_reference_weights(path: str | Path, state: Dict[str, torch.Tensor]) -> Path:
+    """``torch.save`` a reference-named state dict as f32 CPU tensors: the
+    MAE's (lightly names, ``encoder.mask_token`` included), the classifier's
+    (``encoder.*``, ``head.classification.*``) or a bare encoder's (timm
+    names, the JEPA CLI's ``vit-jepa.pt``). The file equals the JAX
+    package's export of the same parameters, key for key and bit for bit."""
+    path = Path(path)
+    torch.save({k: v.detach().to("cpu", torch.float32).contiguous().clone()
+                for k, v in state.items()}, str(path))
+    return path

@@ -93,12 +93,18 @@ def _timm_vit(state: State, depth: int) -> Tuple[State, dict]:
 
 def encoder_params_from_checkpoint(path: str | Path, depth: int) -> Tuple[State, dict]:
     """The ViT encoder of any checkpoint, by timm names → (state, report)
-    (reference ``scripts/training/train_mae.py:92-146``)."""
+    (reference ``scripts/training/train_mae.py:92-146``). Besides the
+    prefixed files it takes a bare timm ViT (no prefix), which is what both
+    packages' JEPA CLI writes as ``vit-jepa.pt``; the JAX package's loader
+    refuses that file."""
     _, state, _ = load_any(path)
     prefix = detect_prefix(state)
+    if prefix is None and "cls_token" in state:
+        prefix = ""  # a bare timm ViT: the JEPA CLI's vit-jepa.pt
     if prefix is None:
         raise ValueError("Could not find encoder weights in checkpoint. Expected keys "
-                         "starting with one of: " + ", ".join(ENCODER_PREFIXES))
+                         "starting with one of: " + ", ".join(ENCODER_PREFIXES)
+                         + ", or a bare timm ViT (cls_token, blocks.*)")
     print(f"Detected encoder prefix in checkpoint: '{prefix}'")
     enc, report = _timm_vit(strip_prefix(state, prefix), depth)
     print(f"Loaded encoder weights: {len(enc)} tensors ({len(report['missing'])} missing, "

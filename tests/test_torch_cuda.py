@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 branch GEMM alone (every layout and epilogue against ``gemm_ref``), the
-two branch kernels, the whole-block kernel of ``csrc/fused_block.cu``, the
+two branch kernels and their f32 forwards (``csrc/branch_f32.cu``, held in
+f32 to 5e-5), the whole-block kernel of ``csrc/fused_block.cu``, the
 chained-block kernel of ``csrc/block_chain.cu``, the four attention entries
 of ``csrc/mha.cu`` and the fused patch embed of ``csrc/patch_embed.cu``.
 
@@ -105,9 +106,71 @@ def test_kernel_matches_plain(cuda, kind, B, L, D, H):
 
 @pytest.mark.cuda
 def test_cuda_rejects_float32(cuda):
+    """The branch kernels refuse an f32 input that needs a gradient (the f32
+    backward is not ported) and any dtype but bf16 and f32."""
     x, _, params = _inputs("mlp", 2, 5, 16, cuda)
+    xa, _, pa = _inputs("attn", 2, 5, 16, cuda)
+    with pytest.raises(NotImplementedError, match="f32 backward"):
+        bf.fused_mlp_branch(x.float().requires_grad_(), *params)
+    with pytest.raises(NotImplementedError, match="f32 backward"):
+        bf.fused_attn_branch(xa.float(), *[p.requires_grad_() for p in pa], 2)
     with pytest.raises(TypeError):
-        bf.fused_mlp_branch(x.float(), *params)
+        bf.fused_mlp_branch(x.half(), *params)
+
+
+# (B, L, D, H) of the f32 forwards: the feature extractor's encoder at its
+# default batch, the reconstruction's encoder and decoder at --num_images 8,
+# and two odd shapes (head dim 12 with ragged L; L=200 at d=32)
+F32_SHAPES = [(256, 145, 144, 6), (8, 37, 144, 6), (8, 145, 192, 6), (3, 17, 48, 4),
+              (2, 200, 64, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["attn", "mlp"])
+@pytest.mark.parametrize("B,L,D,H", F32_SHAPES)
+def test_f32_kernel_matches_plain(cuda, kind, B, L, D, H):
+    """``csrc/branch_f32.cu`` against the plain f32 version on the card with
+    TF32 off: unit-scale inputs, atol 5e-5 (the f32 tolerance of
+    tests/test_block_kernel.py); one launch, and no bf16 kernel."""
+    x, _, params = _inputs(kind, B, L, D, cuda)
+    x = x.float()
+    extra = (H,) if kind == "attn" else ()
+    kern = bf.fused_attn_branch if kind == "attn" else bf.fused_mlp_branch
+    ref = bf.attn_branch_ref if kind == "attn" else bf.mlp_branch_ref
+    name = "attn_branch_fwd_nograd_f32" if kind == "attn" else "mlp_branch_fwd_f32"
+    before = dict(bf.LAUNCHES)
+    with torch.no_grad():
+        out = kern(x, *params, *extra)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in bf.LAUNCHES.items() if v != before[k]} == {name: 1}
+        want = ref(x, *params, *extra)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    torch.testing.assert_close(out, want, atol=5e-5, rtol=0)
+    with torch.no_grad():
+        assert torch.equal(kern(x, *params, *extra), out)  # deterministic
+
+
+@pytest.mark.cuda
+def test_f32_encoder_forward_launches_only_the_f32_kernels(cuda):
+    """An f32 ViT under no_grad (the feature extractor's forward): one f32
+    launch of each branch per block, no bf16 branch kernel."""
+    from ssrl_vit_mae_jepa_torch.models.vit import VisionTransformer
+
+    vit = VisionTransformer(embed_dim=48, depth=3, num_heads=4, dtype=torch.float32)
+    vit.init_weights(torch.Generator().manual_seed(0))
+    vit.to(cuda).eval()
+    images = torch.randn(4, 96, 96, 3, device=cuda)
+    _reset()
+    with torch.no_grad():
+        out = vit(images)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    assert _launched() == {"attn_branch_fwd_nograd_f32": 3, "mlp_branch_fwd_f32": 3}
+    vit_cpu = VisionTransformer(embed_dim=48, depth=3, num_heads=4, dtype=torch.float32)
+    vit_cpu.load_state_dict({k: v.cpu() for k, v in vit.state_dict().items()})
+    with torch.no_grad():
+        want = vit_cpu(images.cpu())
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=0)
 
 
 # ---------------------------------------------------------------------------

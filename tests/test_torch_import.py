@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
 import yaml
 
 from tests.conftest import scrubbed_cpu_env
@@ -26,13 +27,25 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 print(" ".join(names))
 """
-# the modules of the JEPA slice, the fused patch embed, the chained blocks
-# and the classifier stage with its engine and data path, among all others
+# the modules of the JEPA slice, the fused patch embed, the chained blocks,
+# the classifier stage with its engine and data path, and the CLIs, among
+# all others
+CLI_MODULES = {"scripts.utils", "scripts.data", "scripts.training.pretrain_mae",
+               "scripts.training.train_mae", "scripts.training.pretrain_jepa",
+               "scripts.evaluation.evaluate_classifier", "scripts.evaluation.knn_eval",
+               "scripts.evaluation.validate_instrument",
+               "scripts.evaluation.visualize_reconstruction",
+               "scripts.evaluation.visualize_representation",
+               "scripts.evaluation.visualize_test_accuracy",
+               "scripts.evaluation.visualize_val_acc_by_mode", "scripts.ablation.common",
+               "scripts.ablation.run_pretrain_ablation", "scripts.ablation.run_train_ablation",
+               "scripts.ablation.run_baseline_ablation", "scripts.weight_utils.extract_weights",
+               "scripts.weight_utils.copy_ckpts"}
 NEW_MODULES = {"config", "ops.jepa_masking", "ops.embed_fused", "models.jepa",
                "training.jepa_task", "ops.block_chain", "ops.block_fused",
                "models.classifier", "training.trainer", "utils.checkpoint", "utils.load",
                "utils.metrics_logger", "data.stl10", "data.pipeline", "data.loaders",
-               "runtime.native"}
+               "runtime.native", "utils.umap_np", "utils.profiling"} | CLI_MODULES
 
 
 def _run(args, timeout=120):
@@ -46,8 +59,44 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 29  # every module of the port
+    assert len(names) >= 54  # every module of the port, the CLIs' among them
     assert {f"ssrl_vit_mae_jepa_torch.{m}" for m in NEW_MODULES} <= set(names)
+
+
+def test_cli_without_a_card_refuses_to_run_on_the_cpu(tmp_path):
+    """With the default device (``SSRL_TORCH_DEVICE`` unset) and no card, a
+    CLI stops at once with a clear error and writes nothing; with
+    ``SSRL_TORCH_DEVICE=cpu`` the device is the CPU."""
+    cfg = yaml.safe_load((REPO / "configs" / "mae.yaml").read_text())
+    cfg["logging"]["output_dir_base"] = str(tmp_path / "outputs")
+    (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    env = scrubbed_cpu_env()
+    env.pop("SSRL_TORCH_DEVICE", None)
+    for module in ("training.pretrain_mae", "training.train_mae", "training.pretrain_jepa"):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"ssrl_vit_mae_jepa_torch.scripts.{module}",
+             "--config", str(tmp_path / "cfg.yaml")],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert "no CUDA device" in proc.stderr and "SSRL_TORCH_DEVICE=cpu" in proc.stderr
+    assert not (tmp_path / "outputs").exists()
+    proc = _run(["-c", "import os; os.environ['SSRL_TORCH_DEVICE'] = 'cpu'; "
+                 "from ssrl_vit_mae_jepa_torch.scripts.utils import device; print(device())"])
+    assert proc.returncode == 0 and proc.stdout.strip() == "cpu"
+
+
+def test_device_is_read_in_one_place(monkeypatch):
+    from ssrl_vit_mae_jepa_torch.scripts import utils
+
+    monkeypatch.delenv("SSRL_TORCH_DEVICE", raising=False)
+    if utils.torch.cuda.is_available():
+        assert utils.device() == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            utils.device()
+    monkeypatch.setenv("SSRL_TORCH_DEVICE", "tpu")
+    with pytest.raises(ValueError, match="tpu"):
+        utils.device()
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
