@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port: kernels, then the MAE and JEPA
 pretraining steps, then the classifier stage and the engine under it, then
-the port's CLIs.
+the port's CLIs, then the lineage paths of the step and data parallelism.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -110,8 +110,37 @@ Phases (any failure exits nonzero; nothing is caught):
      reconstruct_batch with exact launches (the f32 kernels only for the
      last three), the last two held to the same functions on the CPU at
      f32; then one cell of each ablation driver.
+  19. the lineage paths at B=768 (bf16, auto): the MAE step with
+     augmentation off (``eval_transform`` images, no augment draws), with
+     ``SSRL_AUG_PATCHES=0`` (augmented images that the models patchify) and
+     with ``SSRL_MAE_DENSE_LOSS=1`` (``forward_dense``); the JEPA step with
+     augmentation off and with ``SSRL_JEPA_DENSE_LOSS=1``; the classifier's
+     full fine-tune with augmentation off. Each with ms/step and exactly the
+     launches of phases 4, 8 and 15, then at B=16 against the plain CPU path
+     (loss within rtol 2e-2, every gradient within 10%); a
+     ``{"lineage_ms": {...}}`` line.
+  20. data parallelism on the card: (a) a one-rank ``nccl`` group in this
+     process, whose MAE and JEPA steps over the data axis equal the steps
+     without a group bit for bit (deterministic algorithms on, same seed,
+     so the port's own draws); (b) two ranks as processes of their own
+     (``chip_smoke.py --dp-worker``) sharing the card over ``gloo`` (which
+     takes CUDA tensors for ``all_reduce`` and ``broadcast``; ``nccl``
+     refuses two ranks on one device), 384 rows each of the global 768:
+     loss within rtol 2e-2 and every gradient within 10% of this process's
+     step on all 768, exact launches per rank, and rank 0's params and EMA
+     target, broadcast, equal to each rank's; (c) ``pretrain_mae`` under
+     ``python -m torch.distributed.run --standalone --nproc_per_node 1`` for
+     one epoch on phase 17's synthetic STL-10, in a one-rank group, writing
+     its output layout.
 
-Each main-path run (phases 4, 6-9, 11-15, 17, 18) zeroes every launch count
+With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
+phase 20 (b), started by the script itself; ``--dp-cards N`` on a host with
+N cards builds the kernels, runs phase 20 (b) with one process per card over
+``nccl`` (then each rank's ms/step at B=768 a rank beside one card's) and
+(c) with N processes, and prints a ``{"dp_cards": ...}`` line before the
+last.
+
+Each main-path run (phases 4, 6-9, 11-15, 17-20) zeroes every launch count
 just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
@@ -169,6 +198,8 @@ from ssrl_vit_mae_jepa_torch.data.loaders import (
 )
 from ssrl_vit_mae_jepa_torch.data.pipeline import HostLoader, device_prefetch
 from ssrl_vit_mae_jepa_torch.data.stl10 import write_synthetic_stl10
+from ssrl_vit_mae_jepa_torch.parallel.mesh import broadcast_from, get_data_axis
+from ssrl_vit_mae_jepa_torch.parallel.multihost import maybe_initialize_distributed
 from ssrl_vit_mae_jepa_torch.runtime.native import native_available
 from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask
 from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask, MAETask
@@ -1124,14 +1155,17 @@ def check_moved(before: dict, after: dict, what: str) -> None:
         fail(f"{what}: only {moved} of {len(before)} tensors changed")
 
 
-def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False):
-    """Phases 4, 6, 7, 9, 11, 12: the flagship step through MAETask on the
-    card; returns its launches and ms/step."""
+def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False,
+             pre_cfg: dict = PRE_CFG, route: str = ""):
+    """Phases 4, 6, 7, 9, 11, 12, 19: the flagship step through MAETask on
+    the card (``route`` names a lineage route of phase 19); returns its
+    launches and ms/step."""
     with fused_embed(fused):
-        task = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+        task = MAETask(model_cfg, pre_cfg, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
-        what = f"MAE step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
+        what = (f"MAE step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
+                + (f" {route}" if route else ""))
         state, _, launches, ms = timed_steps(task, state, flagship_images(), name, what)
     check_moved(before, state.params, what)
     want = expected(mae_launches(impl, fused), STEPS)
@@ -1142,14 +1176,9 @@ def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False):
     return launches, ms
 
 
-def step_grads(task, state, batch: dict, draws: tuple, ctx):
-    """The trainable names and their gradients that ``task.train_step``
-    takes from ``batch`` and ``draws``, without the update."""
-    u, flip, *task_draws = draws
-    images = task.preprocess_train(u, flip, batch["image"])
-    loss, _ = task.loss_and_metric_sums_in_step(state, images, batch, task_draws, ctx)
-    names = task.tx.trainable(state.params)
-    return names, torch.autograd.grad(loss, [state.params[k] for k in names])
+def on_cpu(draws: tuple) -> tuple:
+    """The draws on the CPU (None, the augmentation's when it is off, stays)."""
+    return tuple(None if d is None else d.cpu() for d in draws)
 
 
 def check_step_grads(what: str, gpu, gs, gbatch: dict, cpu, cs, cbatch: dict, draws: tuple,
@@ -1158,8 +1187,8 @@ def check_step_grads(what: str, gpu, gs, gbatch: dict, cpu, cs, cbatch: dict, dr
     path on the CPU from the same weights and draws, before the step updates
     the params: each within STEP_GRAD_REL of the CPU tensor's largest
     magnitude."""
-    names, g_gpu = step_grads(gpu, gs, gbatch, draws, ctx)
-    names_cpu, g_cpu = step_grads(cpu, cs, cbatch, tuple(d.cpu() for d in draws), ctx)
+    names, g_gpu, _ = gpu.gradients(gs, gbatch, ctx, draws)
+    names_cpu, g_cpu, _ = cpu.gradients(cs, cbatch, ctx, on_cpu(draws))
     if names != names_cpu:
         fail(f"{what}: the card trains {len(names)} tensors, the CPU {len(names_cpu)}")
     worst, worst_name = 0.0, ""
@@ -1175,12 +1204,12 @@ def check_step_grads(what: str, gpu, gs, gbatch: dict, cpu, cs, cbatch: dict, dr
           f"tensor's largest magnitude)")
 
 
-def cpu_agreement(model_cfg: dict, impl: str) -> None:
-    """Phases 5-7, 11, 12: B=16, same weights and draws, kernels vs plain
+def cpu_agreement(model_cfg: dict, impl: str, pre_cfg: dict = PRE_CFG, route: str = "") -> None:
+    """Phases 5-7, 11, 12, 19: B=16, same weights and draws, kernels vs plain
     CPU path."""
     n = 16
-    gpu = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
-    cpu = MAETask(model_cfg, PRE_CFG, dtype=torch.bfloat16, device="cpu", attn_impl=impl)
+    gpu = MAETask(model_cfg, pre_cfg, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+    cpu = MAETask(model_cfg, pre_cfg, dtype=torch.bfloat16, device="cpu", attn_impl=impl)
     gs, cs = gpu.init_state(1), cpu.init_state(1)
     cpu.model.load_state_dict(gpu.model.state_dict())
     images = torch.from_numpy(
@@ -1189,7 +1218,7 @@ def cpu_agreement(model_cfg: dict, impl: str) -> None:
     ctx = gpu.epoch_context(0)
     draws = gpu.draw(gs.generator, n, ctx)
     weight = torch.ones(n)
-    check_step_grads(f"attn_impl={impl} B={n}", gpu, gs,
+    check_step_grads(f"attn_impl={impl} {route} B={n}", gpu, gs,
                      {"image": images.cuda(), "weight": weight.cuda()},
                      cpu, cs, {"image": images, "weight": weight}, draws, ctx)
     reset_counts()
@@ -1197,29 +1226,30 @@ def cpu_agreement(model_cfg: dict, impl: str) -> None:
                               0, ctx, draws)
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, ctx,
-                              tuple(d.cpu() for d in draws))
+                              on_cpu(draws))
     if launch_counts() != launched or launched != expected(mae_launches(impl)):
         fail(f"launch counts: {launch_counts()} (the GPU step must launch one of each "
              f"kernel of attn_impl={impl} per block, the CPU step none)")
     lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
-    print(f"  attn_impl={impl} B={n} loss: kernels on the card {lg:.6f}, "
+    print(f"  attn_impl={impl} {route} B={n} loss: kernels on the card {lg:.6f}, "
           f"plain on the CPU {lc:.6f}")
     if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
         fail(f"loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
 
 
 def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
-              impl: str = "auto") -> dict:
-    """Phases 8, 9, 13, 14: the flagship JEPA step through JEPATask on the
-    card."""
-    what = f"JEPA step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
+              impl: str = "auto", route: str = ""):
+    """Phases 8, 9, 13, 14, 19: the flagship JEPA step through JEPATask on
+    the card; returns its launches and ms/step."""
+    what = (f"JEPA step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
+            + (f" {route}" if route else ""))
     with fused_embed(fused):
         task = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda",
                         attn_impl=impl)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
         extra0 = {k: v.clone() for k, v in state.extra.items()}
-        state, sums, launches, _ = timed_steps(task, state, flagship_images(), name, what)
+        state, sums, launches, ms = timed_steps(task, state, flagship_images(), name, what)
     check_moved(before, state.params, what)
     check_moved(extra0, state.extra, what + " (EMA target)")
     metrics = task.epoch_metrics_from_sums(
@@ -1235,11 +1265,12 @@ def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
         fail(f"{what}: launches in {STEPS} steps {launches}, expected {want}")
     del task, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, ms
 
 
-def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto") -> None:
-    """Phases 10, 13, 14: B=16, same weights, EMA and draws, kernels vs
+def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto",
+                       route: str = "") -> None:
+    """Phases 10, 13, 14, 19: B=16, same weights, EMA and draws, kernels vs
     plain CPU."""
     n = 16
     gpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
@@ -1251,7 +1282,7 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto") -> N
         np.random.default_rng(1).integers(0, 256, (n, 96, 96, 3)).astype(np.uint8))
     draws = gpu.draw(gs.generator, n, None)
     weight = torch.ones(n)
-    check_step_grads(f"JEPA attn_impl={impl} B={n}", gpu, gs,
+    check_step_grads(f"JEPA attn_impl={impl} {route} B={n}", gpu, gs,
                      {"image": images.cuda(), "weight": weight.cuda()},
                      cpu, cs, {"image": images, "weight": weight}, draws)
     reset_counts()
@@ -1259,23 +1290,23 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto") -> N
                               0, None, draws)
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, None,
-                              tuple(d.cpu() for d in draws))
+                              on_cpu(draws))
     if launch_counts() != launched or launched != expected(jepa_launches(False, impl)):
         fail(f"launch counts: {launch_counts()} (the GPU JEPA step must launch "
              f"{jepa_launches(False, impl)}, the CPU step nothing)")
     lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
-    print(f"  JEPA attn_impl={impl} B={n} loss: kernels on the card {lg:.6f}, "
+    print(f"  JEPA attn_impl={impl} {route} B={n} loss: kernels on the card {lg:.6f}, "
           f"plain on the CPU {lc:.6f}")
     if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
         fail(f"JEPA loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
 
 
 def classifier_task(model_cfg: dict, train_cfg: dict, policy: str, device: str,
-                    impl: str = "auto"):
+                    impl: str = "auto", augment: bool = True):
     """``ClassifierTask`` on the configuration's train section, bf16, under
     one freeze policy of ``FREEZE``."""
     task = ClassifierTask(model_cfg, train_cfg, dtype=torch.bfloat16, device=device,
-                          attn_impl=impl)
+                          attn_impl=impl, augment=augment)
     freeze_encoder, unfreeze = FREEZE[policy]
     task.set_freeze_policy(freeze_encoder=freeze_encoder, unfreeze_last_layers=unfreeze)
     return task
@@ -1293,17 +1324,21 @@ def check_frozen(task, before: dict, after: dict, what: str) -> None:
           f"the other {len(after) - len(trainable)} bit-identical")
 
 
-def classifier_steps(model_cfg: dict, train_cfg: dict, name: str) -> dict:
-    """Phase 15: the flagship classifier step through ``ClassifierTask``
-    under each freeze policy, then its eval step; exact launches per step."""
+def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple(FREEZE),
+                     augment: bool = True):
+    """Phases 15 and 19: the flagship classifier step through
+    ``ClassifierTask`` under each of ``policies``, then (augmentation on)
+    its eval step; exact launches per step. Returns the launches and the
+    ms/step of each policy."""
     launches = dict.fromkeys(launch_counts(), 0)
+    step_ms = {}
     batch = flagship_images()
-    for policy in FREEZE:
-        task = classifier_task(model_cfg, train_cfg, policy, "cuda")
+    for policy in policies:
+        task = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
-        what = f"classifier step {policy}"
-        state, sums, got, _ = timed_steps(task, state, batch, name, what)
+        what = f"classifier step {policy}" + ("" if augment else " augment off")
+        state, sums, got, step_ms[policy] = timed_steps(task, state, batch, name, what)
         check_frozen(task, before, state.params, what)
         want = expected(CLS_LAUNCHES[policy], STEPS)
         if got != want:
@@ -1313,7 +1348,7 @@ def classifier_steps(model_cfg: dict, train_cfg: dict, name: str) -> dict:
         print(f"  last step: {metrics}")
         for k, v in got.items():
             launches[k] += v
-        if policy == "full":
+        if policy == "full" and augment:
             gen = torch.Generator("cuda").manual_seed(0)
             for _ in range(WARMUP):
                 task.eval_step(state, batch, gen)
@@ -1339,22 +1374,23 @@ def classifier_steps(model_cfg: dict, train_cfg: dict, name: str) -> dict:
                 launches[k] += v
         del task, state
         torch.cuda.empty_cache()
-    return launches
+    return launches, step_ms
 
 
-def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict) -> None:
-    """Phase 16: B=16, same weights and draws, kernels on the card against
-    the plain path on the CPU, under each freeze policy (the loss, every
-    trainable gradient, the frozen tensors' bits); then the eval step's
-    sums."""
+def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict, policies=tuple(FREEZE),
+                             augment: bool = True) -> None:
+    """Phases 16 and 19: B=16, same weights and draws, kernels on the card
+    against the plain path on the CPU, under each of ``policies`` (the loss,
+    every trainable gradient, the frozen tensors' bits); then (augmentation
+    on) the eval step's sums."""
     n = 16
-    for policy in FREEZE:
-        gpu = classifier_task(model_cfg, train_cfg, policy, "cuda")
-        cpu = classifier_task(model_cfg, train_cfg, policy, "cpu")
+    for policy in policies:
+        gpu = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment)
+        cpu = classifier_task(model_cfg, train_cfg, policy, "cpu", augment=augment)
         gs, cs = gpu.init_state(1), cpu.init_state(1)
         cpu.model.load_state_dict(gpu.model.state_dict())
         batch = flagship_images(1, n, "cpu")
-        if policy == "full":
+        if policy == "full" and augment:
             reset_counts()
             eg = gpu.eval_step(gs, {k: v.cuda() for k, v in batch.items()}, None)
             launched = launch_counts()
@@ -1375,7 +1411,7 @@ def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict) -> None:
         reset_counts()
         _, s_gpu = gpu.train_step(gs, {k: v.cuda() for k, v in batch.items()}, 0, None, draws)
         launched = launch_counts()
-        _, s_cpu = cpu.train_step(cs, batch, 0, None, tuple(d.cpu() for d in draws))
+        _, s_cpu = cpu.train_step(cs, batch, 0, None, on_cpu(draws))
         if launch_counts() != launched or launched != expected(CLS_LAUNCHES[policy]):
             fail(f"classifier {policy} launch counts: {launch_counts()}, expected "
                  f"{CLS_LAUNCHES[policy]} on the card and nothing on the CPU")
@@ -1713,6 +1749,369 @@ def cli_end_to_end(cfg: dict) -> dict:
         print(f"  ablation cells: {len(runs)} runs wrote their best.ckpt", flush=True)
     return total
 
+# phase 19: the lineage paths of the training step, route -> (environment,
+# augment); each runs the same branch launches per step as the main path
+# of its task (phases 4, 8 and 15)
+LINEAGE = {"augment off": ({}, False),
+           "SSRL_AUG_PATCHES=0": ({"SSRL_AUG_PATCHES": "0"}, True),
+           "SSRL_MAE_DENSE_LOSS=1": ({"SSRL_MAE_DENSE_LOSS": "1"}, True),
+           "SSRL_JEPA_DENSE_LOSS=1": ({"SSRL_JEPA_DENSE_LOSS": "1"}, True)}
+LINEAGE_ROUTES = {"mae": ("augment off", "SSRL_AUG_PATCHES=0", "SSRL_MAE_DENSE_LOSS=1"),
+                  "jepa": ("augment off", "SSRL_JEPA_DENSE_LOSS=1"),
+                  "classifier": ("augment off",)}
+LINEAGE_ENV = ("SSRL_AUG_PATCHES", "SSRL_MAE_DENSE_LOSS", "SSRL_JEPA_DENSE_LOSS")
+
+
+def lineage_env(route: str):
+    """The route's switches set and the others unset, inside the block."""
+    env, _ = LINEAGE[route]
+    return env_vars(**{k: env.get(k) for k in LINEAGE_ENV})
+
+
+def lineage_paths(cfg: dict, name: str):
+    """Phase 19: the MAE, JEPA and classifier steps on each lineage route at
+    B=768 with exact launches, then at B=16 against the plain CPU path.
+    Returns the launches and ms/step by route."""
+    model_cfg = cfg["model"]
+    launches = dict.fromkeys(launch_counts(), 0)
+    ms = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for route in LINEAGE_ROUTES["mae"]:
+        pre = {**PRE_CFG, "augment": LINEAGE[route][1]}
+        with lineage_env(route):
+            counts, ms[f"mae {route}"] = mae_step(model_cfg, name, "auto", pre_cfg=pre,
+                                                  route=route)
+            add(counts)
+            cpu_agreement(model_cfg, "auto", pre_cfg=pre, route=route)
+    for route in LINEAGE_ROUTES["jepa"]:
+        jcfg = {**cfg["jepa"], "batch_size": BATCH, "augment": LINEAGE[route][1]}
+        with lineage_env(route):
+            counts, ms[f"jepa {route}"] = jepa_step(model_cfg, jcfg, name, fused=False,
+                                                    route=route)
+            add(counts)
+            jepa_cpu_agreement(model_cfg, jcfg, route=route)
+    train_cfg = {**cfg["train"], "batch_size": BATCH}
+    with lineage_env("augment off"):
+        counts, cls_ms = classifier_steps(model_cfg, train_cfg, name, policies=("full",),
+                                          augment=False)
+        add(counts)
+        ms["classifier full augment off"] = cls_ms["full"]
+        classifier_cpu_agreement(model_cfg, train_cfg, policies=("full",), augment=False)
+    return launches, ms
+
+
+# phase 20: data parallelism on the one card
+DP_RANKS = 2
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_task(kind: str, cfg: dict):
+    """The flagship MAE or JEPA task (bf16, auto) of phases 4 and 8."""
+    if kind == "mae":
+        return MAETask(cfg["model"], PRE_CFG, dtype=torch.bfloat16, device="cuda")
+    return JEPATask(cfg["model"], {**cfg["jepa"], "batch_size": BATCH},
+                    dtype=torch.bfloat16, device="cuda")
+
+
+def dp_launches(kind: str) -> dict:
+    return mae_launches("auto") if kind == "mae" else jepa_launches(False)
+
+
+def dp_world_one(cfg: dict) -> dict:
+    """Phase 20 (a): a one-rank ``nccl`` group in this process. One MAE and
+    one JEPA step over its data axis (the global draw sliced, the loss
+    denominator, gradients and sums all-reduced) against the same step
+    without a group, from the same seed and so the same draws: params,
+    sums and EMA target bit for bit. PyTorch's deterministic algorithms are
+    on for both (the gather's backward adds overlapping JEPA target rows
+    with atomics otherwise); the kernels are deterministic as they are."""
+    import torch.distributed as dist
+
+    launches = dict.fromkeys(launch_counts(), 0)
+    batch = flagship_images()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        axis = get_data_axis()
+        for kind in ("mae", "jepa"):
+            runs = []
+            for a in (None, axis):
+                task = dp_task(kind, cfg)
+                state = task.init_state(0)
+                task.configure_sharding(a)
+                reset_counts()
+                state, sums = task.train_step(state, batch, 0, task.epoch_context(0))
+                torch.cuda.synchronize()
+                got = launch_counts()
+                if got != expected(dp_launches(kind)):
+                    fail(f"{kind} step, data axis {a}: launches {got}")
+                for k, v in got.items():
+                    launches[k] += v
+                runs.append((state, sums))
+            (s0, m0), (s1, m1) = runs
+            diff = [k for k in s0.params if not torch.equal(s0.params[k], s1.params[k])]
+            diff += [k for k in m0 if k != "lr" and not torch.equal(m0[k], m1[k])]
+            if s0.extra is not None:
+                diff += [k for k in s0.extra if not torch.equal(s0.extra[k], s1.extra[k])]
+            print(f"  {kind} step over a one-rank nccl group vs no group: {len(s0.params)} "
+                  f"params, {len(m0) - 1} sums"
+                  + ("" if s0.extra is None else f", {len(s0.extra)} EMA tensors")
+                  + f"; {len(diff)} differ", flush=True)
+            if diff:
+                fail(f"{kind}: the one-rank group's step differs from the step without a "
+                     f"group in {diff[:6]}")
+    finally:
+        torch.use_deterministic_algorithms(old)
+        dist.destroy_process_group()
+    return launches
+
+
+def dp_worker(out_dir: pathlib.Path, backend: str, timed: bool) -> None:
+    """One rank of phase 20 (b) or of ``--dp-cards``, a process of its own:
+    its rows of the global batch through one MAE and one JEPA step over a
+    ``backend`` group; the gradients of the first step (and its launches),
+    then a whole ``train_step``, and rank 0's params and EMA target
+    broadcast against its own. ``timed``: then WARMUP + STEPS steps of
+    BATCH rows on this rank (the global batch BATCH times the ranks),
+    CUDA-event ms/step after the ranks line up."""
+    if not maybe_initialize_distributed("cuda", backend=backend):
+        fail("dp worker: no process group in the environment")
+    _build.load()
+    axis = get_data_axis()
+    cfg = load_config(REPO / "configs" / "mae.yaml")
+    b = BATCH // axis.size
+    full = flagship_images()
+    batch = {k: v[axis.rank * b:(axis.rank + 1) * b] for k, v in full.items()}
+    out = {}
+    for kind in ("mae", "jepa"):
+        task = dp_task(kind, cfg)
+        state = task.init_state(0)
+        task.configure_sharding(axis)
+        ctx = task.epoch_context(0)
+        reset_counts()
+        names, grads, sums = task.gradients(state, batch, ctx)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        state, _ = task.train_step(state, batch, 0, ctx)
+        torch.cuda.synchronize()
+        both = launch_counts()
+        params = list(state.params.values())
+        extra = [] if state.extra is None else list(state.extra.values())
+        same = [torch.equal(a, b) for a, b in zip(params + extra, broadcast_from(params + extra))]
+        out[kind] = {"names": names, "grads": [g.float().cpu() for g in grads],
+                     "sums": {k: float(v) for k, v in sums.items()}, "launches": launches,
+                     "launches_with_step": both,
+                     "params_equal_rank0": all(same[:len(params)]),
+                     "extra_equal_rank0": all(same[len(params):])}
+        if timed:
+            for _ in range(WARMUP):
+                state, _ = task.train_step(state, full, 0, ctx)
+            broadcast_from([torch.zeros(1, device=full["weight"].device)])
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(STEPS):
+                state, _ = task.train_step(state, full, 0, ctx)
+            end.record()
+            torch.cuda.synchronize()
+            out[kind]["ms"] = start.elapsed_time(end) / STEPS
+        del task, state
+        torch.cuda.empty_cache()
+    torch.save(out, out_dir / f"rank{axis.rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def single_ms(task) -> float:
+    """CUDA-event ms/step of ``task`` at B=BATCH on this process's card."""
+    state = task.init_state(0)
+    batch, ctx = flagship_images(), task.epoch_context(0)
+    for _ in range(WARMUP):
+        state, _ = task.train_step(state, batch, 0, ctx)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(STEPS):
+        state, _ = task.train_step(state, batch, 0, ctx)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / STEPS
+
+
+def dp_ranks(cfg: dict, ranks: int = DP_RANKS, backend: str = "gloo",
+             shared_card: bool = True):
+    """Phase 20 (b) (``ranks`` processes sharing the card over ``gloo``:
+    ``nccl`` refuses two ranks on one device) or ``--dp-cards`` (one
+    process per card over ``nccl``): each rank takes BATCH / ranks rows of
+    the global batch, against this process's single step on the whole
+    batch: the loss within LOSS_RTOL, every gradient within STEP_GRAD_REL,
+    exact launches per rank, and rank 0's params and EMA target equal to
+    every rank's. On separate cards also the ms/step of each rank at BATCH
+    rows a rank beside this process's single-card step. Returns the ranks'
+    launches and, on separate cards, the times."""
+    import tempfile
+
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    launches = dict.fromkeys(launch_counts(), 0)
+    timed = not shared_card
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker", tmp, backend,
+             "timed" if timed else "untimed"], cwd=REPO,
+            env={**os.environ, "RANK": str(r), "WORLD_SIZE": str(ranks),
+                 "LOCAL_RANK": "0" if shared_card else str(r),
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(ranks)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"dp rank {r} exited {p.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+        print(f"  {ranks} {backend} ranks on {'one card' if shared_card else 'their cards'}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        results = [torch.load(pathlib.Path(tmp) / f"rank{r}.pt", weights_only=False)
+                   for r in range(ranks)]
+    times = {}
+    for kind in ("mae", "jepa"):
+        task = dp_task(kind, cfg)
+        state = task.init_state(0)
+        names, grads, sums = task.gradients(state, flagship_images(), task.epoch_context(0))
+        want_loss = sums["loss_sum"].item() / BATCH
+        for r, rk in enumerate(x[kind] for x in results):
+            what = f"{kind} rank {r} of {ranks}"
+            if (rk["launches"] != expected(dp_launches(kind))
+                    or rk["launches_with_step"] != expected(dp_launches(kind), 2)):
+                fail(f"{what}: launches {rk['launches']} (then {rk['launches_with_step']} "
+                     f"with the train step), expected {dp_launches(kind)} per step")
+            for k, v in rk["launches_with_step"].items():
+                launches[k] += v
+            if rk["names"] != names:
+                fail(f"{what}: trains {len(rk['names'])} tensors, the single step {len(names)}")
+            loss = rk["sums"]["loss_sum"] / BATCH
+            worst = 0.0
+            for k, a, b in zip(names, rk["grads"], grads):
+                b = b.float().cpu()
+                err = (a - b).abs().max().item()
+                lim = STEP_GRAD_REL * b.abs().max().item() + 1e-6
+                worst = max(worst, err / lim)
+                if not err <= lim:
+                    fail(f"{what} gradient {k}: max abs err {err:.3e} > {lim:.3e}")
+            print(f"  {what}: loss {loss:.6f} (single process at B={BATCH}: {want_loss:.6f}); "
+                  f"{len(names)} gradients, the worst at {worst:.3f} of its bound; params "
+                  f"equal rank 0's: {rk['params_equal_rank0']}"
+                  + (f", EMA target: {rk['extra_equal_rank0']}" if kind == "jepa" else ""),
+                  flush=True)
+            if not abs(loss - want_loss) <= LOSS_RTOL * abs(want_loss):
+                fail(f"{what}: loss {loss} vs {want_loss} (rtol {LOSS_RTOL})")
+            if not (rk["params_equal_rank0"] and rk["extra_equal_rank0"]):
+                fail(f"{what}: its params or EMA target differ from rank 0's")
+        if timed:
+            one = single_ms(task)
+            many = max(x[kind]["ms"] for x in results)
+            times[kind] = {"ranks": ranks, "single_card_ms": one, "ms_per_rank": many,
+                           "scaling": ranks * one / many}
+            print(f"  {kind}: {ranks} cards at B={BATCH} each (global {ranks * BATCH}): "
+                  f"{many:.3f} ms/step (slowest rank), {ranks * BATCH / many * 1e3:.1f} img/s; "
+                  f"one card at B={BATCH}: {one:.3f} ms/step, {BATCH / one * 1e3:.1f} img/s; "
+                  f"scaling {ranks * one / many:.2f} of {ranks}", flush=True)
+        del task, state
+        torch.cuda.empty_cache()
+    return launches, times
+
+
+def dp_cli(cfg: dict, nproc: int = 1) -> None:
+    """Phase 20 (c): ``pretrain_mae`` under ``python -m
+    torch.distributed.run --standalone --nproc_per_node nproc`` for one epoch
+    on phase 17's synthetic STL-10 at BATCH rows a rank: it joins an
+    ``nproc``-rank group and rank 0 writes its output layout."""
+    import copy
+    import tempfile
+
+    import yaml
+
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = pathlib.Path(tmp)
+        write_synthetic_stl10(tmp / "data", *CLI_DATA, seed=0, class_signal="texture")
+        c = copy.deepcopy(cfg)
+        c["pretrain"].update(batch_size=BATCH * nproc, total_epochs=1, warmup_epochs=1)
+        c["logging"].update(output_dir_base=str(tmp / "outputs"))
+        (tmp / "cfg.yaml").write_text(yaml.safe_dump(c))
+        env = {k: v for k, v in os.environ.items() if k != "SSRL_TORCH_DEVICE"}
+        env["SSRL_DATA_DIR"] = str(tmp / "data")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(nproc), "-m", f"{CLI}.training.pretrain_mae", "--config", str(tmp / "cfg.yaml"),
+             "--output_dir_suffix", "dp"], cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=600)
+        print(f"  torch.distributed.run pretrain_mae: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if proc.returncode != 0:
+            fail(f"pretrain_mae under torch.distributed.run exited {proc.returncode}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        if f"Data parallel: rank 0 of {nproc} on cuda:0" not in proc.stdout:
+            fail(f"pretrain_mae under torch.distributed.run joined no group\n{proc.stdout[-2000:]}")
+        run = tmp / "outputs" / "pretrain" / "dp"
+        check_files(run, CLI_FILES + ("vit-mae.pt",))
+        lines = [json.loads(x) for x in (run / "metrics.jsonl").read_text().split("\n") if x]
+        print(f"  its metrics.jsonl: {lines[-1]}", flush=True)
+        if not (len(lines) == 1 and math.isfinite(lines[0]["train_loss"])):
+            fail(f"pretrain_mae under torch.distributed.run: metrics {lines}")
+
+
+def data_parallel(cfg: dict) -> dict:
+    """Phase 20: (a), (b) and (c) above; returns the launches of (a) and (b)."""
+    launches = dp_world_one(cfg)
+    for k, v in dp_ranks(cfg)[0].items():
+        launches[k] += v
+    dp_cli(cfg)
+    return launches
+
+
+def dp_cards(n: int) -> None:
+    """``python3 chip_smoke.py --dp-cards N`` on a host with N cards: the
+    build, then phase 20 (b) with one process per card over ``nccl`` (the
+    ranks against this process's step on card 0, then each rank's ms/step
+    at BATCH rows beside the single card's) and (c) with N processes."""
+    if torch.cuda.device_count() < n:
+        fail(f"--dp-cards {n}: {torch.cuda.device_count()} cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"cards: {card()} x {torch.cuda.device_count()}", flush=True)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = load_config(REPO / "configs" / "mae.yaml")
+    launches, times = dp_ranks(cfg, n, "nccl", shared_card=False)
+    dp_cli(cfg, nproc=n)
+    print(json.dumps({"dp_cards": times, "launches": launches}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1761,9 +2160,9 @@ def main() -> None:
               "kernels vs plain CPU path", flush=True)
         cpu_agreement(model_cfg, impl)
     print("phase 8: JEPA pretraining step, attn_impl=auto", flush=True)
-    add(jepa_step(model_cfg, jepa_cfg, name, fused=False))
+    add(jepa_step(model_cfg, jepa_cfg, name, fused=False)[0])
     print("phase 9: JEPA and MAE steps with SSRL_FUSED_EMBED=1", flush=True)
-    add(jepa_step(model_cfg, jepa_cfg, name, fused=True))
+    add(jepa_step(model_cfg, jepa_cfg, name, fused=True)[0])
     add(mae_step(model_cfg, name, "auto", fused=True)[0])
     print("phase 10: B=16 JEPA step, kernels vs plain CPU path", flush=True)
     jepa_cpu_agreement(model_cfg, jepa_cfg)
@@ -1775,12 +2174,12 @@ def main() -> None:
     for phase, impl in ((13, "block"), (14, "chain")):
         print(f"phase {phase}: JEPA pretraining step, attn_impl={impl}, then B=16 "
               "kernels vs plain CPU path", flush=True)
-        add(jepa_step(model_cfg, jepa_cfg, name, fused=False, impl=impl))
+        add(jepa_step(model_cfg, jepa_cfg, name, fused=False, impl=impl)[0])
         jepa_cpu_agreement(model_cfg, jepa_cfg, impl)
     train_cfg = {**cfg["train"], "batch_size": BATCH}
     print("phase 15: classifier step (full fine-tune, probe, unfreeze 2) and eval step, "
           "attn_impl=auto", flush=True)
-    add(classifier_steps(model_cfg, train_cfg, name))
+    add(classifier_steps(model_cfg, train_cfg, name)[0])
     print("phase 16: B=16 classifier steps and eval step, kernels vs plain CPU path",
           flush=True)
     classifier_cpu_agreement(model_cfg, train_cfg)
@@ -1790,6 +2189,14 @@ def main() -> None:
     print("phase 18: the CLIs on the card: pretrain, probe, evaluate, JEPA, k-NN, features, "
           "reconstruction, ablation cells", flush=True)
     add(cli_end_to_end(cfg))
+    print("phase 19: the lineage paths: MAE (augment off, SSRL_AUG_PATCHES=0, dense loss), "
+          "JEPA (augment off, dense loss), classifier full fine-tune (augment off)", flush=True)
+    counts, lineage_ms = lineage_paths(cfg, name)
+    add(counts)
+    print(json.dumps({"lineage_ms": lineage_ms}), flush=True)
+    print("phase 20: data parallelism on the card: a one-rank nccl group, two gloo ranks, "
+          "pretrain_mae under torch.distributed.run", flush=True)
+    add(data_parallel(cfg))
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]
@@ -1823,4 +2230,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(pathlib.Path(sys.argv[2]), sys.argv[3], sys.argv[4] == "timed")
+    elif sys.argv[1:2] == ["--dp-cards"]:
+        dp_cards(int(sys.argv[2]))
+    else:
+        main()

@@ -14,7 +14,9 @@ Port of ``ssrl_vit_mae_jepa_tpu/data/pipeline.py``:
   batch, and ``record_stream`` keeps the batch's memory from being reused
   while the consumer's work on it is queued. On the CPU the batches are
   handed over as tensors. The bounded-put and sentinel rules of the JAX
-  prefetcher (``:85-169``) hold as they are.
+  prefetcher (``:85-169``) hold as they are. Under data parallelism each
+  rank passes its own card (``cuda:LOCAL_RANK``, the task's device) and
+  its loader's shard: a rank's batches never leave its card.
 """
 
 from __future__ import annotations

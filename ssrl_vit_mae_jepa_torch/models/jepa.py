@@ -16,6 +16,8 @@ the STL-10 tiny-ViT geometry):
 Parameter names: ``encoder.*`` (the ViT's timm names), ``predictor.*``
 (lightly's decoder names minus ``decoder_pred``) and ``predictor_proj.*``.
 Target indices repeat where blocks overlap; the gather's backward sums them.
+``predict_dense`` and ``target_representations_dense`` (the
+``SSRL_JEPA_DENSE_LOSS=1`` route) skip both gathers and return every token.
 """
 
 from __future__ import annotations
@@ -63,16 +65,36 @@ class JEPA(nn.Module):
         """Context encoder over CLS + context tokens."""
         return self.encoder(images, idx_ctx_tokens)
 
-    def predict_targets(self, x_ctx, idx_ctx_tokens, idx_target_tokens) -> torch.Tensor:
-        """Predicted target latents (B, T, D) from the encoded context."""
+    def _decode(self, x_ctx, idx_ctx_tokens) -> torch.Tensor:
+        """The predictor's blocks over the mask-token sequence with the
+        context scattered in: (B, L, Dp), before its norm."""
         p = self.predictor
         x = p.embed(x_ctx)
         seq = repeat_token(p.mask_token.to(self.dtype), (x_ctx.shape[0], self.sequence_length))
         seq = set_at_index(seq, idx_ctx_tokens, x.to(seq.dtype))
-        decoded = p.decode_tokens(seq)
+        return p.decode_tokens(seq)
+
+    def predict_targets(self, x_ctx, idx_ctx_tokens, idx_target_tokens) -> torch.Tensor:
+        """Predicted target latents (B, T, D) from the encoded context."""
+        decoded = self._decode(x_ctx, idx_ctx_tokens)
         # gather-then-norm: LN is per token, so norm only the target rows
-        pred = p.norm(get_at_index(decoded, idx_target_tokens))
+        pred = self.predictor.norm(get_at_index(decoded, idx_target_tokens))
         return dense(pred, self.predictor_proj, self.dtype)
+
+    def predict_dense(self, images, idx_ctx_tokens) -> torch.Tensor:
+        """Predicted latents of every token (B, L, D), no target gather
+        (``models/jepa.py:110-136`` of the JAX package): the task weights
+        the latent error by the targets' occupancy, so the non-target rows
+        get no gradient; the predictor's norm and projection run over all
+        L rows."""
+        decoded = self._decode(self.encode_context(images, idx_ctx_tokens), idx_ctx_tokens)
+        return dense(self.predictor.norm(decoded), self.predictor_proj, self.dtype)
+
+    def target_representations_dense(self, encoder_params: Dict[str, torch.Tensor],
+                                      images) -> torch.Tensor:
+        """Full-sequence representations (B, L, D) under ``encoder_params``,
+        ungathered."""
+        return torch.func.functional_call(self.encoder, encoder_params, (images,))
 
     def forward(self, images, idx_ctx_tokens, idx_target_tokens) -> torch.Tensor:
         """Context side: images (B, H, W, C) or patch tokens (B, N, p·p·C)
@@ -84,7 +106,7 @@ class JEPA(nn.Module):
                                idx_target_tokens) -> torch.Tensor:
         """Full-sequence encode with ``encoder_params`` (the EMA weights, by
         the encoder's own names), then gather the target tokens."""
-        tokens = torch.func.functional_call(self.encoder, encoder_params, (images,))
+        tokens = self.target_representations_dense(encoder_params, images)
         return get_at_index(tokens, idx_target_tokens)
 
 

@@ -7,7 +7,8 @@ token over the full sequence, scatters the encoded tokens back at
 ``idx_keep``, adds its position embedding, runs its blocks, gathers the
 ``idx_mask`` rows, norms them and predicts pixels. Targets are the patch
 tokens at ``clamp(idx_mask - 1, 0)`` (the CLS offset; index 0 is never
-masked, quirk Q7).
+masked, quirk Q7). ``forward_dense`` (the ``SSRL_MAE_DENSE_LOSS=1`` route)
+predicts every token instead and leaves the masking to the loss's weights.
 
 The module tree is lightly's, so ``state_dict()`` names match the
 reference's ``vit-mae.pt``: ``encoder.vit.*``, the encoder's unused
@@ -123,17 +124,37 @@ class MaskedAutoencoder(nn.Module):
     def forward_encoder(self, images, idx_keep=None) -> torch.Tensor:
         return self.encoder.vit(images, idx_keep)
 
-    def forward_decoder(self, x_encoded, idx_keep, idx_mask) -> torch.Tensor:
+    def decode(self, x_encoded, idx_keep) -> torch.Tensor:
+        """The decoder's blocks over the mask-token sequence with the encoded
+        tokens scattered in at ``idx_keep``: (B, L, Dd), before its norm."""
         dec = self.decoder
         x_decode = dec.embed(x_encoded)
         x_masked = repeat_token(
             dec.mask_token.to(self.dtype), (x_encoded.shape[0], self.sequence_length)
         )
         x_masked = set_at_index(x_masked, idx_keep, x_decode.to(x_masked.dtype))
-        x_decoded = dec.decode_tokens(x_masked)
+        return dec.decode_tokens(x_masked)
+
+    def forward_decoder(self, x_encoded, idx_keep, idx_mask) -> torch.Tensor:
+        dec = self.decoder
+        x_decoded = self.decode(x_encoded, idx_keep)
         # gather-then-norm: LN is per token, so norm only the masked rows
         x_pred = dec.norm(get_at_index(x_decoded, idx_mask))
         return dec.predict(x_pred)
+
+    def forward_dense(self, images: torch.Tensor, idx_keep: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every token predicted, no masked-row gather: ``(pred, target)`` with
+        pred (B, L, p·p·C), row 0 the CLS position, and target the (B, N,
+        p·p·C) patches. The task weights the squared error by the masked
+        tokens' occupancy, which gives the gathered loss and gradients
+        (``models/mae.py:189-224`` of the JAX package); the decoder's norm
+        and pixel head run over all L rows instead of the masked ones."""
+        x_encoded = self.forward_encoder(images, idx_keep)
+        dec = self.decoder
+        x_pred = dec.predict(dec.norm(self.decode(x_encoded, idx_keep)))
+        target = images if images.dim() == 3 else patchify(images, self.patch_size)
+        return x_pred, target
 
     def forward(self, images: torch.Tensor, idx_keep: torch.Tensor,
                 idx_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

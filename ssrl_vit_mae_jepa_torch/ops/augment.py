@@ -1,7 +1,7 @@
 """On-device image augmentation: random-resized-crop, flip and normalize,
-fused with patchify; and the eval transform.
+as images or fused with patchify; and the eval transform.
 
-Port of ``ssrl_vit_mae_jepa_tpu/ops/augment.py:35-205`` and ``:226-249``. The bilinear crop
+Port of ``ssrl_vit_mae_jepa_tpu/ops/augment.py`` (all of it). The bilinear crop
 resample is two batched contractions against per-image weight matrices
 (each row has at most two nonzeros), with the horizontal flip folded into
 the source coordinates. Crop semantics follow torchvision's
@@ -72,6 +72,45 @@ def _crop_resize_cols(images, tops, lefts, hs, ws, out_hw: Tuple[int, int],
     # contract W as one batched product: (B, out_h·C, W) @ (B, W, out_w)
     rows = rows.transpose(2, 3).reshape(B, out_h * C, W)
     return torch.bmm(rows, wx.transpose(1, 2)).reshape(B, out_h, C, out_w)
+
+
+def _crop_resize_batch(images, tops, lefts, hs, ws, out_hw: Tuple[int, int],
+                       flip_x=None) -> torch.Tensor:
+    """(B, H, W, C) f32 → (B, out_h, out_w, C) bilinear crop resample."""
+    cols = _crop_resize_cols(images, tops, lefts, hs, ws, out_hw, flip_x)
+    return cols.permute(0, 1, 3, 2)
+
+
+def apply_augment(
+    u: torch.Tensor,
+    flip: torch.Tensor,
+    images_u8: torch.Tensor,
+    out_size: int = 96,
+    scale: Tuple[float, float] = (0.8, 1.0),
+    ratio: Tuple[float, float] = DEFAULT_RATIO,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """uint8 (B, H, W, C) → augmented (B, out, out, C) images in [-1, 1]
+    (the image-space train transform, ``SSRL_AUG_PATCHES=0``)."""
+    _, H, W, _ = images_u8.shape
+    images = normalize(images_u8, dtype=torch.float32)
+    tops, lefts, hs, ws = _crop_box_from_u(u, H, W, scale, ratio)
+    out = _crop_resize_batch(images, tops, lefts, hs, ws, (out_size, out_size), flip_x=flip)
+    return out.to(dtype).contiguous()
+
+
+def random_resized_crop_flip_normalize(
+    generator: torch.Generator,
+    images_u8: torch.Tensor,
+    out_size: int = 96,
+    scale: Tuple[float, float] = (0.8, 1.0),
+    ratio: Tuple[float, float] = DEFAULT_RATIO,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Draw ``(u, flip)`` from ``generator``, then :func:`apply_augment`."""
+    u, flip = draw_augment_params(generator, images_u8.shape[0])
+    return apply_augment(u, flip, images_u8, out_size=out_size, scale=scale, ratio=ratio,
+                         dtype=dtype)
 
 
 def apply_augment_patches(

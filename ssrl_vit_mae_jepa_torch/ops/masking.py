@@ -56,6 +56,14 @@ def set_at_index(
     return torch.scatter(tokens, 1, _expand(index, tokens.shape[-1]), value)
 
 
+def token_occupancy(index: torch.Tensor, length: int) -> torch.Tensor:
+    """(B, K) token indices → (B, length) f32 counts: how often each token
+    is indexed (the JAX one-hot sum, ``one_hot(index, length).sum(1)``)."""
+    occ = torch.zeros(index.shape[0], length, dtype=torch.float32, device=index.device)
+    return occ.scatter_add_(1, index, torch.ones(index.shape, dtype=torch.float32,
+                                                 device=index.device))
+
+
 def repeat_token(token: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Broadcast a (1, 1, D) token to (B, L, D)."""
     B, L = size

@@ -7,7 +7,8 @@ loaders read the pretrain section with ``cfg["jepa"]`` merged over it
 (``pretrain_jepa.py:50-52``). Two files at the end: the context encoder
 under timm names as ``<out>/<logging.jepa_model_path>`` (``vit-jepa.pt``),
 which ``train_mae --encoder_ckpt`` takes as it is, and ``jepa_state.ckpt``,
-the parameters with the EMA target (``pretrain_jepa.py:76-90``).
+the parameters with the EMA target (``pretrain_jepa.py:76-90``). Data
+parallel under ``torch.distributed.run`` as ``pretrain_mae``.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from ssrl_vit_mae_jepa_torch.parallel.multihost import is_main_process
 from ssrl_vit_mae_jepa_torch.scripts.utils import (
     check_ckpt_backend,
     device,
+    init_distributed,
     setup_reproducibility,
     shut_down_warnings,
 )
@@ -34,6 +37,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    init_distributed()
     shut_down_warnings()
     setup_reproducibility(seed=73)
 
@@ -53,8 +57,9 @@ def main(argv=None):
     dev = device()
 
     output_dir = Path(log_cfg["output_dir_base"]) / "pretrain" / args.output_dir_suffix
-    (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-    print(f"Saved config snapshot to: {save_config_snapshot(cfg, output_dir)}")
+    if is_main_process():  # rank 0 writes every file
+        (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+        print(f"Saved config snapshot to: {save_config_snapshot(cfg, output_dir)}")
 
     # the unlabeled-split loaders, with the jepa section's batch, fraction
     # and val_split over the pretrain section's
@@ -72,20 +77,21 @@ def main(argv=None):
     )
     trainer.fit(train_loader, val_loader, resume_from=args.resume_from)
 
-    state = trainer.task.model.state_dict()
-    model_path = export_reference_weights(
-        output_dir / log_cfg.get("jepa_model_path", "vit-jepa.pt"),
-        strip_prefix(state, "encoder."))
-    save_checkpoint(
-        output_dir / "jepa_state.ckpt",
-        {"state_dict": {f"model.{k}": v.detach().cpu() for k, v in state.items()},
-         "extra": {k: v.detach().cpu() for k, v in trainer.state.extra.items()}},
-        {"kind": "jepa_weights", "hyper_parameters": trainer.hyper_parameters,
-         "weights_only": True})
-    print("\nJEPA pretraining complete")
-    print(f"Model weights saved to: {model_path}")
-    print(f"Best checkpoint: {trainer.callbacks.best_path}")
-    print(f"Logs available at: {trainer.logger.jsonl_path}")
+    if is_main_process():
+        state = trainer.task.model.state_dict()
+        model_path = export_reference_weights(
+            output_dir / log_cfg.get("jepa_model_path", "vit-jepa.pt"),
+            strip_prefix(state, "encoder."))
+        save_checkpoint(
+            output_dir / "jepa_state.ckpt",
+            {"state_dict": {f"model.{k}": v.detach().cpu() for k, v in state.items()},
+             "extra": {k: v.detach().cpu() for k, v in trainer.state.extra.items()}},
+            {"kind": "jepa_weights", "hyper_parameters": trainer.hyper_parameters,
+             "weights_only": True})
+        print("\nJEPA pretraining complete")
+        print(f"Model weights saved to: {model_path}")
+        print(f"Best checkpoint: {trainer.callbacks.best_path}")
+        print(f"Logs available at: {trainer.logger.jsonl_path}")
     return trainer
 
 

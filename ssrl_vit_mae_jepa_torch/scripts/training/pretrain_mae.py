@@ -6,7 +6,9 @@ Flags ``--config / --resume_from / --output_dir_suffix``; output layout
 config.yaml}``; best-by-val_loss and last checkpoints every epoch,
 weights-only ``epoch-NNN.ckpt`` every 25 epochs; the weights as the
 reference's ``torch.save`` state dict at ``<out>/<logging.model_path>``.
-Runs on ``scripts/utils.py::device()``.
+Runs on ``scripts/utils.py::device()``; under ``python -m
+torch.distributed.run --nproc_per_node N`` it trains data-parallel on N
+cards (``init_distributed``), and rank 0 writes every file.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from ssrl_vit_mae_jepa_torch.parallel.multihost import is_main_process
 from ssrl_vit_mae_jepa_torch.scripts.utils import (
     check_ckpt_backend,
     device,
+    init_distributed,
     setup_reproducibility,
     shut_down_warnings,
 )
@@ -36,6 +40,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    init_distributed()
     shut_down_warnings()
     setup_reproducibility(seed=73)
 
@@ -53,8 +58,9 @@ def main(argv=None):
     dev = device()
 
     output_dir = Path(log_cfg["output_dir_base"]) / "pretrain" / args.output_dir_suffix
-    (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-    print(f"Saved config snapshot to: {save_config_snapshot(cfg, output_dir)}")
+    if is_main_process():  # rank 0 writes every file
+        (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+        print(f"Saved config snapshot to: {save_config_snapshot(cfg, output_dir)}")
 
     train_loader, val_loader = get_pretrain_dataloaders(cfg)
     trainer = Trainer(
@@ -68,12 +74,13 @@ def main(argv=None):
     )
     trainer.fit(train_loader, val_loader, resume_from=args.resume_from)
 
-    model_path = export_reference_weights(output_dir / log_cfg["model_path"],
-                                          trainer.task.model.state_dict())
-    print("\nPretraining complete")
-    print(f"Model weights saved to: {model_path}")
-    print(f"Best checkpoint: {trainer.callbacks.best_path}")
-    print(f"Logs available at: {trainer.logger.jsonl_path}")
+    if is_main_process():
+        model_path = export_reference_weights(output_dir / log_cfg["model_path"],
+                                              trainer.task.model.state_dict())
+        print("\nPretraining complete")
+        print(f"Model weights saved to: {model_path}")
+        print(f"Best checkpoint: {trainer.callbacks.best_path}")
+        print(f"Logs available at: {trainer.logger.jsonl_path}")
     return trainer
 
 

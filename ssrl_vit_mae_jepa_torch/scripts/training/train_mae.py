@@ -8,6 +8,7 @@ ViT such as the JEPA CLI's ``vit-jepa.pt``); neither is the random-init
 baseline. Then the freeze policy, by the precedence ``unfreeze_last_layers >
 freeze_encoder > unfreeze`` (``train_mae.py:88-98``); the best checkpoint
 follows max ``val_acc``; the weights go to ``<out>/<logging.model_path>``.
+Data parallel under ``torch.distributed.run`` as ``pretrain_mae``.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from ssrl_vit_mae_jepa_torch.parallel.multihost import is_main_process
 from ssrl_vit_mae_jepa_torch.scripts.utils import (
     check_ckpt_backend,
     device,
+    init_distributed,
     setup_reproducibility,
     shut_down_warnings,
 )
@@ -53,6 +56,7 @@ def apply_freeze_policy(task, train_cfg: dict) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
+    init_distributed()
     shut_down_warnings()
     setup_reproducibility(seed=73)
 
@@ -76,8 +80,9 @@ def main(argv=None):
     depth = model_cfg["encoder"]["depth"]
 
     output_dir = Path(log_cfg["output_dir_base"]) / "train" / args.output_dir_suffix
-    (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-    print(f"Saved config snapshot to: {save_config_snapshot(cfg, output_dir)}")
+    if is_main_process():  # rank 0 writes every file
+        (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+        print(f"Saved config snapshot to: {save_config_snapshot(cfg, output_dir)}")
 
     train_loader, val_loader = get_train_dataloaders(cfg)
 
@@ -108,12 +113,13 @@ def main(argv=None):
     trainer.init_state(params_override)
     trainer.fit(train_loader, val_loader)
 
-    model_path = export_reference_weights(output_dir / log_cfg["model_path"],
-                                          trainer.task.model.state_dict())
-    print("\nTraining complete")
-    print(f"Model weights saved to: {model_path}")
-    print(f"Best checkpoint: {trainer.callbacks.best_path}")
-    print(f"Logs available at: {trainer.logger.jsonl_path}")
+    if is_main_process():
+        model_path = export_reference_weights(output_dir / log_cfg["model_path"],
+                                              trainer.task.model.state_dict())
+        print("\nTraining complete")
+        print(f"Model weights saved to: {model_path}")
+        print(f"Best checkpoint: {trainer.callbacks.best_path}")
+        print(f"Logs available at: {trainer.logger.jsonl_path}")
     return trainer
 
 

@@ -1,10 +1,14 @@
 """Shared CLI helpers (port of ``scripts/utils.py``).
 
 - ``device()``: the one place the CLIs read their device,
-  ``$SSRL_TORCH_DEVICE`` (``cuda`` by default, or ``cpu``). With ``cuda``
+  ``$SSRL_TORCH_DEVICE`` (``cuda`` by default, or ``cpu``); under a process
+  group the card is the rank's own, ``cuda:LOCAL_RANK``. With ``cuda``
   asked and no card present it raises at once: a CLI never carries on on
   the CPU unless the caller asks for it. The ablation drivers pass the
   variable on to their subprocesses with the rest of the environment.
+- ``init_distributed()``: the training CLIs' first call; it joins the
+  process group that ``python -m torch.distributed.run`` (or the
+  ``SSRL_COORDINATOR`` variables) describe, on the device kind above.
 - ``setup_reproducibility(seed)``: seeds torch and returns an explicit
   ``torch.Generator`` (the JAX helper returns a PRNG key). Nothing runs at
   import: each CLI calls it from ``main``.
@@ -26,8 +30,8 @@ DEVICE_ENV = "SSRL_TORCH_DEVICE"
 DEVICES = ("cuda", "cpu")
 
 
-def device() -> str:
-    """The CLIs' device: ``$SSRL_TORCH_DEVICE``, ``cuda`` unless set."""
+def device_type() -> str:
+    """``$SSRL_TORCH_DEVICE``, ``cuda`` unless set."""
     name = os.environ.get(DEVICE_ENV, "cuda")
     if name not in DEVICES:
         raise ValueError(f"{DEVICE_ENV}={name!r}: expected one of {DEVICES}")
@@ -36,6 +40,32 @@ def device() -> str:
             f"no CUDA device: the port's CLIs run on the card by default; set "
             f"{DEVICE_ENV}=cpu to run them on the CPU")
     return name
+
+
+def device() -> str:
+    """The CLIs' device: :func:`device_type`, the rank's own card
+    ``cuda:LOCAL_RANK`` under a process group."""
+    from ssrl_vit_mae_jepa_torch.parallel.multihost import is_initialized, local_rank
+
+    name = device_type()
+    if name == "cuda" and is_initialized():
+        return f"cuda:{local_rank()}"
+    return name
+
+
+def init_distributed() -> bool:
+    """Join the process group the environment describes, if any
+    (``parallel/multihost.py::maybe_initialize_distributed``)."""
+    from ssrl_vit_mae_jepa_torch.parallel.multihost import (
+        maybe_initialize_distributed,
+        rank,
+        world_size,
+    )
+
+    if not maybe_initialize_distributed(device_type()):
+        return False
+    print(f"Data parallel: rank {rank()} of {world_size()} on {device()}", flush=True)
+    return True
 
 
 def setup_reproducibility(seed: int = 73) -> torch.Generator:

@@ -1,10 +1,15 @@
 """JEPA pretraining task: EMA target encoder + latent predictor.
 
-Port of ``ssrl_vit_mae_jepa_tpu/training/jepa_task.py:32-304``, gathered
-loss only. The conventions are MAE's: AdamW at lr·batch/256, warmup×cosine
-per epoch, grad clip 1.0. A step draws the augmentation, then the I-JEPA
-masks (``ops/jepa_masking.py``) from ``state.generator``; the predictor's
-latents at the target tokens are held to the EMA target encoder's by MSE.
+Port of ``ssrl_vit_mae_jepa_tpu/training/jepa_task.py:32-304``. The
+conventions are MAE's: AdamW at lr·batch/256, warmup×cosine per epoch, grad
+clip 1.0. A step draws the augmentation (when ``augment`` is on), then the
+I-JEPA masks (``ops/jepa_masking.py``) from ``state.generator``; the
+predictor's latents at the target tokens are held to the EMA target
+encoder's by MSE. Under ``SSRL_JEPA_DENSE_LOSS=1`` (read at construction)
+both towers return every token and the error is weighted by the targets'
+occupancy instead (``JEPA.predict_dense``): the same loss, gradients and
+collapse metrics, overlapping target blocks counted twice as the gathered
+rows count them.
 
 The target encoder's weights live in ``state.extra`` by the encoder's own
 names. They run under ``torch.no_grad()`` through
@@ -12,11 +17,10 @@ names. They run under ``torch.no_grad()`` through
 optimizer or the clip norm, and after every optimizer step they move toward
 the context encoder: ``t·m + p·(1 - m)`` in f32, with the momentum ``m``
 annealed per step once the trainer gives the epoch length
-(``on_fit_start``) and per epoch until then.
-
-Not ported: the dense-loss switch ``SSRL_JEPA_DENSE_LOSS=1``
-(``JEPA.predict_dense``) and the un-augmented path; both raise
-``NotImplementedError``.
+(``on_fit_start``) and per epoch until then. Under data parallelism the
+collapse metrics' moments are summed over the ranks before the std is
+taken (``_gsum`` of the JAX task), and the EMA, computed from the
+all-reduced update, stays the same on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import torch
 
 from ssrl_vit_mae_jepa_torch.models.jepa import jepa_from_config
 from ssrl_vit_mae_jepa_torch.ops.jepa_masking import sample_jepa_masks
+from ssrl_vit_mae_jepa_torch.ops.masking import token_occupancy
+from ssrl_vit_mae_jepa_torch.parallel.mesh import all_reduce_sum
 from ssrl_vit_mae_jepa_torch.training.schedules import (
     effective_pretrain_lr,
     ema_momentum_at_step,
@@ -43,10 +49,6 @@ class JEPATask(Task):
     def __init__(self, model_cfg: dict, jepa_cfg: dict, dtype=torch.bfloat16,
                  device="cuda", attn_impl: str = "auto", augment: Optional[bool] = None):
         super().__init__(device)
-        if os.environ.get("SSRL_JEPA_DENSE_LOSS", "0") == "1":
-            raise NotImplementedError(
-                "the dense JEPA loss (SSRL_JEPA_DENSE_LOSS=1) is not ported yet "
-                "(ROADMAP queue 1 item 15)")
         self.model = jepa_from_config(model_cfg, jepa_cfg, dtype=dtype, attn_impl=attn_impl)
         base = float(jepa_cfg.get("base_learning_rate", 1.5e-4))
         self.batch_size = int(jepa_cfg.get("batch_size", 512))
@@ -56,8 +58,7 @@ class JEPATask(Task):
         self.total_epochs = int(jepa_cfg.get("total_epochs", 200))
         self.grad_clip = 1.0
         self.augment = bool(jepa_cfg.get("augment", True)) if augment is None else augment
-        if not self.augment:
-            raise NotImplementedError("the un-augmented JEPA path is not ported yet")
+        self.dense_loss = os.environ.get("SSRL_JEPA_DENSE_LOSS", "0") == "1"
         self.ema_start = float(jepa_cfg.get("ema_start", 0.996))
         self.ema_end = float(jepa_cfg.get("ema_end", 1.0))
         # set by on_fit_start; until then the momentum anneals per epoch
@@ -102,31 +103,52 @@ class JEPATask(Task):
         idx_ctx = self._ctx_tokens(c_idx)
         idx_tgt = t_idx + 1
         w = batch["weight"]
-        pred = self.model(images, idx_ctx, idx_tgt)
-        with torch.no_grad():
-            target = self.model.target_representations(extra, images, idx_tgt)
-        predf, targf = pred.float(), target.float()
-        per_ex = torch.mean((predf - targf) ** 2, dim=(1, 2))
+        T = idx_tgt.shape[1]
+        mask = None
+        if self.dense_loss:
+            pred = self.model.predict_dense(images, idx_ctx)
+            with torch.no_grad():
+                target = self.model.target_representations_dense(extra, images)
+            predf, targf = pred.float(), target.float()
+            # (B, L) counts of each token among the targets: overlapping
+            # blocks count twice, exactly the gathered rows' multiset
+            mask = token_occupancy(idx_tgt, self.sequence_length)
+            diff = predf - targf
+            per_ex = torch.sum(diff * diff * mask[:, :, None], dim=(1, 2)) / (
+                T * predf.shape[-1])
+        else:
+            pred = self.model(images, idx_ctx, idx_tgt)
+            with torch.no_grad():
+                target = self.model.target_representations(extra, images, idx_tgt)
+            predf, targf = pred.float(), target.float()
+            per_ex = torch.mean((predf - targf) ** 2, dim=(1, 2))
         loss_sum, weight_sum = _weighted(per_ex, w)
-        loss = loss_sum / torch.clamp_min(weight_sum, 1.0)
+        loss = loss_sum / self._loss_den(weight_sum)
         sums = {"loss_sum": loss_sum, "weight_sum": weight_sum}
-        sums.update(self._collapse_sums(predf.detach(), targf, w, weight_sum.detach()))
+        sums.update(self._collapse_sums(predf.detach(), targf, w, weight_sum.detach(), mask))
         return loss, sums
 
-    @staticmethod
     @torch.no_grad()
-    def _collapse_sums(predf, targf, w, weight_sum):
+    def _collapse_sums(self, predf, targf, w, weight_sum, mask=None):
         """Collapse diagnostics as weighted sums (``jepa_task.py:171-231``):
-        the mean over dims of the weighted std of the (B·T, D) predictor
+        the mean over dims of the weighted std of the (B·M, D) predictor
         outputs and target representations, from the moments
-        ``s2/tot - mu²``, and the weighted mean row-wise cosine."""
+        ``s2/tot - mu²`` summed over every rank, and the weighted mean
+        row-wise cosine. The rows weigh their example's weight; on the dense
+        route all L rows, each also times its target occupancy."""
         Bc, M, D = predf.shape
-        rows_w = w.float().repeat_interleave(M)
-        tot = torch.clamp_min(torch.sum(rows_w), 1e-9)
+        if mask is None:
+            rows_w = w.float().repeat_interleave(M)
+        else:
+            rows_w = (mask * w.float()[:, None]).reshape(-1)
 
         def wstd(x):
+            tot = torch.sum(rows_w)[None]
             s1 = torch.sum(x * rows_w[:, None], dim=0)
             s2 = torch.sum(x * x * rows_w[:, None], dim=0)
+            if self.axis is not None:
+                tot, s1, s2 = all_reduce_sum([tot, s1, s2])
+            tot = torch.clamp_min(tot, 1e-9)
             mu = s1 / tot
             var = s2 / tot - mu * mu
             return torch.mean(torch.sqrt(torch.clamp_min(var, 0.0)))
@@ -134,7 +156,8 @@ class JEPATask(Task):
         p2, t2 = predf.reshape(Bc * M, D), targf.reshape(Bc * M, D)
         dot = torch.sum(p2 * t2, dim=-1)
         norm = torch.linalg.vector_norm(p2, dim=-1) * torch.linalg.vector_norm(t2, dim=-1)
-        cos = torch.sum(dot / torch.clamp_min(norm, 1e-9) * rows_w) / tot
+        cos = (torch.sum(dot / torch.clamp_min(norm, 1e-9) * rows_w)
+               / torch.clamp_min(torch.sum(rows_w), 1e-9))
         return {
             "pred_std_sum": wstd(p2) * weight_sum,
             "target_std_sum": wstd(t2) * weight_sum,

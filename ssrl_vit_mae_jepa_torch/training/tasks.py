@@ -1,21 +1,31 @@
 """Training tasks: the objective, the optimizer, the train and eval steps.
 
 Port of ``ssrl_vit_mae_jepa_tpu/training/tasks.py``: ``Task.train_step`` is
-``Task._local_train_step`` (:317-358) on one device, ``Task.eval_step`` the
-eval step (:360-384), ``ClassifierTask`` (:394-477) the supervised stage
-with its freeze policies, and ``MAETask`` (:480-589) the gathered-loss MAE
-objective. A train step draws its randomness from ``state.generator``
-(augmentation first, then the task's draws), applies the fused
-augment+patchify, computes the weighted loss and the gradients of the
-trainable parameters, and takes one clipped AdamW step at the epoch's
-learning rate. An eval step runs under ``torch.no_grad()`` on
-``eval_transform`` images (B, H, W, C) and draws the task's masks from the
-generator it is given. The draws can be injected instead, so tests can
-feed the JAX package's.
+``Task._local_train_step`` (:317-358), ``Task.eval_step`` the eval step
+(:360-384), ``ClassifierTask`` (:394-477) the supervised stage with its
+freeze policies, and ``MAETask`` (:480-589) the MAE objective, gathered or
+dense (``SSRL_MAE_DENSE_LOSS=1``). A train step draws its randomness from
+``state.generator`` (the augmentation's first when augmentation is on,
+then the task's), makes the train images (:169-188: the fused
+augment+patchify, the augmented images under ``SSRL_AUG_PATCHES=0``, or
+``eval_transform`` with augmentation off), computes the weighted loss and
+the gradients of the trainable parameters, and takes one clipped AdamW
+step at the epoch's learning rate. An eval step runs under
+``torch.no_grad()`` on ``eval_transform`` images (B, H, W, C) and draws the
+task's masks from the generator it is given. The draws can be injected
+instead, so tests can feed the JAX package's.
+
+Data parallelism (:65-132): with a data axis (``configure_sharding``, set
+by the trainer from the default process group) every rank draws at the
+global batch size from the same generator and keeps its own rows, divides
+its loss by the global weight sum, and all-reduces by sum its gradients
+before the clip and its metric sums, so that N ranks take the step one
+card takes on the whole batch.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -24,11 +34,17 @@ import torch.nn.functional as F
 from ssrl_vit_mae_jepa_torch.models.classifier import classifier_from_config
 from ssrl_vit_mae_jepa_torch.models.mae import mae_from_config
 from ssrl_vit_mae_jepa_torch.ops.augment import (
+    apply_augment,
     apply_augment_patches,
     draw_augment_params,
     eval_transform,
 )
-from ssrl_vit_mae_jepa_torch.ops.masking import num_masked_tokens, random_token_mask
+from ssrl_vit_mae_jepa_torch.ops.masking import (
+    num_masked_tokens,
+    random_token_mask,
+    token_occupancy,
+)
+from ssrl_vit_mae_jepa_torch.parallel.mesh import DataAxis, all_reduce_sum
 from ssrl_vit_mae_jepa_torch.training.optim import (
     make_optimizer,
     set_learning_rate,
@@ -59,17 +75,52 @@ class Task:
     ``host_epoch_metrics``, ``loss_and_metric_sums_in_step``,
     ``eval_metric_sums``, ``post_update`` and ``on_fit_start`` are the JAX
     ``Task``'s (``tasks.py:134-238``). ``monitor``/``monitor_mode`` name the
-    metric the trainer's best checkpoint follows."""
+    metric the trainer's best checkpoint follows; ``augment`` says whether
+    the train images are augmented."""
 
     model: torch.nn.Module
     monitor = "val_loss"
     monitor_mode = "min"
+    augment = True
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.tx = None
         #: name -> trainable, from ``build_mask`` (None: every parameter)
         self.mask: Optional[Dict[str, bool]] = None
+        #: the ranks the batch is split over (``configure_sharding``)
+        self.axis: Optional[DataAxis] = None
+
+    # ---- data parallelism ----------------------------------------------
+    def configure_sharding(self, axis: Optional[DataAxis]) -> None:
+        """Run the steps over ``axis`` (None: this process alone). A
+        one-rank axis takes the same code path and gives the same bits."""
+        self.axis = axis
+
+    def _draw_sliced(self, draw, generator: torch.Generator, local_b: int, *args) -> Tuple:
+        """``draw(generator, B, *args)``, a tuple of per-example draws with a
+        leading batch dim (None passes through), at this rank's rows: every
+        rank draws at the global batch size and keeps its own slice, so N
+        ranks consume a single card's randomness."""
+        if self.axis is None:
+            return tuple(draw(generator, local_b, *args))
+        full = draw(generator, local_b * self.axis.size, *args)
+        lo = self.axis.rank * local_b
+        return tuple(None if a is None else a[lo:lo + local_b] for a in full)
+
+    def _loss_den(self, weight_sum: torch.Tensor) -> torch.Tensor:
+        """The weighted mean's denominator: the global weight sum, so that
+        each rank's loss is its share of the global mean."""
+        if self.axis is not None:
+            (weight_sum,) = all_reduce_sum([weight_sum.detach().float()])
+        return torch.clamp_min(weight_sum, 1.0)
+
+    def _psum_sums(self, sums: Sums) -> Sums:
+        """Metric sums over every rank."""
+        if self.axis is None:
+            return sums
+        keys = list(sums)
+        return dict(zip(keys, all_reduce_sum([sums[k].float() for k in keys])))
 
     def lr_value(self, epoch) -> float:
         return self.base_lr * warmup_cosine_factor(
@@ -119,6 +170,7 @@ class Task:
         maps the initial state dict to the one to load (``strict=True``),
         e.g. ``utils/load.py::merge_encoder`` of a pretrained encoder."""
         gen = torch.Generator().manual_seed(seed)
+        self.model.to("cpu")  # a second call finds the model on its device
         self.model.init_weights(gen)
         if init_params_override is not None:
             self.model.load_state_dict(init_params_override(self.model.state_dict()),
@@ -134,24 +186,38 @@ class Task:
         return TrainState(params, self.tx.init(params), generator,
                           extra=self.init_extra(params))
 
+    def _draw_global(self, generator: torch.Generator, batch: int, ctx) -> Tuple:
+        aug = draw_augment_params(generator, batch) if self.augment else (None, None)
+        return (*aug, *self.draw_task(generator, batch, ctx))
+
     def draw(self, generator: torch.Generator, batch: int, ctx) -> Tuple:
-        """``(u, flip, *task_draws)`` for one step."""
-        u, flip = draw_augment_params(generator, batch)
-        return (u, flip, *self.draw_task(generator, batch, ctx))
+        """``(u, flip, *task_draws)`` for one step of ``batch`` rows on this
+        rank; with augmentation off ``u`` and ``flip`` are None and nothing
+        is drawn for them."""
+        return self._draw_sliced(self._draw_global, generator, batch, ctx)
 
     def preprocess_train(self, u, flip, images_u8: torch.Tensor) -> torch.Tensor:
-        return apply_augment_patches(
-            u, flip, images_u8, patch_size=self.model.patch_size,
-            out_size=self.image_size, dtype=torch.float32,
-        )
+        """The train images: augmented patch tokens (B, N, p·p·C); with
+        ``SSRL_AUG_PATCHES=0`` (read per step) augmented images (B, H, W, C),
+        which the models patchify; with augmentation off ``eval_transform``."""
+        if not self.augment:
+            return self.preprocess_eval(images_u8)
+        if os.environ.get("SSRL_AUG_PATCHES", "1") == "1":
+            return apply_augment_patches(
+                u, flip, images_u8, patch_size=self.model.patch_size,
+                out_size=self.image_size, dtype=torch.float32,
+            )
+        return apply_augment(u, flip, images_u8, out_size=self.image_size,
+                             dtype=torch.float32)
 
     def preprocess_eval(self, images_u8: torch.Tensor) -> torch.Tensor:
         return eval_transform(images_u8, out_size=self.image_size, dtype=torch.float32)
 
-    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor], epoch,
-                   ctx=None, draws: Optional[Tuple] = None):
-        """One step; returns ``(state, sums)`` with ``state`` updated in place
-        and ``sums`` holding the task's metric sums and ``lr``."""
+    def gradients(self, state: TrainState, batch: Dict[str, torch.Tensor], ctx=None,
+                  draws: Optional[Tuple] = None):
+        """One step's ``(names, grads, sums)`` without the update: the
+        trainable names and their gradients, and the task's metric sums,
+        both summed over the data axis."""
         images_u8 = batch["image"]
         if draws is None:
             draws = self.draw(state.generator, images_u8.shape[0], ctx)
@@ -160,12 +226,25 @@ class Task:
         loss, sums = self.loss_and_metric_sums_in_step(state, images, batch, task_draws, ctx)
         names = self.tx.trainable(state.params)
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
+        sums = {k: v.detach() for k, v in sums.items()}
+        if self.axis is not None:
+            # one all_reduce for the gradients and the sums; the clip must
+            # see the global gradient, or the ranks' norms and updates differ
+            keys = list(sums)
+            out = all_reduce_sum([*grads, *(sums[k].to(grads[0].dtype) for k in keys)])
+            grads, sums = out[:len(grads)], dict(zip(keys, out[len(grads):]))
+        return names, grads, sums
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor], epoch,
+                   ctx=None, draws: Optional[Tuple] = None):
+        """One step; returns ``(state, sums)`` with ``state`` updated in place
+        and ``sums`` holding the task's metric sums and ``lr``."""
+        names, grads, sums = self.gradients(state, batch, ctx, draws)
         lr = self.lr_value(epoch)
         set_learning_rate(state.opt_state, lr)
         self.tx.update(dict(zip(names, grads)), state.opt_state, state.params)
         state.step += 1
         state = self.post_update(state, epoch)
-        sums = {k: v.detach() for k, v in sums.items()}
         sums["lr"] = lr
         return state, sums
 
@@ -178,8 +257,9 @@ class Task:
         ``generator`` unless ``draws`` gives them."""
         images = self.preprocess_eval(batch["image"])
         if draws is None:
-            draws = self.draw_task(generator, images.shape[0], ctx)
-        return self.eval_metric_sums(images, batch, tuple(draws), ctx, extra=state.extra)
+            draws = self._draw_sliced(self.draw_task, generator, images.shape[0], ctx)
+        sums = self.eval_metric_sums(images, batch, tuple(draws), ctx, extra=state.extra)
+        return self._psum_sums(sums)
 
 
 class ClassifierTask(Task):
@@ -203,8 +283,7 @@ class ClassifierTask(Task):
         self.warmup_epochs = int(training_cfg.get("warmup_epochs", 5))
         self.total_epochs = int(training_cfg.get("total_epochs", 100))
         self.grad_clip = 1.0
-        if not augment:
-            raise NotImplementedError("the un-augmented classifier path is not ported yet")
+        self.augment = augment
         self.image_size = self.model.img_size
         self._freeze_encoder = bool(training_cfg.get("freeze_encoder", True))
         self._unfreeze_last = training_cfg.get("unfreeze_last_layers", None)
@@ -231,7 +310,7 @@ class ClassifierTask(Task):
         correct = (torch.argmax(logits, dim=1) == labels).float()
         top = torch.topk(logits, min(5, logits.shape[-1]), dim=1).indices
         in_top5 = torch.any(top == labels[:, None], dim=1).float()
-        loss = loss_sum / torch.clamp_min(weight_sum, 1.0)
+        loss = loss_sum / self._loss_den(weight_sum)
         return loss, {"loss_sum": loss_sum, "acc_sum": torch.sum(correct * w),
                       "top5_sum": torch.sum(in_top5 * w), "weight_sum": weight_sum}
 
@@ -250,7 +329,11 @@ class MAETask(Task):
     random masking, MSE on the masked patches, AdamW at lr·batch/256 with
     warmup×cosine, and the per-epoch mask-ratio ramp. ``attn_impl`` picks the
     blocks' route as in the JAX ``MAETask``; the step runs on the card unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise. ``training_cfg["augment"]`` (default on) off
+    trains on ``eval_transform`` images, the reference's effective training
+    (quirk Q1). ``SSRL_MAE_DENSE_LOSS=1``, read here, takes the
+    dense loss: every token predicted, the squared error weighted by the
+    masked tokens' occupancy (the same loss and gradients)."""
 
     def __init__(self, model_cfg: dict, training_cfg: dict, dtype=torch.bfloat16,
                  device="cuda", attn_impl: str = "auto"):
@@ -266,10 +349,10 @@ class MAETask(Task):
         self.warmup_epochs = int(training_cfg.get("warmup_epochs", 20))
         self.total_epochs = int(training_cfg.get("total_epochs", 200))
         self.grad_clip = 1.0
-        if not training_cfg.get("augment", True):
-            raise NotImplementedError("the un-augmented MAE path is not ported yet")
+        self.augment = bool(training_cfg.get("augment", True))
         self.image_size = self.model.image_size
         self.sequence_length = self.model.sequence_length
+        self.dense_loss = os.environ.get("SSRL_MAE_DENSE_LOSS", "0") == "1"
 
     def epoch_context(self, epoch: int) -> int:
         """The static masked-token count of this epoch."""
@@ -286,10 +369,19 @@ class MAETask(Task):
 
     def loss_and_metric_sums(self, images, batch, task_draws, ctx, extra=None):
         idx_keep, idx_mask = task_draws
-        pred, target = self.model(images, idx_keep, idx_mask)
-        per_ex = torch.mean((pred.float() - target.float()) ** 2, dim=(1, 2))
+        if self.dense_loss:
+            pred, target = self.model.forward_dense(images, idx_keep)
+            # (B, L) counts of each token in idx_mask: a sum, as the JAX
+            # one-hot sum (a repeated index counts twice); row 0 is CLS
+            occ = token_occupancy(idx_mask, self.sequence_length)[:, 1:, None]
+            diff = pred[:, 1:].float() - target.float()
+            per_ex = torch.sum(diff * diff * occ, dim=(1, 2)) / (
+                idx_mask.shape[1] * target.shape[-1])
+        else:
+            pred, target = self.model(images, idx_keep, idx_mask)
+            per_ex = torch.mean((pred.float() - target.float()) ** 2, dim=(1, 2))
         loss_sum, weight_sum = _weighted(per_ex, batch["weight"])
-        loss = loss_sum / torch.clamp_min(weight_sum, 1.0)
+        loss = loss_sum / self._loss_den(weight_sum)
         return loss, {"loss_sum": loss_sum, "weight_sum": weight_sum}
 
     @staticmethod

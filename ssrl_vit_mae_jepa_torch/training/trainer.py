@@ -1,5 +1,5 @@
-"""Training engine on one device: epoch loops, eval, checkpoints, logging,
-resume.
+"""Training engine: epoch loops, eval, checkpoints, logging, resume, on one
+card or data-parallel over the default process group.
 
 Port of ``ssrl_vit_mae_jepa_tpu/training/trainer.py`` (the replacement for
 ``pytorch_lightning.Trainer`` as the reference uses it,
@@ -18,8 +18,19 @@ n global steps (one host sync each; off by default, so an epoch syncs once)
 and ``periodic_ckpt_every`` the weights-only ``epoch-NNN.ckpt`` files, as the
 JAX trainer does (:153-165, ``CheckpointCallbacks(periodic_every=)``).
 
-Not ported: the mesh and ``shard_map`` (one device here) and the orbax
-checkpoint backend, a JAX format (the CLIs refuse ``ckpt_backend: orbax``).
+Data parallelism (``trainer.py:60-68``, ``:111-118``, ``:186`` of the JAX
+package): under a process group the task's steps run over the data axis
+(``Task.configure_sharding``), each rank's loader holds its own shard at the
+per-rank batch (``data/loaders.py``, which refuses a global batch that the
+world size does not divide), so the global batch is the per-rank batch
+times the world size and ``images_per_s`` counts every rank; the
+metrics are all-reduced, so every rank takes the same checkpoint decision,
+but only rank 0 writes checkpoints, ``metrics.jsonl`` and the TensorBoard
+logs (``logger`` is None on the others). A resume loads the same file on
+every rank.
+
+Not ported: the orbax checkpoint backend, a JAX format (the CLIs refuse
+``ckpt_backend: orbax``).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ssrl_vit_mae_jepa_torch.data.pipeline import HostLoader, device_prefetch
+from ssrl_vit_mae_jepa_torch.parallel.mesh import get_data_axis
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
 from ssrl_vit_mae_jepa_torch.training.tasks import Task
 from ssrl_vit_mae_jepa_torch.utils.checkpoint import (
@@ -75,9 +87,14 @@ class Trainer:
         self.task = task
         self.max_epochs = max_epochs
         self.output_dir = Path(output_dir)
+        self.axis = get_data_axis()
+        task.configure_sharding(self.axis)
+        self.world = 1 if self.axis is None else self.axis.size
+        #: rank 0, the one process that writes files
+        self.is_main = self.axis is None or self.axis.rank == 0
         self.seed = seed
         self.log_every_n_steps = log_every_n_steps
-        self.logger = MetricsLogger(self.output_dir)
+        self.logger = MetricsLogger(self.output_dir) if self.is_main else None
         self.hyper_parameters = hyper_parameters or {}
         self.callbacks = CheckpointCallbacks(self.output_dir / "checkpoints",
                                              monitor=task.monitor, mode=task.monitor_mode,
@@ -114,7 +131,8 @@ class Trainer:
                 sums = _add(sums, step_sums)
                 n_steps += 1
                 self.global_step += 1
-                if self.log_every_n_steps and self.global_step % self.log_every_n_steps == 0:
+                if (self.logger is not None and self.log_every_n_steps
+                        and self.global_step % self.log_every_n_steps == 0):
                     self.logger.log(
                         self.task.epoch_metrics_from_sums(_host(step_sums), "train"),
                         step=self.global_step, epoch=epoch)
@@ -127,19 +145,23 @@ class Trainer:
                 metrics.update(self.evaluate(val_loader, prefix="val", epoch=epoch, ctx=ctx))
             metrics["epoch_time_s"] = dt
             # real examples only: the padded rows of the last batch (weight
-            # 0) do not count
-            metrics["images_per_s"] = train_loader.num_examples / max(dt, 1e-9)
-            self.logger.log(metrics, step=self.global_step, epoch=epoch)
+            # 0) do not count; every rank's loader holds its own shard
+            metrics["images_per_s"] = train_loader.num_examples * self.world / max(dt, 1e-9)
+            if self.logger is not None:
+                self.logger.log(metrics, step=self.global_step, epoch=epoch)
             shown = {k: round(v, 5) for k, v in metrics.items()
                      if k not in ("epoch_time_s", "images_per_s")}
             print(f"Epoch {epoch}: {n_steps} steps, {dt:.1f}s, "
                   f"{metrics['images_per_s']:.0f} img/s - {shown}", flush=True)
-            self.callbacks.on_epoch_end(
-                epoch, metrics, self._payload(),
-                meta_base={"global_step": self.global_step,
-                           "hyper_parameters": self.hyper_parameters})
+            if self.is_main:
+                self.callbacks.on_epoch_end(
+                    epoch, metrics, self._payload(),
+                    meta_base={"global_step": self.global_step,
+                               "hyper_parameters": self.hyper_parameters})
+                self.logger.flush()
+            else:
+                self.callbacks.record_epoch(epoch, metrics)
             last_metrics = metrics
-            self.logger.flush()
         return last_metrics
 
     def evaluate(self, loader: HostLoader, prefix: str = "val", epoch: int = 0,
@@ -172,8 +194,11 @@ class Trainer:
             self.init_state()
         return self.evaluate(loader, prefix="test")
 
-    def save(self, path: str | Path) -> Path:
-        """The whole state as a checkpoint that resumes (``fit(resume_from=)``)."""
+    def save(self, path: str | Path) -> Optional[Path]:
+        """The whole state as a checkpoint that resumes (``fit(resume_from=)``),
+        written by rank 0 (None on the others)."""
+        if not self.is_main:
+            return None
         return save_checkpoint(path, self._payload(), {"hyper_parameters": self.hyper_parameters,
                                                        "global_step": self.global_step})
 

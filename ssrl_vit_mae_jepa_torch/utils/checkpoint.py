@@ -142,6 +142,15 @@ class CheckpointCallbacks:
             return True
         return score < self.best_score if self.mode == "min" else score > self.best_score
 
+    def record_epoch(self, epoch: int, metrics: Dict[str, float]) -> None:
+        """``on_epoch_end``'s bookkeeping without the files, for the ranks
+        other than 0: the metrics are all-reduced, so ``best_score`` and
+        ``best_path`` follow rank 0's."""
+        score = metrics.get(self.monitor)
+        if score is not None and self._improved(float(score)):
+            self.best_score = float(score)
+            self.best_path = self.ckpt_dir / "best.ckpt"
+
     def on_epoch_end(self, epoch: int, metrics: Dict[str, float], full: Dict[str, Any],
                      meta_base: Dict[str, Any]) -> Dict[str, Any]:
         """Apply the policies to ``full``, the epoch's :func:`state_payload`

@@ -670,3 +670,14 @@ def test_classifier_step_launches(cuda, policy):
     task.eval_step(state, batch, None)
     torch.cuda.synchronize()
     assert _launched() == {"attn_branch_fwd_nograd": 2, "mlp_branch_fwd": 2}
+
+
+@pytest.mark.cuda
+def test_init_state_twice_on_the_card(cuda):
+    """A second ``init_state`` of a task on the card makes the same seeded
+    state again: the weights are made on the CPU each time, then moved."""
+    task = ClassifierTask(CLS_MODEL, CLS_TRAIN, device="cuda")
+    first = {k: v.detach().clone() for k, v in task.init_state(0).params.items()}
+    again = task.init_state(0).params
+    assert set(again) == set(first)
+    assert all(v.is_cuda and torch.equal(v, first[k]) for k, v in again.items())

@@ -28,8 +28,8 @@ assert not bad, bad
 print(" ".join(names))
 """
 # the modules of the JEPA slice, the fused patch embed, the chained blocks,
-# the classifier stage with its engine and data path, and the CLIs, among
-# all others
+# the classifier stage with its engine and data path, the CLIs and the data
+# parallelism, among all others
 CLI_MODULES = {"scripts.utils", "scripts.data", "scripts.training.pretrain_mae",
                "scripts.training.train_mae", "scripts.training.pretrain_jepa",
                "scripts.evaluation.evaluate_classifier", "scripts.evaluation.knn_eval",
@@ -45,7 +45,8 @@ NEW_MODULES = {"config", "ops.jepa_masking", "ops.embed_fused", "models.jepa",
                "training.jepa_task", "ops.block_chain", "ops.block_fused",
                "models.classifier", "training.trainer", "utils.checkpoint", "utils.load",
                "utils.metrics_logger", "data.stl10", "data.pipeline", "data.loaders",
-               "runtime.native", "utils.umap_np", "utils.profiling"} | CLI_MODULES
+               "runtime.native", "utils.umap_np", "utils.profiling", "parallel",
+               "parallel.mesh", "parallel.multihost"} | CLI_MODULES
 
 
 def _run(args, timeout=120):
@@ -59,7 +60,7 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 54  # every module of the port, the CLIs' among them
+    assert len(names) >= 66  # every module of the port, the CLIs' among them
     assert {f"ssrl_vit_mae_jepa_torch.{m}" for m in NEW_MODULES} <= set(names)
 
 

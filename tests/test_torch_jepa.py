@@ -141,11 +141,19 @@ def test_task_runs_on_the_card_unless_told_otherwise():
 
 
 def test_unported_options_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="augmented"):
-        TJEPATask(MODEL, {**JEPA_CFG, "augment": False}, device="cpu")
+    """The two options this test once saw refused, the un-augmented path and
+    the dense loss, are routes now: the task takes them and draws no
+    augmentation when it is off (``tests/test_torch_lineage.py`` holds their
+    steps to the JAX task's)."""
+    t = TJEPATask(MODEL, {**JEPA_CFG, "augment": False}, device="cpu")
+    assert not t.augment and not t.dense_loss
+    gen = _gen()
+    u, flip, t_idx, c_idx = t.draw(gen, B, None)
+    assert u is None and flip is None
+    want = t.draw_task(_gen(), B, None)
+    assert torch.equal(t_idx, want[0]) and torch.equal(c_idx, want[1])
     monkeypatch.setenv("SSRL_JEPA_DENSE_LOSS", "1")
-    with pytest.raises(NotImplementedError, match="dense"):
-        TJEPATask(MODEL, JEPA_CFG, device="cpu")
+    assert TJEPATask(MODEL, JEPA_CFG, device="cpu").dense_loss
 
 
 @pytest.mark.parametrize("step,total", [(0, 40), (1, 40), (7, 40), (39, 40), (41, 40),

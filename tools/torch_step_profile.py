@@ -13,7 +13,9 @@ device time summed over all kernels, the device's idle share of the step,
 the branch GEMM's kernels summed (ms and calls per step) and the kernels by
 device time per step; ``--out`` also writes them as
 JSON. ``SSRL_FUSED_EMBED=1`` in the environment switches the fused patch
-embed on. Needs a GPU::
+embed on; so do the lineage switches ``SSRL_AUG_PATCHES=0``,
+``SSRL_MAE_DENSE_LOSS=1`` and ``SSRL_JEPA_DENSE_LOSS=1`` their routes, and
+``--no-augment`` trains on ``eval_transform`` images. Needs a GPU::
 
     python3 tools/torch_step_profile.py --task mae jepa --attn-impl auto block chain --out prof.json
     python3 tools/torch_step_profile.py --task cls-full cls-probe cls-unfreeze2 --attn-impl auto
@@ -52,21 +54,23 @@ STEPS, WARMUP, TOP = 5, 3, 40  # timed and profiled steps, warm-up, kernels list
 GEMM_KERNEL = "gemm_sm90_kernel"
 
 
-def make_task(name: str, impl: str):
+def make_task(name: str, impl: str, augment: bool = True):
     cfg = load_config(REPO / "configs" / "mae.yaml")
     if name == "jepa":
-        jepa_cfg = {**cfg["jepa"], "batch_size": PRE_CFG["batch_size"]}
+        jepa_cfg = {**cfg["jepa"], "batch_size": PRE_CFG["batch_size"], "augment": augment}
         return JEPATask(cfg["model"], jepa_cfg, dtype=torch.bfloat16, device="cuda",
                         attn_impl=impl)
     if name.startswith("cls-"):
         train_cfg = {**cfg["train"], "batch_size": PRE_CFG["batch_size"]}
-        return classifier_task(cfg["model"], train_cfg, name[len("cls-"):], "cuda", impl)
-    return MAETask(cfg["model"], PRE_CFG, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+        return classifier_task(cfg["model"], train_cfg, name[len("cls-"):], "cuda", impl,
+                               augment=augment)
+    return MAETask(cfg["model"], {**PRE_CFG, "augment": augment}, dtype=torch.bfloat16,
+                   device="cuda", attn_impl=impl)
 
 
-def profile(name: str, impl: str) -> dict:
+def profile(name: str, impl: str, augment: bool = True) -> dict:
     batch, steps = PRE_CFG["batch_size"], STEPS
-    task = make_task(name, impl)
+    task = make_task(name, impl, augment)
     state = task.init_state(0)
     data = flagship_images()
     ctx = task.epoch_context(0)
@@ -98,7 +102,7 @@ def profile(name: str, impl: str) -> dict:
     gemm = [v for k, v in kernels.items() if GEMM_KERNEL in k]
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return {
-        "task": name, "attn_impl": impl, "batch": batch, "steps": steps,
+        "task": name, "attn_impl": impl, "augment": augment, "batch": batch, "steps": steps,
         "step_ms": step_ms, "img_per_s": batch / step_ms * 1e3,
         "device_ms_per_step": device_ms,
         "idle_share": 1.0 - device_ms / step_ms,
@@ -113,6 +117,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", nargs="+", default=["mae"], choices=TASKS)
     ap.add_argument("--attn-impl", nargs="+", default=["auto", "packed", "pallas"])
+    ap.add_argument("--no-augment", action="store_true",
+                    help="train on eval_transform images (augment: false)")
     ap.add_argument("--out", type=pathlib.Path, help="also write the results as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -123,9 +129,10 @@ def main() -> None:
     print(out["card"])
     runs = [(t, i) for t in args.task for i in args.attn_impl]
     for name, impl in runs:
-        r = profile(name, impl)
+        r = profile(name, impl, not args.no_augment)
         out["runs"].append(r)
-        print(f"{name} attn_impl={impl} B={r['batch']}: {r['step_ms']:.3f} ms/step (CUDA events), "
+        print(f"{name} attn_impl={impl}{' augment off' if args.no_augment else ''} "
+              f"B={r['batch']}: {r['step_ms']:.3f} ms/step (CUDA events), "
               f"{r['img_per_s']:.1f} img/s; kernels {r['device_ms_per_step']:.3f} ms/step "
               f"on the device, idle {100 * r['idle_share']:.1f}%")
         print(f"  {r['gemm_ms_per_step']:8.3f} ms/step  {r['gemm_calls_per_step']:6.1f} calls  "
