@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch port: kernels, then the MAE and JEPA
 pretraining steps, then the classifier stage and the engine under it, then
-the port's CLIs, then the lineage paths of the step and data parallelism.
+the port's CLIs, then the lineage paths of the step and data parallelism,
+then the bench's steady-state mode (the step as a CUDA-graph replay).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -132,15 +133,43 @@ Phases (any failure exits nonzero; nothing is caught):
      ``python -m torch.distributed.run --standalone --nproc_per_node 1`` for
      one epoch on phase 17's synthetic STL-10, in a one-rank group, writing
      its output layout.
+  21. the bench's steady-state mode, ``Task.train_steps_fused`` (one eager
+     step, the capture of the next in a CUDA graph, replays), at B=768
+     through the bench's own tasks (``ssrl_vit_mae_jepa_torch/bench.py``):
+     (a) for MAE, JEPA and the classifier's full fine-tune on auto, 5
+     replayed steps equal 5 eager steps from a copy of the seeded state bit
+     for bit under deterministic algorithms (params, Adam moments, count,
+     rate, JEPA's EMA, the generator, the sums), and, with the default
+     algorithms, within 2·5·lr per parameter (the JEPA gather's backward
+     adds overlapping target rows with atomics); a graph of the draws alone
+     gives replays 1 and 2 different masks, each the eager draw's; (b) one
+     replay launches exactly one eager step's kernels, by name and count
+     under ``torch.profiler``, and the two int64 fills that write the
+     generator's seed and offset before it (copies counted as one kind; a
+     replay adds nothing to the host launch counters, the capture adds one
+     step's); (c) ms/step per-step and
+     fused, each with its device ms/step, idle share and MFU, a
+     ``{"fused_ms": ...}`` line; (d) MAE under packed, pallas, block, chain
+     and ``SSRL_FUSED_EMBED=1`` checked as in (a); (e) ``python -m
+     ssrl_vit_mae_jepa_torch.bench --task {mae,jepa,classifier} --fused``
+     as processes, each last line with the bench's keys, ``platform``
+     ``gpu`` and an MFU (MAE under ``--profile-dir``, with its device
+     ms/step); (f) ``tests/fixtures/jax_native_classifier.ckpt``, a
+     JAX-native checkpoint, read by ``load_any`` (no msgpack, flax or JAX
+     here) and trained one step on the card; (g) in a one-rank ``nccl``
+     group, MAE's fused steps (the all-reduces captured) against eager
+     steps over the group as in (a).
 
 With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
-phase 20 (b), started by the script itself; ``--dp-cards N`` on a host with
+phase 20 (b), and ``--fused-replay OUT`` is phase 21 in a fresh process
+(the profiler of a process that ran phases 3-20 records some kernels in
+the wrong session), both started by the script itself; ``--dp-cards N`` on a host with
 N cards builds the kernels, runs phase 20 (b) with one process per card over
 ``nccl`` (then each rank's ms/step at B=768 a rank beside one card's) and
 (c) with N processes, and prints a ``{"dp_cards": ...}`` line before the
 last.
 
-Each main-path run (phases 4, 6-9, 11-15, 17-20) zeroes every launch count
+Each main-path run (phases 4, 6-9, 11-15, 17-21) zeroes every launch count
 just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
@@ -167,6 +196,7 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -177,6 +207,7 @@ import torch
 import torch.nn.functional as F
 
 from ssrl_vit_mae_jepa_torch import _build
+from ssrl_vit_mae_jepa_torch import bench
 from ssrl_vit_mae_jepa_torch.config import load_config
 from ssrl_vit_mae_jepa_torch.ops import attention_core as core
 from ssrl_vit_mae_jepa_torch.ops import block_chain as bc
@@ -204,7 +235,14 @@ from ssrl_vit_mae_jepa_torch.runtime.native import native_available
 from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask
 from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask, MAETask
 from ssrl_vit_mae_jepa_torch.training.trainer import Trainer
-from ssrl_vit_mae_jepa_torch.utils.load import encoder_params_from_checkpoint, merge_encoder
+from ssrl_vit_mae_jepa_torch.utils.flops import task_flops_per_image
+from ssrl_vit_mae_jepa_torch.utils.load import (
+    classifier_params_from_checkpoint,
+    encoder_params_from_checkpoint,
+    load_any,
+    merge_encoder,
+)
+from ssrl_vit_mae_jepa_torch.utils.profiling import device_us, kernel_times
 
 REPO = pathlib.Path(__file__).resolve().parent
 BATCH = 768
@@ -341,15 +379,6 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_us(evt) -> float:
-    """Self device time of a profiler event in µs (the name of the field
-    changed across PyTorch versions)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    raise AttributeError("profiler event without a device time")
 
 
 # a profiler session now and then records no device activity, up to three
@@ -687,7 +716,9 @@ def gemm_table() -> list:
             k_ms = sum(v for k, v in shares.items() if "gemm_sm90" in k)
             red_ms = sum(v for k, v in shares.items() if "colsum" in k)
             m_ms = sum(shares.values()) - k_ms - red_ms
-            if not shares:  # the profiler fell back: each side by CUDA events
+            if not shares or k_ms <= 0 or m_ms <= 0:
+                # the profiler fell back, or its session missed one side's
+                # kernels: each side by CUDA events
                 k_ms, red_ms = cuda_ms(lambda: bf.gemm(a, b, layout, epi, **ex)), 0.0
                 m_ms = cuda_ms(lambda: torch.matmul(at, bt))
             total = k_ms + red_ms
@@ -2112,6 +2143,406 @@ def dp_cards(n: int) -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
+# phase 21: the bench's steady-state mode, Task.train_steps_fused
+FUSED_N = 5           # steps on each side of the equality checks
+FUSED_TIMED = 10      # steps timed with CUDA events per mode
+FUSED_PROFILED = 5    # steps under torch.profiler per mode
+FUSED_TASKS = ("mae", "jepa", "classifier")
+FUSED_ROUTES = (("packed", False), ("pallas", False), ("block", False), ("chain", False),
+                ("auto", True))  # MAE; True: SSRL_FUSED_EMBED=1
+# the keys of the JSON line bench.py prints (bench.py:167-190)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "batch_size", "steps", "dispatch",
+              "chips", "images_per_sec_per_chip", "step_time_ms", "platform",
+              "flops_per_image", "peak_tflops", "mfu", "device_step_ms"]
+NATIVE_FIXTURE = REPO / "tests" / "fixtures" / "jax_native_classifier.ckpt"
+NATIVE_MODEL = {"general": {"image_size": 96, "patch_size": 8, "in_chans": 3},
+                "encoder": {"embed_dim": 48, "depth": 1, "num_heads": 4},
+                "head": {"pool": "cls"}}
+
+
+def bench_task(kind: str, impl: str = "auto"):
+    """The task ``python -m ssrl_vit_mae_jepa_torch.bench --task kind``
+    times, on the card."""
+    return bench.make_task(bench.parse_args(["--task", kind, "--attn-impl", impl]), "cuda")
+
+
+def state_tensors(state) -> dict:
+    """Every tensor a step writes, by a readable name."""
+    opt = state.opt_state
+    out = {f"param {k}": v.detach() for k, v in state.params.items()}
+    out.update({f"mu {i}": t for i, t in enumerate(opt.mu)})
+    out.update({f"nu {i}": t for i, t in enumerate(opt.nu)})
+    out.update({f"ema {k}": v for k, v in (state.extra or {}).items()})
+    out.update({"count": opt.count, "learning_rate": opt.learning_rate})
+    return out
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def eager_and_fused(kind: str, impl: str, embed: bool, exact: bool, axis=None):
+    """FUSED_N eager steps and ``train_steps_fused(FUSED_N)`` from two tasks
+    made alike (the same seeded state, the data axis ``axis``); returns both
+    tasks and states, the last sums and each side's host launch counts."""
+    with fused_embed(embed), deterministic(exact):
+        out = []
+        for fused in (False, True):
+            task = bench_task(kind, impl)
+            task.configure_sharding(axis)
+            state = task.init_state(0)
+            batch, ctx = flagship_images(), task.epoch_context(0)
+            torch.cuda.synchronize()
+            reset_counts()
+            if fused:
+                state, sums = task.train_steps_fused(state, batch, 0, ctx, FUSED_N)
+            else:
+                for _ in range(FUSED_N):
+                    state, sums = task.train_step(state, batch, 0, ctx)
+            torch.cuda.synchronize()
+            out.append((task, state, sums, launch_counts()))
+    return out
+
+
+def fused_equality(kind: str, impl: str = "auto", embed: bool = False, axis=None) -> dict:
+    """Phase 21 (a) / (d) / (g): replays against eager steps, bit for bit
+    under deterministic algorithms; on the main path also with the default
+    algorithms, each tensor within 2·FUSED_N·lr (two Adam runs part by at
+    most ±lr a step per element, the EMA by less), the draws and a
+    replay's kernels. Returns the host launch counts of the runs (the eager
+    steps' and the eager step plus the capture)."""
+    what = (f"{kind} attn_impl={impl}{' SSRL_FUSED_EMBED=1' if embed else ''}"
+            f"{' over a one-rank nccl group' if axis is not None else ''}")
+    (te, se, sums_e, ce), (tg, sg, sums_g, cg) = eager_and_fused(kind, impl, embed, True, axis)
+    if sg.step != se.step or int(sg.opt_state.count) != FUSED_N:
+        fail(f"{what}: step {sg.step}, count {int(sg.opt_state.count)} after {FUSED_N} steps")
+    a, b = state_tensors(se), state_tensors(sg)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    differ += [k for k in sums_e if k != "lr" and not torch.equal(sums_e[k], sums_g[k])]
+    if not torch.equal(se.generator.get_state(), sg.generator.get_state()):
+        differ.append("generator")
+    print(f"  {what}: {FUSED_N} replayed vs eager steps, deterministic algorithms: "
+          f"{len(differ)} of {len(a) + len(sums_e)} tensors differ", flush=True)
+    if differ:
+        fail(f"{what}: the replayed steps differ from the eager ones in {differ[:8]}")
+    # the capture launches one step's kernels, a replay none (host counters)
+    if any(cg[k] * FUSED_N != ce[k] * 2 for k in ce):
+        fail(f"{what}: eager {ce} vs one eager step and the capture {cg}")
+    counts = {k: ce[k] + cg[k] for k in ce}
+    if impl == "auto" and not embed and axis is None:
+        (te, se, _, ce2), (tg, sg, _, cg2) = eager_and_fused(kind, impl, embed, False)
+        lr = float(se.opt_state.learning_rate)
+        a, b = state_tensors(se), state_tensors(sg)
+        worst = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+        n_diff = sum(int(not torch.equal(a[k], b[k])) for k in a)
+        print(f"  {what}, default algorithms: {n_diff} of {len(a)} tensors differ, "
+              f"max |diff| {worst:.3e} (bound 2*{FUSED_N}*lr = {2 * FUSED_N * lr:.3e})",
+              flush=True)
+        if worst > 2 * FUSED_N * lr:
+            fail(f"{what}: replayed vs eager steps differ by {worst} with the default algorithms")
+        counts = {k: counts[k] + ce2[k] + cg2[k] for k in counts}
+        replay_draws(te, se)
+        launches_per_replay(tg, sg, what)
+    del te, se, tg, sg
+    torch.cuda.empty_cache()
+    return counts
+
+
+def replay_draws(task, state) -> None:
+    """A CUDA graph of the step's draws alone, the generator registered:
+    replays 1 and 2 draw other masks, each equal to the eager draw from a
+    copy of the generator's state."""
+    ctx = task.epoch_context(0)
+    copy = torch.Generator("cuda")
+    copy.set_state(state.generator.get_state())
+    eager = [task.draw(copy, BATCH, ctx) for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(state.generator)
+    with torch.cuda.graph(graph):
+        static = task.draw(state.generator, BATCH, ctx)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append([t.clone() for t in static if t is not None])
+    torch.cuda.synchronize()
+    masks = [r[-1] for r in replays]
+    same = [all(torch.equal(x, y) for x, y in zip(r, [t for t in e if t is not None]))
+            for r, e in zip(replays, eager)]
+    print(f"  draws: replays 1 and 2 masks differ: {not torch.equal(*masks)}; each equals "
+          f"the eager draw: {same}", flush=True)
+    if torch.equal(*masks) or not all(same):
+        fail("the graph's draws repeat or differ from the eager draws")
+
+
+def kernel_counts(fn, n: int) -> dict:
+    """Kernel name → launches of one call of ``fn``: ``n`` calls, each in a
+    torch.profiler session of its own, and per name the count most of them
+    recorded (a session now and then records one call's kernels other than
+    the rest's)."""
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(n + PROFILER_SESSIONS):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {k: c for k, (_, c) in kernel_times(prof).items()}
+        if counts:
+            seen.append(counts)
+        if len(seen) == n:
+            break
+        time.sleep(0.1)
+    if not seen:
+        fail(f"no kernels recorded in {n + PROFILER_SESSIONS} profiler sessions")
+    names = set().union(*seen)
+    out = {}
+    for k in names:
+        values = [c.get(k, 0) for c in seen]
+        out[k] = max(set(values), key=values.count)
+        if len(set(values)) > 1:
+            print(f"  (profiled calls differ at {k[:80]}: {values})", flush=True)
+    return {k: v for k, v in out.items() if v}
+
+
+def _memcpy_as_one(counts: dict) -> dict:
+    """Kernel counts with every device-to-device copy under one name: a
+    graph runs its copy nodes as memcpy kernels of their own
+    (``memcpy32_post``, ``memcpy128``) where an eager step records
+    ``Memcpy DtoD``."""
+    out = {}
+    for k, v in counts.items():
+        key = "memcpy, device to device" if "memcpy" in k.lower() else k
+        out[key] = out.get(key, 0) + v
+    return out
+
+
+def launches_per_replay(task, state, what: str, attempts: int = 3) -> None:
+    """Phase 21 (b): one replay's kernels, by name and count, are one eager
+    step's (``Task.update``, the captured work) and the two int64 fills
+    with which a replay first writes the registered generator's seed and
+    offset. A profiler session now and then misses kernels, so a mismatch
+    is measured again, ``attempts`` times in all, before it fails."""
+    graph = task._graph
+    ctx = task.epoch_context(0)
+    for attempt in range(attempts):
+        eager = _memcpy_as_one(kernel_counts(
+            lambda: task.update(state, graph.inputs, 0, ctx), 3))
+        replay = _memcpy_as_one(kernel_counts(graph.graph.replay, 3))
+        diff = {k: replay.get(k, 0) - eager.get(k, 0) for k in set(eager) | set(replay)}
+        diff = {k: v for k, v in diff.items() if v}
+        prologue = {k: v for k, v in diff.items() if "FillFunctor<long>" in k}
+        print(f"  {what}: a replay launches {sum(replay.values()):.0f} kernels of "
+              f"{len(replay)} names, an eager step {sum(eager.values()):.0f} of "
+              f"{len(eager)}; the replay's own: {prologue}", flush=True)
+        if diff == prologue and sum(prologue.values()) == 2:
+            return
+        print(f"  (attempt {attempt + 1}: replay vs eager kernels differ: "
+              f"{dict(list(diff.items())[:8])})", flush=True)
+    fail(f"{what}: a replay's kernels differ from an eager step's in {attempts} attempts")
+
+
+def device_busy(fn, calls: int):
+    """(device ms per call, idle share) of ``calls`` calls of ``fn`` under
+    torch.profiler: the kernels' summed durations, and the share of the
+    span from the first kernel's start to the last one's end in which no
+    kernel ran. None where no session of PROFILER_SESSIONS records one."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_SESSIONS):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                 and e.time_range.end > e.time_range.start]
+        if spans:
+            busy = sum(b - a for a, b in spans)
+            span = max(b for _, b in spans) - min(a for a, _ in spans)
+            return busy / 1e3 / calls, 1.0 - busy / span
+        time.sleep(0.1)
+    return None
+
+
+def fused_timing(kind: str) -> dict:
+    """Phase 21 (c): per-step and fused ms/step (CUDA events), device
+    ms/step and idle share (torch.profiler, another run of the same
+    calls) and MFU at B=768."""
+    task = bench_task(kind)
+    state = task.init_state(0)
+    batch, ctx = flagship_images(), task.epoch_context(0)
+    flops = task_flops_per_image(task, ctx)
+    for _ in range(WARMUP):
+        state, _ = task.train_step(state, batch, 0, ctx)
+    state, _ = task.train_steps_fused(state, batch, 0, ctx, 2)  # the capture
+    torch.cuda.reset_peak_memory_stats()
+    modes = {
+        "per-step": (lambda: task.train_step(state, batch, 0, ctx), 1),
+        "fused": (lambda: task.train_steps_fused(state, batch, 0, ctx, FUSED_TIMED),
+                  FUSED_TIMED),
+    }
+    out = {}
+    for mode, (fn, per_call) in modes.items():
+        calls = FUSED_TIMED // per_call
+        ms = cuda_ms(fn, iters=calls, warmup=1) / per_call
+        prof = device_busy(fn, calls)
+        dev, idle = (None, None) if prof is None else (prof[0] / per_call, prof[1])
+        ips = BATCH / ms * 1e3
+        # idle two ways: within the profiled run's kernel span (the
+        # profiler's own host work included), and device ms against the
+        # CUDA-event time of the unprofiled run (two runs; §5's convention)
+        out[mode] = {"ms": ms, "device_ms": dev, "idle": idle,
+                     "idle_vs_events": None if dev is None else 1.0 - dev / ms,
+                     "img_s": ips, "mfu": flops * ips / PEAK_FLOPS}
+        device = ("device time not recorded" if prof is None else
+                  f"device {dev:.3f} ms/step, idle {100 * idle:.1f}% of the profiled span, "
+                  f"{100 * (1 - dev / ms):.1f}% of the CUDA-event time")
+        print(f"  {kind} {mode}: {ms:.3f} ms/step (CUDA events), {ips:.1f} img/s; {device}, "
+              f"MFU {100 * flops * ips / PEAK_FLOPS:.2f}% ({flops} FLOP/image)", flush=True)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del task, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_cli(tmp: pathlib.Path) -> dict:
+    """Phase 21 (e): the bench as a process per task, ``--fused``."""
+    env = {k: v for k, v in os.environ.items() if k != "SSRL_TORCH_DEVICE"}
+    out = {}
+    for kind in FUSED_TASKS:
+        args = ["--task", kind, "--fused", "--steps", "10", "--warmup", "3"]
+        if kind == "mae":
+            args += ["--profile-dir", str(tmp / "prof")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ssrl_vit_mae_jepa_torch.bench", *args],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        print(f"  python -m ssrl_vit_mae_jepa_torch.bench {' '.join(args)}: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
+        if proc.returncode != 0:
+            fail(f"bench --task {kind}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                 f"{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        last = json.loads(lines[-1])
+        print(f"  {lines[-1]}", flush=True)
+        if (list(last) != BENCH_KEYS or last["platform"] != "gpu" or last["mfu"] is None
+                or last["dispatch"] != "fused"
+                or (kind == "mae" and last["device_step_ms"] is None)):
+            fail(f"bench --task {kind}: unexpected last line {last}")
+        out[kind] = last
+    return out
+
+
+def native_checkpoint(cfg: dict) -> dict:
+    """Phase 21 (f): a JAX-native checkpoint read by ``load_any`` here,
+    then one classifier step on the card from its weights."""
+    import importlib.util
+
+    kind, state, meta = load_any(NATIVE_FIXTURE)
+    weights, report, _ = classifier_params_from_checkpoint(NATIVE_FIXTURE, depth=1)
+    print(f"  {NATIVE_FIXTURE.name}: {kind}, {len(state)} tensors, epoch {meta.get('epoch')}; "
+          f"msgpack installed: {importlib.util.find_spec('msgpack') is not None}, loaded: "
+          f"{'msgpack' in sys.modules}", flush=True)
+    if kind != "native" or report != {"missing": [], "unexpected": []}:
+        fail(f"{NATIVE_FIXTURE.name}: {kind}, {report}")
+    task = ClassifierTask(NATIVE_MODEL, {**cfg["train"], "batch_size": 16},
+                          dtype=torch.bfloat16, device="cuda")
+    st = task.init_state(0, init_params_override=lambda p: weights)
+    if not all(torch.equal(st.params[k].detach().cpu(), v) for k, v in weights.items()):
+        fail("the native checkpoint's weights did not load")
+    before = {k: v.detach().clone() for k, v in st.params.items()}
+    reset_counts()
+    st, sums = task.train_step(st, flagship_images(n=16), 0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    loss = float(sums["loss_sum"]) / 16
+    print(f"  one classifier step from it: loss {loss:.5f}, launches {counts}", flush=True)
+    if not math.isfinite(loss):
+        fail(f"non-finite loss {loss} from the native checkpoint")
+    check_moved(before, {k: v.detach() for k, v in st.params.items()}, "native checkpoint step")
+    return counts
+
+
+def fused_nccl() -> dict:
+    """Phase 21 (g): in a one-rank ``nccl`` group the fused MAE steps
+    capture the step's all-reduces; replays equal eager steps over the
+    same group as in (a)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        return fused_equality("mae", axis=get_data_axis())
+    finally:
+        dist.destroy_process_group()
+
+
+def fused_replay_process() -> tuple:
+    """Phase 21 in a process of its own (``chip_smoke.py --fused-replay``):
+    after the earlier phases' many profiler sessions, this process's
+    profiler records some calls' kernels in the wrong session, and (b) and
+    (c) read kernels by session. Returns the child's (launch counts,
+    timings); its output goes to ours."""
+    out = REPO / "build" / f"tmp_fused_{os.getpid()}.json"
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--fused-replay",
+                               str(out)], cwd=REPO, timeout=900)
+        print(f"  phase 21's process: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if proc.returncode != 0:
+            fail(f"phase 21's process exited {proc.returncode}")
+        result = json.loads(out.read_text())
+    finally:
+        out.unlink(missing_ok=True)
+    return result["counts"], result["timing"]
+
+
+def fused_replay_main(out: pathlib.Path) -> None:
+    """``--fused-replay OUT``: phase 21 on the kernels the parent built; its
+    launch counts and timings as JSON in OUT."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    counts, timing = fused_replay(load_config(REPO / "configs" / "mae.yaml"))
+    out.write_text(json.dumps({"counts": counts, "timing": timing}))
+
+
+def fused_replay(cfg: dict):
+    """Phase 21; returns (host launch counts of its main-path runs, the
+    timings)."""
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    print("phase 21 (a, b): replayed vs eager steps, the draws, a replay's kernels",
+          flush=True)
+    for kind in FUSED_TASKS:
+        add(fused_equality(kind))
+    print("phase 21 (c): per-step and fused ms/step at B=768", flush=True)
+    timing = {kind: fused_timing(kind) for kind in FUSED_TASKS}
+    print("phase 21 (d): MAE on the other routes", flush=True)
+    for impl, embed in FUSED_ROUTES:
+        add(fused_equality("mae", impl, embed))
+    print("phase 21 (e): the bench CLI", flush=True)
+    tmp = REPO / "build" / f"tmp_bench_{os.getpid()}"
+    try:
+        timing["cli"] = bench_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 21 (f): a JAX-native checkpoint", flush=True)
+    add(native_checkpoint(cfg))
+    print("phase 21 (g): the all-reduces captured, in a one-rank nccl group", flush=True)
+    add(fused_nccl())
+    return counts, timing
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2197,6 +2628,11 @@ def main() -> None:
     print("phase 20: data parallelism on the card: a one-rank nccl group, two gloo ranks, "
           "pretrain_mae under torch.distributed.run", flush=True)
     add(data_parallel(cfg))
+    print("phase 21: the bench's steady-state mode: the train step as a CUDA-graph replay",
+          flush=True)
+    counts, fused_ms = fused_replay_process()
+    add(counts)
+    print(json.dumps({"fused_ms": fused_ms}), flush=True)
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]
@@ -2232,6 +2668,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(pathlib.Path(sys.argv[2]), sys.argv[3], sys.argv[4] == "timed")
+    elif sys.argv[1:2] == ["--fused-replay"]:
+        fused_replay_main(pathlib.Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--dp-cards"]:
         dp_cards(int(sys.argv[2]))
     else:

@@ -20,6 +20,8 @@ from the given generator, so they differ from ``jax.random``'s.
 
 from __future__ import annotations
 
+import functools
+
 from typing import List, Tuple
 
 import torch
@@ -49,6 +51,23 @@ def block_shapes_for(
     return shapes
 
 
+@functools.lru_cache(maxsize=None)
+def _block_tables(grid_size: int, block_area: int, aspect_range: Tuple[float, float],
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The static per-shape offset tables (S, area, 2) and corner limits
+    (S, 2) on ``device``, made once: a copy to the card in every step would
+    also be a host sync, which a CUDA graph's capture refuses."""
+    shapes = block_shapes_for(block_area, aspect_range)
+    offs = torch.zeros((len(shapes), block_area, 2), dtype=torch.long)
+    max_top = torch.zeros((len(shapes), 2), dtype=torch.long)
+    for s, (h, w) in enumerate(shapes):
+        dy, dx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        offs[s, :, 0] = dy.reshape(-1)
+        offs[s, :, 1] = dx.reshape(-1)
+        max_top[s] = torch.tensor([grid_size - h, grid_size - w])
+    return offs.to(device), max_top.to(device)
+
+
 def sample_jepa_masks(
     generator: torch.Generator,
     batch_size: int,
@@ -66,18 +85,9 @@ def sample_jepa_masks(
         raise ValueError(f"unknown context_sampling: {context_sampling}")
     dev = generator.device
     B, N = batch_size, grid_size * grid_size
-    shapes = block_shapes_for(block_area, aspect_range)
-    # static per-shape offset tables (S, area, 2) and corner limits (S, 2)
-    offs = torch.zeros((len(shapes), block_area, 2), dtype=torch.long)
-    max_top = torch.zeros((len(shapes), 2), dtype=torch.long)
-    for s, (h, w) in enumerate(shapes):
-        dy, dx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
-        offs[s, :, 0] = dy.reshape(-1)
-        offs[s, :, 1] = dx.reshape(-1)
-        max_top[s] = torch.tensor([grid_size - h, grid_size - w])
-    offs, max_top = offs.to(dev), max_top.to(dev)
+    offs, max_top = _block_tables(grid_size, block_area, tuple(aspect_range), dev)
 
-    shape_id = torch.randint(len(shapes), (B, num_blocks), generator=generator, device=dev)
+    shape_id = torch.randint(len(offs), (B, num_blocks), generator=generator, device=dev)
     u = torch.rand((B, num_blocks, 2), generator=generator, device=dev)
     top_left = torch.floor(u * (max_top[shape_id] + 1)).long()  # (B, M, 2)
     yx = top_left[:, :, None, :] + offs[shape_id]  # (B, M, area, 2)

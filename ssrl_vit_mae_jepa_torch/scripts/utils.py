@@ -98,8 +98,9 @@ def load_vit_classifier_from_checkpoint(
 ):
     """4-path classifier loading → (ClassifierTask, state dict or None):
     None → random init; a full classifier checkpoint (the port's ``.ckpt``,
-    the reference's Lightning ``.ckpt`` or a ``.pt``); an encoder-only
-    checkpoint with prefix detection (``encoder_only``)."""
+    the reference's Lightning ``.ckpt``, a ``.pt`` or a JAX-native
+    checkpoint); an encoder-only checkpoint with prefix detection
+    (``encoder_only``)."""
     from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask
     from ssrl_vit_mae_jepa_torch.utils.load import (
         classifier_params_from_checkpoint,

@@ -4,7 +4,8 @@
 port's own checkpoints lose the optimizer, generator and ``model.`` prefix
 (the reference-named state dict of ``export_reference_weights``); the
 reference's Lightning checkpoints shed their wrapper and keep their keys.
-A JAX-native checkpoint is refused with the command that converts it."""
+A JAX-native checkpoint (``utils/load.py::load_any``) is exported by the
+reference names, as the JAX package's own export writes it."""
 
 from __future__ import annotations
 

@@ -17,7 +17,8 @@ names. They run under ``torch.no_grad()`` through
 optimizer or the clip norm, and after every optimizer step they move toward
 the context encoder: ``t·m + p·(1 - m)`` in f32, with the momentum ``m``
 annealed per step once the trainer gives the epoch length
-(``on_fit_start``) and per epoch until then. Under data parallelism the
+(``on_fit_start``) and per epoch until then, computed on the device from
+the optimizer's step count. Under data parallelism the
 collapse metrics' moments are summed over the ranks before the std is
 taken (``_gsum`` of the JAX task), and the EMA, computed from the
 all-reduced update, stays the same on every rank.
@@ -187,20 +188,26 @@ class JEPATask(Task):
     def on_fit_start(self, steps_per_epoch: int) -> None:
         self.steps_per_epoch = steps_per_epoch
         self.total_steps = steps_per_epoch * self.total_epochs
+        self._graph = None  # the momentum's route changed: capture anew
 
-    def _momentum(self, state: TrainState, epoch) -> float:
-        """The EMA momentum in f32, as ``jepa_task.py:261-270`` computes it."""
+    def _momentum(self, state: TrainState, epoch) -> torch.Tensor:
+        """The EMA momentum as a 0-d f32 tensor on the device, as
+        ``jepa_task.py:261-270`` computes it: per step from the optimizer's
+        count (the step count on the device, which the step advances with
+        ``state.step``) once ``on_fit_start`` gave the epoch length, else per
+        epoch, a constant within one epoch."""
+        count = state.opt_state.count
         if self.total_steps:
-            return ema_momentum_at_step(state.step, self.total_steps,
-                                        self.ema_start, self.ema_end)
+            return ema_momentum_at_step(count, self.total_steps, self.ema_start, self.ema_end)
         frac = np.clip(np.float32(epoch) / np.float32(max(1, self.total_epochs)),
                        np.float32(0.0), np.float32(1.0))
-        return float(np.float32(self.ema_start)
-                     + frac * np.float32(self.ema_end - self.ema_start))
+        m = np.float32(self.ema_start) + frac * np.float32(self.ema_end - self.ema_start)
+        return torch.full((), float(m), dtype=torch.float32, device=count.device)
 
     @torch.no_grad()
     def post_update(self, state: TrainState, epoch) -> TrainState:
-        """EMA ← EMA·m + params·(1 - m), in place, after the optimizer step."""
+        """EMA ← EMA·m + params·(1 - m), in place and in f32, after the
+        optimizer step."""
         m = self._momentum(state, epoch)
         params, ema = self._pairs(state)
         scaled = torch._foreach_mul(params, 1.0 - m)
@@ -210,8 +217,8 @@ class JEPATask(Task):
 
     def host_epoch_metrics(self, epoch: int) -> Dict[str, float]:
         if self.total_steps and self.steps_per_epoch:
-            m = ema_momentum_at_step(epoch * self.steps_per_epoch, self.total_steps,
-                                     self.ema_start, self.ema_end)
+            m = float(ema_momentum_at_step(epoch * self.steps_per_epoch, self.total_steps,
+                                           self.ema_start, self.ema_end))
         else:
             frac = min(epoch / max(1, self.total_epochs), 1.0)
             m = self.ema_start + frac * (self.ema_end - self.ema_start)

@@ -12,6 +12,14 @@ Port of ``ssrl_vit_mae_jepa_tpu/training/optim.py:29-62``, i.e.
   Adam direction before the learning rate scales it;
 - the learning rate is state, set per epoch (``set_learning_rate``).
 
+The step ``count`` (int32) and the ``learning_rate`` (f32) are 0-d tensors
+on the parameters' device, as optax keeps them: the step advances
+``count`` on the device and takes the bias corrections ``1 - β**count`` in
+f32 from it, and ``set_learning_rate`` fills the tensor in place. So the
+step reads no host number that changes from one step to the next, and a
+CUDA graph of it (``Task.train_steps_fused``) replays each step's own
+bias correction and the rate set before the replay.
+
 The freeze policy (``optim.py:64-120`` of the JAX package) is
 ``optax.masked`` over that chain with ``stop_gradient`` on frozen leaves.
 Here a frozen parameter gets ``requires_grad_(False)`` (so autograd never
@@ -37,8 +45,10 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 @dataclass
 class AdamWState:
-    learning_rate: float
-    count: int
+    #: 0-d f32 on the parameters' device
+    learning_rate: torch.Tensor
+    #: 0-d int32 on the parameters' device: the updates taken
+    count: torch.Tensor
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
 
@@ -61,7 +71,9 @@ class AdamW:
         """Zero moments for the trainable parameters only."""
         zeros = [torch.zeros_like(params[k], memory_format=torch.contiguous_format)
                  for k in self.trainable(params)]
-        return AdamWState(self.learning_rate, 0, zeros,
+        dev = next(iter(params.values())).device
+        return AdamWState(torch.tensor(self.learning_rate, dtype=torch.float32, device=dev),
+                          torch.zeros((), dtype=torch.int32, device=dev), zeros,
                           [torch.zeros_like(z) for z in zeros])
 
     @torch.no_grad()
@@ -77,17 +89,20 @@ class AdamW:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
             g = torch._foreach_mul(g, factor)
-        state.count += 1
+        state.count.add_(1)
         torch._foreach_mul_(state.mu, B1)
         torch._foreach_add_(state.mu, g, alpha=1.0 - B1)
         torch._foreach_mul_(state.nu, B2)
         torch._foreach_addcmul_(state.nu, g, g, value=1.0 - B2)
-        mu_hat = torch._foreach_div(state.mu, 1.0 - B1**state.count)
-        denom = torch._foreach_sqrt(torch._foreach_div(state.nu, 1.0 - B2**state.count))
+        count = state.count.float()
+        mu_hat = torch._foreach_div(state.mu, 1.0 - torch.pow(B1, count))
+        denom = torch._foreach_sqrt(torch._foreach_div(state.nu, 1.0 - torch.pow(B2, count)))
         torch._foreach_add_(denom, EPS)
         step = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(step, p, alpha=self.weight_decay)
-        torch._foreach_add_(p, step, alpha=-state.learning_rate)
+        # optax's scale_by_learning_rate then apply_updates: p + (-lr · u)
+        torch._foreach_mul_(step, -state.learning_rate)
+        torch._foreach_add_(p, step)
 
 
 def make_optimizer(learning_rate: float, weight_decay: float,
@@ -99,7 +114,8 @@ def make_optimizer(learning_rate: float, weight_decay: float,
 
 
 def set_learning_rate(opt_state: AdamWState, lr: float) -> AdamWState:
-    opt_state.learning_rate = float(lr)
+    """The rate of the next updates, written into the state's tensor."""
+    opt_state.learning_rate.fill_(float(lr))
     return opt_state
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
+import torch
 
 
 def warmup_cosine_factor(epoch: float, warmup_epochs: int, total_epochs: int) -> float:
@@ -29,9 +29,15 @@ def mask_ratio_at_epoch(epoch: int, start: float, end: float, ramp_epochs: int) 
     return start + progress * (end - start)
 
 
-def ema_momentum_at_step(step: int, total_steps: int, start: float, end: float) -> float:
+def ema_momentum_at_step(step, total_steps: int, start: float, end: float) -> torch.Tensor:
     """JEPA EMA momentum, linear from start to end over all training steps
     (I-JEPA anneals per step), in f32 as the JAX package computes it:
-    ``f32(start) + min(f32(step) / total, 1) * f32(end - start)``."""
-    frac = min(np.float32(step) / np.float32(max(1, total_steps)), np.float32(1.0))
-    return float(np.float32(start) + frac * np.float32(end - start))
+    ``f32(start) + min(f32(step) / f32(total), 1) * f32(end - start)``.
+    ``step`` is an int or a 0-d tensor; the result is a 0-d f32 tensor on
+    its device, so the train step computes it from the optimizer's count
+    without a host number (``float()`` it on the host)."""
+    step = torch.as_tensor(step).float()
+    # a tensor denominator: a host scalar would divide by its reciprocal on CUDA
+    total = torch.full((), float(max(1, total_steps)), dtype=torch.float32, device=step.device)
+    frac = torch.clamp_max(step / total, 1.0)
+    return start + frac * (end - start)

@@ -90,12 +90,15 @@ class Task:
         self.mask: Optional[Dict[str, bool]] = None
         #: the ranks the batch is split over (``configure_sharding``)
         self.axis: Optional[DataAxis] = None
+        #: the captured step of ``train_steps_fused``
+        self._graph: Optional[StepGraph] = None
 
     # ---- data parallelism ----------------------------------------------
     def configure_sharding(self, axis: Optional[DataAxis]) -> None:
         """Run the steps over ``axis`` (None: this process alone). A
         one-rank axis takes the same code path and gives the same bits."""
         self.axis = axis
+        self._graph = None
 
     def _draw_sliced(self, draw, generator: torch.Generator, local_b: int, *args) -> Tuple:
         """``draw(generator, B, *args)``, a tuple of per-example draws with a
@@ -155,7 +158,9 @@ class Task:
         return self.loss_and_metric_sums(images, batch, task_draws, ctx, extra=extra)[1]
 
     def post_update(self, state: TrainState, epoch) -> TrainState:
-        """Hook after the optimizer update; ``state.step`` already counts it."""
+        """Hook after the optimizer update, inside :meth:`update` (and so in
+        the captured step): it reads the step count from the device, where
+        ``state.opt_state.count`` already counts this update."""
         return state
 
     def on_fit_start(self, steps_per_epoch: int) -> None:
@@ -235,16 +240,77 @@ class Task:
             grads, sums = out[:len(grads)], dict(zip(keys, out[len(grads):]))
         return names, grads, sums
 
+    def update(self, state: TrainState, batch: Dict[str, torch.Tensor], epoch, ctx=None,
+               draws: Optional[Tuple] = None) -> Sums:
+        """The device work of one step, in place on ``state``: the gradients,
+        the AdamW update at the rate already in ``state.opt_state`` and
+        ``post_update``; returns the metric sums. It reads no host number
+        that changes from step to step (the optimizer's count and rate are
+        device tensors, the draws come from ``state.generator``), so a CUDA
+        graph of it replays step after step."""
+        names, grads, sums = self.gradients(state, batch, ctx, draws)
+        self.tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+        self.post_update(state, epoch)
+        return sums
+
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor], epoch,
                    ctx=None, draws: Optional[Tuple] = None):
         """One step; returns ``(state, sums)`` with ``state`` updated in place
         and ``sums`` holding the task's metric sums and ``lr``."""
-        names, grads, sums = self.gradients(state, batch, ctx, draws)
         lr = self.lr_value(epoch)
         set_learning_rate(state.opt_state, lr)
-        self.tx.update(dict(zip(names, grads)), state.opt_state, state.params)
+        sums = self.update(state, batch, epoch, ctx, draws)
         state.step += 1
-        state = self.post_update(state, epoch)
+        sums["lr"] = lr
+        return state, sums
+
+    def train_steps_fused(self, state: TrainState, batch: Dict[str, torch.Tensor], epoch,
+                          ctx, n: int):
+        """``n`` train steps on one batch, the counterpart of the JAX
+        ``Task.train_steps_fused`` (``tasks.py:240-292``): the bench's
+        steady-state mode. Returns ``(state, sums)`` after the n steps, the
+        sums of the last; ``state.step`` advances by n.
+
+        On the card the step is a CUDA graph (:class:`StepGraph`): the first
+        call takes one eager step on a side stream (every kernel's first
+        launch and set-up happen there), captures the next, and replays the
+        graph for the rest; a later call with the same state, batch shapes,
+        ``ctx`` and epoch replays n times. Each replay draws new masks and
+        augmentation from ``state.generator`` (registered with the graph) and
+        equals an eager step bit for bit where the step's ops are
+        deterministic. What a step reads from the environment
+        (``SSRL_AUG_PATCHES``, ``SSRL_FUSED_EMBED``; the dense-loss switches
+        are read when the task is made) is frozen at capture. Anything that
+        cannot be captured raises: there is no eager fallback. Under a
+        process group the all-reduces are captured too, which only
+        ``nccl`` allows. On the CPU (a task made with ``device="cpu"``) it is
+        the loop of n ``train_step``s."""
+        if n < 1:
+            raise ValueError(f"n must be at least 1, got {n}")
+        if self.device.type != "cuda":
+            for _ in range(n):
+                state, sums = self.train_step(state, batch, epoch, ctx)
+            return state, sums
+        if self.axis is not None and torch.distributed.get_backend() != "nccl":
+            raise RuntimeError(
+                f"train_steps_fused captures the step's all-reduces in a CUDA graph, which "
+                f"only the nccl backend allows; this group is "
+                f"{torch.distributed.get_backend()!r}")
+        lr = self.lr_value(epoch)
+        set_learning_rate(state.opt_state, lr)
+        key = StepGraph.key_of(state, batch, epoch, ctx)
+        if self._graph is None or self._graph.key != key:
+            self._graph = None  # its memory pool goes before the next capture
+            self._graph = StepGraph(self, state, batch, epoch, ctx, key)
+            replays, sums = n - 1, self._graph.first_sums
+        else:
+            replays = n
+            self._graph.load(batch)
+        for _ in range(replays):
+            self._graph.graph.replay()
+        if replays:
+            sums = {k: v.clone() for k, v in self._graph.sums.items()}
+        state.step += n
         sums["lr"] = lr
         return state, sums
 
@@ -260,6 +326,51 @@ class Task:
             draws = self._draw_sliced(self.draw_task, generator, images.shape[0], ctx)
         sums = self.eval_metric_sums(images, batch, tuple(draws), ctx, extra=state.extra)
         return self._psum_sums(sums)
+
+
+class StepGraph:
+    """One ``Task.update`` captured in a CUDA graph, with the static batch
+    it reads. Made by ``Task.train_steps_fused``: one eager step on a side
+    stream first (the first of the caller's steps: it warms every kernel
+    route, the autograd engine and the lazy set-up a capture may not do),
+    then the capture of the next, which runs nothing until a replay. The
+    graph holds the addresses of the state's tensors, so ``key`` names
+    them, with what else the captured work depends on."""
+
+    def __init__(self, task: "Task", state: TrainState, batch: Dict[str, torch.Tensor],
+                 epoch, ctx, key: tuple):
+        self.key = key
+        dev = task.device
+        self.inputs = {k: v.clone() for k, v in batch.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.first_sums = task.update(state, self.inputs, epoch, ctx)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(state.generator)
+        with torch.cuda.graph(self.graph):
+            self.sums = task.update(state, self.inputs, epoch, ctx)
+
+    def load(self, batch: Dict[str, torch.Tensor]) -> None:
+        """Copy ``batch`` into the static inputs the graph reads."""
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+
+    @staticmethod
+    def key_of(state: TrainState, batch: Dict[str, torch.Tensor], epoch, ctx) -> tuple:
+        """What a capture is valid for: the addresses of every state tensor
+        the step reads or writes and which parameters train, the
+        generator, the batch's shapes and types, the epoch (the JEPA
+        momentum's) and ``ctx``."""
+        opt = state.opt_state
+        tensors = [*state.params.values(), *opt.mu, *opt.nu, opt.count, opt.learning_rate,
+                   *(state.extra or {}).values()]
+        return (tuple(t.data_ptr() for t in tensors),
+                tuple(p.requires_grad for p in state.params.values()),
+                id(state.generator),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()),
+                float(epoch), ctx)
 
 
 class ClassifierTask(Task):

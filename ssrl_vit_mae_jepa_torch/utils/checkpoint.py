@@ -10,7 +10,7 @@ so either package loads the other's weights:
 - ``state_dict``: the model's tensors by the reference's timm/lightly names,
   under ``model.`` (Lightning's module prefix);
 - ``optimizer``: the AdamW moments by parameter name, its step ``count``
-  and ``learning_rate`` (absent from weights-only files);
+  and ``learning_rate`` as Python numbers (absent from weights-only files);
 - ``generator``: the device generator's state and its device type;
 - ``extra``: the task's state that is not a parameter (JEPA's EMA target,
   by the encoder's names), and ``step``, the train state's step counter;
@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ssrl_vit_mae_jepa_torch.training.optim import AdamW, AdamWState
+from ssrl_vit_mae_jepa_torch.training.optim import AdamW
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
 
 FORMAT_KEY = "ssrl_vit_mae_jepa_torch"
@@ -107,8 +107,9 @@ def restore_state(ckpt: Dict[str, Any], state: TrainState, model: torch.nn.Modul
     for dst, key in ((state.opt_state.mu, "mu"), (state.opt_state.nu, "nu")):
         for t, k in zip(dst, names):
             t.copy_(opt[key][k])
-    state.opt_state = AdamWState(opt["learning_rate"], opt["count"],
-                                 state.opt_state.mu, state.opt_state.nu)
+    # in place: a captured step (``Task.train_steps_fused``) reads these tensors
+    state.opt_state.learning_rate.fill_(float(opt["learning_rate"]))
+    state.opt_state.count.fill_(int(opt["count"]))
     if ckpt["generator"]["device"] != state.generator.device.type:
         raise ValueError(f"the checkpoint's generator is on {ckpt['generator']['device']}, "
                          f"the task's on {state.generator.device.type}")

@@ -1,55 +1,91 @@
 """Checkpoint loading with prefix detection.
 
 Port of ``ssrl_vit_mae_jepa_tpu/utils/load.py`` (reference
-``scripts/utils.py:40-148``) over torch-format files: the port's own
-checkpoints (``utils/checkpoint.py``), the reference's Lightning ``.ckpt``
-and ``.pt`` state dicts, and the JAX package's exports
-(``scripts.weight_utils.convert_to_torch``, ``export_reference_weights``).
-Each loader returns state dicts by the port's (the reference's) names, as
-CPU f32 tensors. A JAX-native checkpoint (flax msgpack in a zip) is
-refused with the command that converts it.
+``scripts/utils.py:40-148``): the port's own checkpoints
+(``utils/checkpoint.py``), the reference's Lightning ``.ckpt`` and ``.pt``
+state dicts, the JAX package's exports (``export_reference_weights``,
+``convert_to_torch``) and its native checkpoints: a trainer ``.ckpt`` or a
+weights ``.pt`` as flax msgpack in a zip, read by ``utils/flax_msgpack.py``
+(no msgpack, flax or JAX needed) and mapped to the reference's names by
+``utils/interop.py``. Each loader returns state dicts by the port's (the
+reference's) names, as CPU f32 tensors.
 """
 
 from __future__ import annotations
 
-import json
-import zipfile
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ssrl_vit_mae_jepa_torch.utils import interop
+from ssrl_vit_mae_jepa_torch.utils.flax_msgpack import is_native_zip, read_native_checkpoint
 from ssrl_vit_mae_jepa_torch.utils.interop import _decoder_entries, _vit_entries
 
 ENCODER_PREFIXES = ["model.encoder.", "encoder.", "module.encoder."]
-JAX_FORMAT_KEY = "ssrl_vit_mae_jepa_tpu"
 
 State = Dict[str, torch.Tensor]
 
 
-def _is_jax_native(path: Path) -> bool:
-    try:
-        with zipfile.ZipFile(path, "r") as zf:
-            if "meta.json" not in zf.namelist():
-                return False
-            return json.loads(zf.read("meta.json")).get("__format__") == JAX_FORMAT_KEY
-    except (zipfile.BadZipFile, KeyError, ValueError):
-        return False
+def detect_kind(params: dict) -> str:
+    """The model a JAX params tree holds, as
+    ``scripts/weight_utils/convert_to_torch.py::detect_kind`` decides it:
+    ``mae`` (a decoder), ``classifier`` (a head), else ``encoder`` (a ViT,
+    the JEPA's context encoder for a JEPA tree)."""
+    if "decoder" in params:
+        return "mae"
+    if "head" in params:
+        return "classifier"
+    return "encoder"
+
+
+def numpy_tree(tree):
+    """A decoded tree with its tensors as f32 numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return tree.float().numpy() if torch.is_tensor(tree) else tree
+
+
+def native_params(path: str | Path) -> Tuple[dict, dict]:
+    """The ``params`` tree of a JAX-native checkpoint (a trainer ``.ckpt``
+    or a weights file), as nested dicts of f32 numpy arrays, and its meta
+    (``_native_params`` of the JAX package's ``utils/load.py``)."""
+    state, meta = read_native_checkpoint(path)
+    if not (isinstance(state, dict) and "params" in state):
+        raise ValueError(f"native checkpoint {path} has no params tree")
+    return numpy_tree(state["params"]), meta
+
+
+def native_state(params: dict, kind: str = "auto") -> Dict[str, np.ndarray]:
+    """A JAX params tree by the reference's names: the MAE's (lightly),
+    the classifier's, or the bare timm encoder (``params["encoder"]`` where
+    the tree has one), as ``convert_to_torch`` writes each."""
+    if kind == "auto":
+        kind = detect_kind(params)
+    if kind == "mae":
+        return interop.mae_params_to_state(params)
+    if kind == "classifier":
+        return interop.classifier_params_to_state(params)
+    if kind == "encoder":
+        return interop.vit_params_to_state(params.get("encoder", params))
+    raise ValueError(f"unknown kind: {kind}")
 
 
 def load_any(path: str | Path) -> Tuple[str, State, dict]:
-    """→ ("torch", flat state dict, meta): Lightning's ``state_dict`` is
-    unwrapped (reference ``train_mae.py:103``), and ``meta`` holds the
+    """→ ("native", state dict, meta.json) for a JAX-native checkpoint,
+    ("torch", flat state dict, meta) otherwise: Lightning's ``state_dict``
+    is unwrapped (reference ``train_mae.py:103``), and ``meta`` holds the
     file's other entries (epoch, callbacks, ...) where it has them."""
     path = Path(path)
     if not path.exists():
         raise FileNotFoundError(
-            f"Checkpoint not found: {path}: expected a torch .pt/.ckpt or a "
-            "weights export (see scripts.weight_utils)")
-    if _is_jax_native(path):
-        raise ValueError(
-            f"{path} is a JAX-native checkpoint (flax msgpack); convert it first with "
-            "`python -m scripts.weight_utils.convert_to_torch <in> <out.pt>`")
+            f"Checkpoint not found: {path}: expected a JAX-native .ckpt, a torch "
+            ".pt/.ckpt or a weights export (see scripts.weight_utils)")
+    if is_native_zip(path):
+        params, meta = native_params(path)
+        state = native_state(params)
+        return "native", {k: torch.from_numpy(v) for k, v in state.items()}, meta
     ckpt = torch.load(str(path), map_location="cpu", weights_only=False)
     meta: dict = {}
     if isinstance(ckpt, dict) and "state_dict" in ckpt:

@@ -275,6 +275,31 @@ def test_jax_export_trains_in_the_port(env, tmp_path):
                                torch.from_numpy(v)), k
 
 
+def test_jax_native_checkpoint_trains_in_the_port(env, tmp_path):
+    """A JAX-native MAE checkpoint (flax msgpack in a zip, the JAX trainer's
+    format) as ``--encoder_ckpt``: the probe's encoder is the file's, bit
+    for bit, as the JAX CLI takes it."""
+    from ssrl_vit_mae_jepa_torch.models.mae import mae_from_config
+    from ssrl_vit_mae_jepa_torch.utils.interop import mae_params_to_state
+    from ssrl_vit_mae_jepa_tpu.utils.checkpoint import save_checkpoint
+
+    model = mae_from_config(MODEL)
+    model.init_weights(torch.Generator().manual_seed(6))
+    params, _ = ti.mae_state_to_params(
+        {k: v.numpy() for k, v in model.state_dict().items()}, 2, 1)
+    path = save_checkpoint(tmp_path / "native-mae.ckpt", {"params": params}, {"epoch": 1})
+    jenc, _ = j_load.encoder_params_from_checkpoint(path, 2)  # the JAX CLI's reader takes it
+    cfg = _write_cfg(env["root"], "tiny_1ep_native.yaml", train={"total_epochs": 1})
+    trainer = t_train_mae.main(["--config", str(cfg), "--encoder_ckpt", str(path),
+                                "--output_dir_suffix", "from_native"])
+    got = trainer.task.model.state_dict()
+    want = ti.vit_params_to_timm_state(jenc)
+    for k, v in want.items():
+        assert torch.equal(got["encoder." + k], torch.from_numpy(v.copy())), k
+    assert set(want) == {k[len("encoder.vit."):] for k in mae_params_to_state(params)
+                         if k.startswith("encoder.vit.")}
+
+
 def test_step_records_and_periodic_files_match_the_jax_trainer(env, tmp_path):
     """log_every_n_steps=3, periodic_ckpt_every=1, 2 epochs of MAE: the same
     records (step, epoch, metric names) and checkpoint files as the JAX

@@ -40,7 +40,8 @@ from ssrl_vit_mae_jepa_torch.ops.attention_stacked import (
     mha_stacked_qkv_ref,
     mha_stacked_ref,
 )
-from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask
+from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask
+from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask, MAETask
 
 # (B, L, D, H): the MAE encoder and decoder at B=768; the JEPA context
 # encoder, predictor (D=96, d=16, F=384) and target encoder at B=768 (also
@@ -681,3 +682,68 @@ def test_init_state_twice_on_the_card(cuda):
     again = task.init_state(0).params
     assert set(again) == set(first)
     assert all(v.is_cuda and torch.equal(v, first[k]) for k, v in again.items())
+
+
+# ---------------------------------------------------------------------------
+# the bench's fused steps: the train step as a CUDA-graph replay
+# ---------------------------------------------------------------------------
+
+FUSED_MODEL = {**CLS_MODEL, "decoder": {"decoder_embed_dim": 48, "decoder_depth": 1,
+                                        "decoder_num_heads": 4}}
+FUSED_PRE = {"mask_ratio_start": 0.75, "mask_ratio_end": 0.75, "total_epochs": 10,
+             "warmup_epochs": 1, "batch_size": 8, "base_learning_rate": 1e-3}
+FUSED_JEPA = {**FUSED_PRE, "predictor_embed_dim": 48, "predictor_depth": 1,
+              "predictor_num_heads": 4}
+
+
+def _fused_task(kind):
+    if kind == "mae":
+        return MAETask(FUSED_MODEL, FUSED_PRE, device="cuda")
+    if kind == "jepa":
+        return JEPATask(FUSED_MODEL, FUSED_JEPA, device="cuda")
+    return ClassifierTask(CLS_MODEL, CLS_TRAIN, device="cuda")
+
+
+def _fused_state_tensors(state):
+    opt = state.opt_state
+    return [*state.params.values(), *opt.mu, *opt.nu, opt.count, opt.learning_rate,
+            *(state.extra or {}).values()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mae", "jepa", "classifier"])
+def test_fused_steps_replay_the_eager_steps(cuda, kind):
+    """``train_steps_fused(n=3)`` (one eager step, the capture, two replays)
+    and a second call (three replays) equal six ``train_step``s from the
+    same seed bit for bit: params, Adam moments, count, rate, JEPA's EMA,
+    the generator's state and the last sums. Deterministic algorithms on
+    both sides: the JEPA gather's backward adds overlapping target rows
+    with atomics otherwise."""
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (8, 96, 96, 3), generator=g, dtype=torch.uint8),
+             "label": torch.randint(0, 10, (8,), generator=g), "weight": torch.ones(8)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for fused in (False, True):
+            task = _fused_task(kind)
+            state = task.init_state(0)
+            ctx = task.epoch_context(0)
+            if fused:
+                for _ in range(2):
+                    state, sums = task.train_steps_fused(state, batch, 0, ctx, 3)
+            else:
+                for _ in range(6):
+                    state, sums = task.train_step(state, batch, 0, ctx)
+            torch.cuda.synchronize()
+            assert state.step == 6 and int(state.opt_state.count) == 6
+            runs.append((_fused_state_tensors(state), state.generator.get_state(), sums))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (ta, ga, sa), (tb, gb, sb) = runs
+    assert len(ta) == len(tb) and all(torch.equal(a, b) for a, b in zip(ta, tb))
+    assert torch.equal(ga, gb)
+    assert sa.keys() == sb.keys() and all(
+        torch.equal(sa[k], sb[k]) if torch.is_tensor(sa[k]) else sa[k] == sb[k] for k in sa)

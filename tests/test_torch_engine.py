@@ -228,11 +228,21 @@ def test_jax_export_loads_in_the_port(tmp_path):
 
 
 def test_jax_native_checkpoint_is_refused_with_the_converter(tmp_path):
+    """A JAX-native checkpoint (flax msgpack in a zip) needs no converter:
+    ``load_any`` reads it and returns the JAX export's weights
+    (``tests/test_torch_native_ckpt.py`` holds every kind)."""
     from ssrl_vit_mae_jepa_tpu.utils.checkpoint import save_checkpoint
 
-    path = save_checkpoint(tmp_path / "n.ckpt", {"params": {"w": np.zeros(2, np.float32)}})
-    with pytest.raises(ValueError, match="scripts.weight_utils.convert_to_torch"):
-        t_load.load_any(path)
+    src = _classifier_task()
+    src.init_state(3)
+    params, _ = ti.classifier_state_to_params(
+        {k: v.numpy() for k, v in src.model.state_dict().items()}, depth=2)
+    path = save_checkpoint(tmp_path / "n.ckpt", {"params": params})
+    kind, state, meta = t_load.load_any(path)
+    assert kind == "native" and meta["__format__"] == "ssrl_vit_mae_jepa_tpu"
+    want = ti.classifier_params_to_state(params)
+    assert set(state) == set(want)
+    assert all(np.array_equal(state[k].numpy(), v) for k, v in want.items())
 
 
 def test_merge_encoder_checks_shapes():

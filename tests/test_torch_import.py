@@ -1,5 +1,5 @@
-"""The PyTorch port imports neither JAX, flax, optax nor anything of the JAX
-package, and its chip smoke refuses to run without a GPU.
+"""The PyTorch port imports neither JAX, flax, optax, msgpack nor anything of
+the JAX package, and its chip smoke refuses to run without a GPU.
 
 Both checks run in a subprocess: this test process has JAX loaded already
 (``tests/conftest.py``)."""
@@ -23,7 +23,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "optax", "ssrl_vit_mae_jepa_tpu"))
+             if m.split(".")[0] in ("jax", "flax", "optax", "msgpack", "ssrl_vit_mae_jepa_tpu"))
 assert not bad, bad
 print(" ".join(names))
 """
@@ -40,13 +40,14 @@ CLI_MODULES = {"scripts.utils", "scripts.data", "scripts.training.pretrain_mae",
                "scripts.evaluation.visualize_val_acc_by_mode", "scripts.ablation.common",
                "scripts.ablation.run_pretrain_ablation", "scripts.ablation.run_train_ablation",
                "scripts.ablation.run_baseline_ablation", "scripts.weight_utils.extract_weights",
-               "scripts.weight_utils.copy_ckpts"}
+               "scripts.weight_utils.copy_ckpts", "scripts.weight_utils.convert_to_torch"}
 NEW_MODULES = {"config", "ops.jepa_masking", "ops.embed_fused", "models.jepa",
                "training.jepa_task", "ops.block_chain", "ops.block_fused",
                "models.classifier", "training.trainer", "utils.checkpoint", "utils.load",
                "utils.metrics_logger", "data.stl10", "data.pipeline", "data.loaders",
                "runtime.native", "utils.umap_np", "utils.profiling", "parallel",
-               "parallel.mesh", "parallel.multihost"} | CLI_MODULES
+               "parallel.mesh", "parallel.multihost", "bench", "utils.flops",
+               "utils.flax_msgpack"} | CLI_MODULES
 
 
 def _run(args, timeout=120):
@@ -60,7 +61,7 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 66  # every module of the port, the CLIs' among them
+    assert len(names) >= 70  # every module of the port, the CLIs' among them
     assert {f"ssrl_vit_mae_jepa_torch.{m}" for m in NEW_MODULES} <= set(names)
 
 
