@@ -2,7 +2,8 @@
 """GPU smoke test of the PyTorch port: kernels, then the MAE and JEPA
 pretraining steps, then the classifier stage and the engine under it, then
 the port's CLIs, then the lineage paths of the step and data parallelism,
-then the bench's steady-state mode (the step as a CUDA-graph replay).
+then the bench's steady-state mode (the step as a CUDA-graph replay), then
+checkpoint fidelity.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -159,6 +160,22 @@ Phases (any failure exits nonzero; nothing is caught):
      here) and trained one step on the card; (g) in a one-rank ``nccl``
      group, MAE's fused steps (the all-reduces captured) against eager
      steps over the group as in (a).
+  22. checkpoint fidelity at configs/mae.yaml's widths, on three
+     reference-layout stand-ins made from a seed with numpy (a bare timm
+     encoder, a Lightning MAE, a classifier): (a) ``parity_check`` on each
+     as a process (the three at once), ``PARITY OK``, then ``check_file`` on
+     the MAE and classifier files in this process with exactly 10 and 8
+     launches of each f32 branch kernel (the encoder's 4 blocks, then the
+     MAE's 4 + 2 or the classifier's 4); (b) the port's loaders patched to
+     swap block 0's q and k rows: ``check_file`` on the classifier file
+     prints ``PARITY FAILED``; (c) ``run_parity_protocol`` on the three
+     with a synthetic STL-10 (texture, 800 test images): ``PROTOCOL OK``,
+     Δ top-1 within 0.5 points; (d) ``convert_torch_checkpoint`` on each,
+     read back by ``load_any`` equal bit for bit; (e) a ``Trainer`` on the
+     card resumed from ``tests/fixtures/jax_native_classifier.ckpt``: params
+     and Adam moments equal the file's after the relayout, count and rate
+     equal, then one more epoch with exact launches of rows 1-5 and finite
+     losses.
 
 With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
 phase 20 (b), and ``--fused-replay OUT`` is phase 21 in a fresh process
@@ -169,7 +186,7 @@ N cards builds the kernels, runs phase 20 (b) with one process per card over
 (c) with N processes, and prints a ``{"dp_cards": ...}`` line before the
 last.
 
-Each main-path run (phases 4, 6-9, 11-15, 17-21) zeroes every launch count
+Each main-path run (phases 4, 6-9, 11-15, 17-22) zeroes every launch count
 just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
@@ -1582,20 +1599,37 @@ def env_vars(**values):
         put(old)
 
 
-def run_cli(module: str, *args, cwd=REPO, env=None) -> str:
-    """``python -m ssrl_vit_mae_jepa_torch.scripts.<module>`` in a process of
-    its own, on its default device (``SSRL_TORCH_DEVICE`` unset: the card);
-    fails the smoke test on a nonzero exit; returns its stdout."""
+def start_cli(module: str, *args, cwd=REPO, env=None) -> tuple:
+    """``python -m ssrl_vit_mae_jepa_torch.scripts.<module>`` started in a
+    process of its own, on its default device (``SSRL_TORCH_DEVICE`` unset:
+    the card), and not waited for: (process, start time, module)."""
     full = {k: v for k, v in os.environ.items() if k != "SSRL_TORCH_DEVICE"}
     full.update(env or {})
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", f"{CLI}.{module}", *map(str, args)], cwd=cwd,
-                          env=full, capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen([sys.executable, "-m", f"{CLI}.{module}", *map(str, args)],
+                            cwd=cwd, env=full, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter(), module
+
+
+def finish_cli(started: tuple) -> str:
+    """Wait for a process of ``start_cli`` (killed after 600 s); fails the
+    smoke test on a nonzero exit; returns its stdout."""
+    proc, t0, module = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
     print(f"  python -m {CLI}.{module}: exit {proc.returncode} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if proc.returncode != 0:
-        fail(f"{module} exited {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    return proc.stdout
+        fail(f"{module} exited {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+    return out
+
+
+def run_cli(module: str, *args, cwd=REPO, env=None) -> str:
+    """``start_cli`` then ``finish_cli``: the CLI's stdout."""
+    return finish_cli(start_cli(module, *args, cwd=cwd, env=env))
 
 
 def check_files(run: pathlib.Path, names) -> None:
@@ -2544,6 +2578,267 @@ def fused_replay(cfg: dict):
     return counts, timing
 
 
+# phase 22: checkpoint fidelity at configs/mae.yaml's widths: the port's
+# parity_check, run_parity_protocol and convert_torch_checkpoint on three
+# reference-layout stand-ins made from a seed, and a resume from a
+# JAX-native trainer checkpoint
+PARITY_TOL = 1e-3     # parity_check's default: features, MAE pred; logits 10x
+PARITY_BAR = 0.5      # run_parity_protocol's probe top-1 bar in points
+PARITY_FILES = {"encoder": "vit-encoder.pt", "mae": "vit-mae.ckpt",
+                "classifier": "mae_100_400.pt"}
+PARITY_DATA = (1000, 800, 100)  # train, test, unlabeled images (texture)
+
+
+def standin_block(r, D: int, prefix: str) -> dict:
+    """One timm block's tensors (torch layouts), seeded normals."""
+    return {prefix + k: r.normal(mean, std, shape) for k, (mean, std, shape) in {
+        "norm1.weight": (1, 0.02, (D,)), "norm1.bias": (0, 0.02, (D,)),
+        "attn.qkv.weight": (0, 0.05, (3 * D, D)), "attn.qkv.bias": (0, 0.02, (3 * D,)),
+        "attn.proj.weight": (0, 0.05, (D, D)), "attn.proj.bias": (0, 0.02, (D,)),
+        "norm2.weight": (1, 0.02, (D,)), "norm2.bias": (0, 0.02, (D,)),
+        "mlp.fc1.weight": (0, 0.05, (4 * D, D)), "mlp.fc1.bias": (0, 0.02, (4 * D,)),
+        "mlp.fc2.weight": (0, 0.05, (D, 4 * D)), "mlp.fc2.bias": (0, 0.02, (D,)),
+    }.items()}
+
+
+def standin_states(model_cfg: dict, seed: int = 0) -> dict:
+    """kind -> a reference-layout state dict made from ``seed`` with numpy:
+    a bare timm encoder, a Lightning MAE (``model.encoder.vit.*`` +
+    ``model.decoder.*``) and a classifier (``encoder.*`` +
+    ``head.classification.*``)."""
+    r = np.random.default_rng(seed)
+    g, e, d = model_cfg["general"], model_cfg["encoder"], model_cfg["decoder"]
+    D, Dd, p = e["embed_dim"], d["decoder_embed_dim"], g["patch_size"]
+    n_tok = (g["image_size"] // p) ** 2 + 1
+
+    def vit():
+        s = {"cls_token": r.normal(0, 0.02, (1, 1, D)),
+             "pos_embed": r.normal(0, 0.02, (1, n_tok, D)),
+             "patch_embed.proj.weight": r.normal(0, 0.05, (D, 3, p, p)),
+             "patch_embed.proj.bias": r.normal(0, 0.02, (D,)),
+             "norm.weight": r.normal(1, 0.02, (D,)), "norm.bias": r.normal(0, 0.02, (D,))}
+        for i in range(e["depth"]):
+            s.update(standin_block(r, D, f"blocks.{i}."))
+        return s
+
+    dec = {"decoder_embed.weight": r.normal(0, 0.05, (Dd, D)),
+           "decoder_embed.bias": r.normal(0, 0.02, (Dd,)),
+           "mask_token": r.normal(0, 0.02, (1, 1, Dd)),
+           "decoder_pos_embed": r.normal(0, 0.02, (1, n_tok, Dd)),
+           "decoder_norm.weight": r.normal(1, 0.02, (Dd,)),
+           "decoder_norm.bias": r.normal(0, 0.02, (Dd,)),
+           "decoder_pred.weight": r.normal(0, 0.05, (p * p * 3, Dd)),
+           "decoder_pred.bias": r.normal(0, 0.02, (p * p * 3,))}
+    for i in range(d["decoder_depth"]):
+        dec.update(standin_block(r, Dd, f"decoder_blocks.{i}."))
+    states = {
+        "encoder": vit(),
+        "mae": {**{f"model.encoder.vit.{k}": v for k, v in vit().items()},
+                **{f"model.decoder.{k}": v for k, v in dec.items()}},
+        "classifier": {**{f"encoder.{k}": v for k, v in vit().items()},
+                       "head.classification.weight": r.normal(0, 0.05, (10, D)),
+                       "head.classification.bias": r.normal(0, 0.02, (10,))},
+    }
+    return {k: {n: torch.from_numpy(v.astype(np.float32)) for n, v in st.items()}
+            for k, st in states.items()}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def parity_lines(out: str) -> str:
+    return "; ".join(x.strip() for x in out.splitlines() if "🔬" in x or "PARITY" in x)
+
+
+def check_file_quiet(pc, path, cfg) -> tuple:
+    """``parity_check.check_file`` on the card in this process: (verdict,
+    its printed lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ok = pc.check_file(path, cfg)
+    return ok, buf.getvalue()
+
+
+def resume_native(cfg: dict, data: pathlib.Path, tmp: pathlib.Path) -> dict:
+    """Phase 22 (e): a ``Trainer`` on the card resumed from the JAX-native
+    fixture (the full fine-tune at its width): params and Adam moments equal
+    the file's arrays after the relayout, count and rate equal; then one
+    more epoch through rows 1-5 with finite losses and exact launches."""
+    from ssrl_vit_mae_jepa_torch.utils.flax_msgpack import read_native_checkpoint
+    from ssrl_vit_mae_jepa_torch.utils.interop import classifier_params_to_state
+    from ssrl_vit_mae_jepa_torch.utils.load import numpy_tree
+
+    c = {**cfg, "train": {**cfg["train"], "samples_per_class": CLI_LABELS, "batch_size": 256,
+                          "freeze_encoder": False, "unfreeze_last_layers": None}}
+
+    def trainer(name: str) -> Trainer:
+        return Trainer(ClassifierTask(NATIVE_MODEL, c["train"], device="cuda"), 2, tmp / name)
+
+    tree, meta = read_native_checkpoint(NATIVE_FIXTURE)
+    adam = tree["opt_state"]["inner_state"]["inner_state"]["1"]["0"]
+    want = {k: classifier_params_to_state(numpy_tree(t))
+            for k, t in (("params", tree["params"]), ("mu", adam["mu"]), ("nu", adam["nu"]))}
+    t1 = trainer("resume_check")
+    t1.init_state()
+    start = t1._resume(NATIVE_FIXTURE)
+    st = t1.state
+    names = t1.task.tx.trainable(st.params)
+    got = {"params": {k: v.detach() for k, v in st.params.items()},
+           "mu": dict(zip(names, st.opt_state.mu)), "nu": dict(zip(names, st.opt_state.nu))}
+    differ = [f"{what} {k}" for what in got for k, v in got[what].items()
+              if not torch.equal(v.cpu(), torch.from_numpy(want[what][k]))]
+    count, lr = int(st.opt_state.count), float(st.opt_state.learning_rate)
+    want_lr = float(tree["opt_state"]["hyperparams"]["learning_rate"])
+    print(f"  resumed {NATIVE_FIXTURE.name} on the card at epoch {start}: {len(names)} tensors "
+          f"and their moments, {len(differ)} differ from the file; count {count}, lr {lr} "
+          f"(file: {int(adam['count'])}, {want_lr})", flush=True)
+    if differ or count != int(adam["count"]) or lr != want_lr or start != meta["epoch"] + 1:
+        fail(f"resume from {NATIVE_FIXTURE.name}: {differ[:8]}, count {count}, lr {lr}, "
+             f"epoch {start}")
+    ctrain, cval = get_train_dataloaders(c, data)
+    t2 = trainer("resumed")
+    reset_counts()
+    m = t2.fit(ctrain, cval, resume_from=NATIVE_FIXTURE)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    steps, evals = len(ctrain), len(cval)  # one epoch, one block
+    want_counts = expected({"attn_branch_fwd": steps, "attn_branch_bwd": steps,
+                            "mlp_branch_fwd": steps + evals, "mlp_branch_bwd": steps,
+                            "attn_branch_fwd_nograd": evals})
+    print(f"  one more epoch from it: train_loss {m.get('train_loss')}, val_loss "
+          f"{m.get('val_loss')}, launches {nonzero(counts)}", flush=True)
+    if counts != want_counts or not all(math.isfinite(m[k]) for k in ("train_loss", "val_loss")):
+        fail(f"the resumed epoch: {m}, launches {counts}, expected {want_counts}")
+    return counts
+
+
+def checkpoint_fidelity(cfg: dict) -> dict:
+    """Phase 22: (a) the three stand-ins through ``parity_check`` as
+    processes, then the MAE and classifier files in this process with
+    exact ``branch_f32`` launches; (b) a loader patched to swap block 0's q
+    and k rows fails the check; (c) ``run_parity_protocol`` on them with a
+    synthetic STL-10; (d) ``convert_torch_checkpoint`` on each, read back by
+    ``load_any`` equal bit for bit; (e) ``resume_native``. Returns the
+    launches of the in-process runs."""
+    import copy
+    import re
+    import tempfile
+
+    import yaml
+
+    from ssrl_vit_mae_jepa_torch.scripts.evaluation import parity_check as pc
+    from ssrl_vit_mae_jepa_torch.scripts.weight_utils import convert_torch_checkpoint as conv
+
+    total = dict.fromkeys(launch_counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            total[k] += v
+
+    t_phase = time.perf_counter()
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = pathlib.Path(tmp)
+        weights = tmp / "weights"
+        weights.mkdir()
+        states = standin_states(cfg["model"])
+        for kind, name in PARITY_FILES.items():
+            blob = {"state_dict": states[kind]} if kind == "mae" else states[kind]
+            torch.save(blob, weights / name)
+        n_train, n_test, n_unl = PARITY_DATA
+        write_synthetic_stl10(tmp / "data", num_train=n_train, num_test=n_test,
+                              num_unlabeled=n_unl, seed=0, class_signal="texture")
+        c = copy.deepcopy(cfg)
+        c["test"]["batch_size"] = 256
+        c["logging"]["output_dir_base"] = str(tmp / "outputs")
+        cfg_path = tmp / "parity.yaml"
+        cfg_path.write_text(yaml.safe_dump(c))
+
+        print("phase 22 (a): parity_check on the three stand-ins", flush=True)
+        started = {kind: start_cli("evaluation.parity_check", weights / name, "--config",
+                                   cfg_path) for kind, name in PARITY_FILES.items()}
+        for kind, proc in started.items():
+            out = finish_cli(proc)
+            print(f"    {PARITY_FILES[kind]}: {parity_lines(out)}", flush=True)
+            if "PARITY OK" not in out:
+                fail(f"parity_check {kind}: {out[-2000:]}")
+        f32 = list(F32_KERNELS)
+        for kind, blocks in (("mae", 4 + 4 + 2), ("classifier", 4 + 4)):
+            reset_counts()
+            ok, out = check_file_quiet(pc, weights / PARITY_FILES[kind], c)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            print(f"  check_file {PARITY_FILES[kind]} in process: {ok}, launches "
+                  f"{nonzero(got)}; {parity_lines(out)}", flush=True)
+            if not ok or got != expected(dict.fromkeys(f32, blocks)):
+                fail(f"check_file {kind}: {ok}, launches {got}, expected {blocks} of each "
+                     "f32 kernel")
+            add(got)
+
+        print("phase 22 (b): a loader that swaps block 0's q and k rows", flush=True)
+        saved = {n: getattr(pc, n) for n in ("encoder_params_from_checkpoint",
+                                             "classifier_params_from_checkpoint")}
+
+        def swap_qk(load):
+            def patched(*args, **kwargs):
+                out = load(*args, **kwargs)
+                key = next(k for k in out[0] if k.endswith("blocks.0.attn.qkv.weight"))
+                w = out[0][key]
+                n = w.shape[0] // 3
+                out[0][key] = torch.cat([w[n:2 * n], w[:n], w[2 * n:]])
+                return out
+            return patched
+
+        try:
+            for n, load in saved.items():
+                setattr(pc, n, swap_qk(load))
+            ok, out = check_file_quiet(pc, weights / PARITY_FILES["classifier"], c)
+        finally:
+            for n, load in saved.items():
+                setattr(pc, n, load)
+        print(f"  check_file {PARITY_FILES['classifier']}, q and k swapped: {ok}; "
+              f"{parity_lines(out)}", flush=True)
+        if ok or "PARITY FAILED" not in out:
+            fail("the check passed a loader that swaps q and k")
+
+        print("phase 22 (c): run_parity_protocol", flush=True)
+        out = run_cli("evaluation.run_parity_protocol", weights, "--config", cfg_path,
+                      "--data-dir", tmp / "data")
+        for line in out.splitlines():
+            if "probe top-1" in line or "golden=" in line:
+                print(f"    {line.strip()}", flush=True)
+        deltas = [float(x) for x in re.findall(r"Δ ([0-9.]+) pts", out)]
+        if "PROTOCOL OK" not in out or len(deltas) != 1 or deltas[0] > PARITY_BAR:
+            fail(f"run_parity_protocol: deltas {deltas}\n{out[-3000:]}")
+
+        print("phase 22 (d): convert_torch_checkpoint, read back by load_any", flush=True)
+        for kind, name in PARITY_FILES.items():
+            out_path = tmp / "native" / f"{kind}.ckpt"
+            got_kind = conv.main([str(weights / name), str(out_path)])
+            source, src, _ = load_any(weights / name)
+            _, state, _ = load_any(out_path)
+            if kind == "mae":
+                src = {k[len("model."):]: v for k, v in src.items()}
+            extra = set(state) - set(src)
+            same = (got_kind == kind and source == "torch" and set(src) <= set(state)
+                    and all(torch.equal(state[k], v) for k, v in src.items())
+                    and all(not state[k].any() for k in extra)
+                    and extra <= {"encoder.mask_token"})
+            print(f"  {name} -> {out_path.name} ({got_kind}): {len(src)} tensors equal bit "
+                  f"for bit: {same}; zeros added: {sorted(extra)}", flush=True)
+            if not same:
+                fail(f"convert_torch_checkpoint {kind}: the read-back differs")
+
+        print("phase 22 (e): Trainer resumed from a JAX-native trainer checkpoint", flush=True)
+        add(resume_native(cfg, tmp / "data", tmp))
+    print(f"  phase 22: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test needs an NVIDIA GPU")
@@ -2633,6 +2928,9 @@ def main() -> None:
     counts, fused_ms = fused_replay_process()
     add(counts)
     print(json.dumps({"fused_ms": fused_ms}), flush=True)
+    print("phase 22: checkpoint fidelity: parity_check, run_parity_protocol, "
+          "convert_torch_checkpoint, a resume from a JAX-native checkpoint", flush=True)
+    add(checkpoint_fidelity(cfg))
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]

@@ -42,11 +42,14 @@ from ssrl_vit_mae_jepa_torch.training.schedules import (
 )
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
 from ssrl_vit_mae_jepa_torch.training.tasks import Task, _weighted
+from ssrl_vit_mae_jepa_torch.utils.interop import jepa_params_to_state
 
 _ENC = "encoder."
 
 
 class JEPATask(Task):
+    flax_params_to_state = staticmethod(jepa_params_to_state)
+
     def __init__(self, model_cfg: dict, jepa_cfg: dict, dtype=torch.bfloat16,
                  device="cuda", attn_impl: str = "auto", augment: Optional[bool] = None):
         super().__init__(device)

@@ -57,6 +57,7 @@ from ssrl_vit_mae_jepa_torch.training.schedules import (
     warmup_cosine_factor,
 )
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
+from ssrl_vit_mae_jepa_torch.utils.interop import classifier_params_to_state, mae_params_to_state
 
 Sums = Dict[str, torch.Tensor]
 
@@ -76,12 +77,15 @@ class Task:
     ``eval_metric_sums``, ``post_update`` and ``on_fit_start`` are the JAX
     ``Task``'s (``tasks.py:134-238``). ``monitor``/``monitor_mode`` name the
     metric the trainer's best checkpoint follows; ``augment`` says whether
-    the train images are augmented."""
+    the train images are augmented; ``flax_params_to_state`` maps the JAX
+    task's params tree to the model's state dict (a resume from a JAX-native
+    checkpoint)."""
 
     model: torch.nn.Module
     monitor = "val_loss"
     monitor_mode = "min"
     augment = True
+    flax_params_to_state: Optional[Callable[[dict], Dict]] = None
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -382,6 +386,7 @@ class ClassifierTask(Task):
 
     monitor = "val_acc"
     monitor_mode = "max"
+    flax_params_to_state = staticmethod(classifier_params_to_state)
 
     def __init__(self, model_cfg: dict, training_cfg: dict, num_classes: int = 10,
                  dtype=torch.bfloat16, device="cuda", attn_impl: str = "auto",
@@ -445,6 +450,8 @@ class MAETask(Task):
     (quirk Q1). ``SSRL_MAE_DENSE_LOSS=1``, read here, takes the
     dense loss: every token predicted, the squared error weighted by the
     masked tokens' occupancy (the same loss and gradients)."""
+
+    flax_params_to_state = staticmethod(mae_params_to_state)
 
     def __init__(self, model_cfg: dict, training_cfg: dict, dtype=torch.bfloat16,
                  device="cuda", attn_impl: str = "auto"):

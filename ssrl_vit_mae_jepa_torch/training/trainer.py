@@ -29,8 +29,10 @@ but only rank 0 writes checkpoints, ``metrics.jsonl`` and the TensorBoard
 logs (``logger`` is None on the others). A resume loads the same file on
 every rank.
 
-Not ported: the orbax checkpoint backend, a JAX format (the CLIs refuse
-``ckpt_backend: orbax``).
+A resume takes the port's checkpoints and the JAX package's native trainer
+checkpoints (``utils/checkpoint.py::restore_native_state``). Not ported: the
+orbax checkpoint backend, a JAX format (the CLIs refuse ``ckpt_backend:
+orbax``).
 """
 
 from __future__ import annotations
@@ -48,10 +50,12 @@ from ssrl_vit_mae_jepa_torch.training.tasks import Task
 from ssrl_vit_mae_jepa_torch.utils.checkpoint import (
     CheckpointCallbacks,
     load_checkpoint,
+    restore_native_state,
     restore_state,
     save_checkpoint,
     state_payload,
 )
+from ssrl_vit_mae_jepa_torch.utils.flax_msgpack import is_native_zip
 from ssrl_vit_mae_jepa_torch.utils.metrics_logger import MetricsLogger
 
 EVAL_RNG_SEED = 4242
@@ -206,8 +210,14 @@ class Trainer:
         return state_payload(self.state, self.task.model.state_dict(), self.task.tx)
 
     def _resume(self, path: str | Path) -> int:
-        ckpt = load_checkpoint(path)
-        restore_state(ckpt, self.state, self.task.model, self.task.tx)
+        """Restore the state from the port's checkpoint or the JAX package's
+        native trainer checkpoint; returns the epoch to go on from."""
+        if is_native_zip(path):
+            ckpt = restore_native_state(path, self.state, self.task.model, self.task.tx,
+                                        self.task.flax_params_to_state)
+        else:
+            ckpt = load_checkpoint(path)
+            restore_state(ckpt, self.state, self.task.model, self.task.tx)
         self.global_step = int(ckpt.get("global_step", 0))
         self.callbacks.best_score = ckpt.get("callbacks", {}).get("best_model_score")
         start_epoch = int(ckpt.get("epoch", -1)) + 1

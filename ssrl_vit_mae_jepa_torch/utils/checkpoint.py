@@ -19,18 +19,30 @@ so either package loads the other's weights:
   ``weights_only``, as the JAX package's ``meta.json`` holds them.
 
 Saves are atomic: a temp file beside the target, then ``os.replace``.
+
+``restore_native_state`` resumes from the JAX package's own trainer
+checkpoint (flax msgpack in a zip, read by ``utils/flax_msgpack.py``), as
+the JAX trainer does (``training/trainer.py:276-291`` there): the params
+and Adam's moments through the task's relayout of ``utils/interop.py``,
+JEPA's EMA target through the encoder's, count, rate, step, and the
+``meta.json`` that holds epoch, global step and best score. A threefry key
+has no torch generator state: the generator is seeded from its two words.
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ssrl_vit_mae_jepa_torch.training.optim import AdamW
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
+from ssrl_vit_mae_jepa_torch.utils.flax_msgpack import read_native_checkpoint
+from ssrl_vit_mae_jepa_torch.utils.interop import vit_params_to_state
+from ssrl_vit_mae_jepa_torch.utils.load import numpy_tree
 
 FORMAT_KEY = "ssrl_vit_mae_jepa_torch"
 FORMAT_VERSION = 1
@@ -89,6 +101,15 @@ def model_state(ckpt: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if k.startswith(MODEL_PREFIX)}
 
 
+WEIGHTS_ONLY = "a weights-only checkpoint cannot resume training"
+
+
+def _check_covers(names, trainable) -> None:
+    if names != trainable:
+        raise ValueError(f"the checkpoint's optimizer covers {len(names)} tensors, "
+                         f"the task trains {len(trainable)}")
+
+
 @torch.no_grad()
 def restore_state(ckpt: Dict[str, Any], state: TrainState, model: torch.nn.Module,
                   tx: AdamW) -> TrainState:
@@ -96,14 +117,11 @@ def restore_state(ckpt: Dict[str, Any], state: TrainState, model: torch.nn.Modul
     parameters, the optimizer's moments (which must cover the names ``tx``
     trains), count and lr, the generator, the extra state and the step."""
     if "optimizer" not in ckpt:
-        raise ValueError("a weights-only checkpoint cannot resume training")
+        raise ValueError(WEIGHTS_ONLY)
     model.load_state_dict(model_state(ckpt), strict=True)
     opt = ckpt["optimizer"]
     names = list(opt["mu"])
-    trainable = tx.trainable(state.params)
-    if names != trainable:
-        raise ValueError(f"the checkpoint's optimizer covers {len(names)} tensors, "
-                         f"the task trains {len(trainable)}")
+    _check_covers(names, tx.trainable(state.params))
     for dst, key in ((state.opt_state.mu, "mu"), (state.opt_state.nu, "nu")):
         for t, k in zip(dst, names):
             t.copy_(opt[key][k])
@@ -119,6 +137,82 @@ def restore_state(ckpt: Dict[str, Any], state: TrainState, model: torch.nn.Modul
             t.copy_(ckpt["extra"][k])
     state.step = int(ckpt["step"])
     return state
+
+
+def _adam_node(tree) -> Optional[dict]:
+    """optax's ``ScaleByAdamState`` in a serialized ``opt_state``: the map
+    with ``count``, ``mu`` and ``nu``, wherever the chain put it
+    (``inner_state/1/0``, or ``inner_state/inner_state/1/0`` under
+    ``optax.masked``)."""
+    if not isinstance(tree, dict):
+        return None
+    if {"count", "mu", "nu"} <= tree.keys():
+        return tree
+    for v in tree.values():
+        found = _adam_node(v)
+        if found is not None:
+            return found
+    return None
+
+
+# ``optax.masked`` keeps a ``MaskedNode`` for each frozen leaf of a moment,
+# which flax serializes as an empty map
+def _trainable_flags(params, moment):
+    """The params' tree with ones where the moment holds an array, zeros
+    where the leaf is frozen: mapped like params, it names the trainable
+    tensors."""
+    if isinstance(params, dict):
+        return {k: _trainable_flags(v, moment[k]) for k, v in params.items()}
+    return np.full(params.shape, 0.0 if isinstance(moment, dict) else 1.0, np.float32)
+
+
+def _filled(params, moment):
+    """The moment's tree with zeros of the parameter's shape at frozen leaves."""
+    if isinstance(params, dict):
+        return {k: _filled(v, moment[k]) for k, v in params.items()}
+    return np.zeros_like(params) if isinstance(moment, dict) else moment
+
+
+@torch.no_grad()
+def restore_native_state(path: str | Path, state: TrainState, model: torch.nn.Module,
+                         tx: AdamW, params_to_state: Callable[[dict], Dict[str, np.ndarray]]
+                         ) -> Dict[str, Any]:
+    """Load a JAX-native trainer checkpoint into ``model`` and ``state`` in
+    place, as :func:`restore_state` does for the port's own; returns its
+    ``meta.json``. ``params_to_state`` is the task's flax → port relayout
+    (``utils/interop.py``); the moments have the params' tree, so it maps
+    them too. Tensors the optimizer leaves frozen must be the ones ``tx``
+    leaves frozen."""
+    tree, meta = read_native_checkpoint(path)
+    if not isinstance(tree, dict) or "opt_state" not in tree:
+        raise ValueError(WEIGHTS_ONLY)
+    params = numpy_tree(tree["params"])
+    adam = _adam_node(tree["opt_state"])
+    if adam is None:
+        raise ValueError(f"{path}: no Adam state (count, mu, nu) in its opt_state")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in params_to_state(params).items()},
+                          strict=True)
+    flags = params_to_state(_trainable_flags(params, adam["mu"]))
+    names = [k for k in state.params if flags[k].all()]
+    _check_covers(names, tx.trainable(state.params))
+    for dst, key in ((state.opt_state.mu, "mu"), (state.opt_state.nu, "nu")):
+        moments = params_to_state(_filled(params, numpy_tree(adam[key])))
+        for t, k in zip(dst, names):
+            t.copy_(torch.from_numpy(moments[k]))
+    # in place: a captured step (``Task.train_steps_fused``) reads these tensors
+    state.opt_state.learning_rate.fill_(float(tree["opt_state"]["hyperparams"]["learning_rate"]))
+    state.opt_state.count.fill_(int(adam["count"]))
+    w0, w1 = (int(w) for w in tree["rng"].numpy())
+    state.generator.manual_seed((w0 << 32) | w1)
+    if (tree.get("extra") is None) != (state.extra is None):
+        raise ValueError(f"{path}: extra state {'absent' if state.extra is not None else 'present'}"
+                         ", unlike the task's")
+    if state.extra is not None:
+        target = vit_params_to_state(numpy_tree(tree["extra"]))
+        for k, t in state.extra.items():
+            t.copy_(torch.from_numpy(target[k]))
+    state.step = int(tree["step"])
+    return meta
 
 
 class CheckpointCallbacks:

@@ -13,15 +13,37 @@ The other way, ``export_reference_weights`` writes a port model's weights as
 the reference's terminal ``.pt`` file, as the JAX package's
 ``utils/torch_interop.py::export_reference_weights`` (:324-343) does; the
 port's modules already carry the reference names, so it is a ``torch.save``.
+And ``timm_vit_to_params``, ``lightly_decoder_to_params``,
+``mae_state_to_params`` and ``classifier_state_to_params`` are copies of
+the JAX package's torch → flax maps (``utils/torch_interop.py:125-196``),
+with their reports of missing and unexpected keys, over the same tables:
+``scripts/weight_utils/convert_torch_checkpoint.py`` writes their trees as
+JAX-native checkpoints.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+ENCODER_PREFIXES = ["model.encoder.", "encoder.", "module.encoder."]
+
+
+def detect_prefix(keys: Iterable[str], candidates: List[str] = ENCODER_PREFIXES
+                  ) -> Optional[str]:
+    """The first candidate prefix present among ``keys``."""
+    keys = list(keys)
+    for p in candidates:
+        if any(k.startswith(p) for k in keys):
+            return p
+    return None
+
+
+def strip_prefix(state: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
 
 
 def _block_entries(i: int, torch_prefix: str, flax_name: str):
@@ -84,6 +106,81 @@ def _get(tree: dict, path: List[str]):
             return None
         node = node[p]
     return node
+
+
+def _set(tree: dict, path: List[str], value: np.ndarray) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _import_entries(state: Dict[str, np.ndarray], entries) -> Tuple[dict, dict]:
+    """A torch-named state dict → (flax tree, {missing, unexpected}), the
+    inverse of :func:`_export_entries`; the tree's dicts fill in the
+    tables' order, as the JAX package's ``_apply_entries`` fills them."""
+    tree: dict = {}
+    missing = []
+    for torch_key, flax_path, tform in entries:
+        if torch_key not in state:
+            missing.append(torch_key)
+            continue
+        v = state[torch_key]
+        if tform == "T":
+            v = np.ascontiguousarray(v.T)
+        elif tform == "patch":
+            # the conv weight (D, C, p, p) → the patchify-matmul kernel (C·p·p, D)
+            v = np.ascontiguousarray(v.reshape(v.shape[0], -1).T)
+        _set(tree, flax_path, v)
+    used = {k for k, _, _ in entries}
+    return tree, {"missing": missing, "unexpected": sorted(set(state) - used)}
+
+
+def timm_vit_to_params(state: Dict[str, np.ndarray], depth: int) -> Tuple[dict, dict]:
+    """A timm ViT state dict (numpy, lightly's ``vit.`` prefix accepted) →
+    (flax ``VisionTransformer`` params, {missing, unexpected})."""
+    if detect_prefix(state, ["vit."]):
+        state = {k[len("vit."):] if k.startswith("vit.") else k: v for k, v in state.items()}
+    return _import_entries(state, _vit_entries(depth))
+
+
+def lightly_decoder_to_params(state: Dict[str, np.ndarray], depth: int
+                              ) -> Tuple[dict, dict]:
+    """A lightly ``MAEDecoderTIMM`` state dict → flax ``MAEDecoder`` params."""
+    return _import_entries(state, _decoder_entries(depth))
+
+
+def mae_state_to_params(state: Dict[str, np.ndarray], depth: int, decoder_depth: int
+                        ) -> Tuple[dict, dict]:
+    """A whole MAE state dict (``encoder.*`` + ``decoder.*``, perhaps under
+    Lightning's ``model.``) → ``MaskedAutoencoder`` params; lightly's
+    encoder ``mask_token`` is reported as unexpected."""
+    if detect_prefix(state, ["model."]):
+        state = strip_prefix(state, "model.")
+    enc, enc_rep = timm_vit_to_params(strip_prefix(state, "encoder."), depth)
+    dec, dec_rep = lightly_decoder_to_params(strip_prefix(state, "decoder."), decoder_depth)
+    return {"encoder": enc, "decoder": dec}, {
+        "missing": enc_rep["missing"] + dec_rep["missing"],
+        "unexpected": enc_rep["unexpected"] + dec_rep["unexpected"]}
+
+
+def classifier_state_to_params(state: Dict[str, np.ndarray], depth: int
+                               ) -> Tuple[dict, dict]:
+    """A ``ViTClassifier`` state dict (``encoder.*`` timm keys and
+    ``head.classification.*``, perhaps under ``model.``) → its params."""
+    if detect_prefix(state, ["model."]):
+        state = strip_prefix(state, "model.")
+    enc, report = timm_vit_to_params(strip_prefix(state, "encoder."), depth)
+    tree = {"encoder": enc}
+    for name, leaf, tform in (("weight", "kernel", "T"), ("bias", "bias", None)):
+        key = f"head.classification.{name}"
+        if key in state:
+            v = state[key]
+            _set(tree, ["head", "classification", leaf],
+                 np.ascontiguousarray(v.T) if tform else v)
+        else:
+            report["missing"].append(key)
+    return tree, report
 
 
 def _export_entries(params: dict, entries, in_chans: int = 3) -> Dict[str, np.ndarray]:

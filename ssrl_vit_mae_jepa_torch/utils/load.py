@@ -14,16 +14,20 @@ reference's) names, as CPU f32 tensors.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ssrl_vit_mae_jepa_torch.utils import interop
 from ssrl_vit_mae_jepa_torch.utils.flax_msgpack import is_native_zip, read_native_checkpoint
-from ssrl_vit_mae_jepa_torch.utils.interop import _decoder_entries, _vit_entries
-
-ENCODER_PREFIXES = ["model.encoder.", "encoder.", "module.encoder."]
+from ssrl_vit_mae_jepa_torch.utils.interop import (
+    ENCODER_PREFIXES,
+    _decoder_entries,
+    _vit_entries,
+    detect_prefix,
+    strip_prefix,
+)
 
 State = Dict[str, torch.Tensor]
 
@@ -94,19 +98,6 @@ def load_any(path: str | Path) -> Tuple[str, State, dict]:
     state = {k: v.detach().float() if torch.is_tensor(v) else torch.as_tensor(v)
              for k, v in ckpt.items()}
     return "torch", state, meta
-
-
-def detect_prefix(keys, candidates: List[str] = ENCODER_PREFIXES) -> Optional[str]:
-    """The first candidate prefix present among ``keys``."""
-    keys = list(keys)
-    for p in candidates:
-        if any(k.startswith(p) for k in keys):
-            return p
-    return None
-
-
-def strip_prefix(state: State, prefix: str) -> State:
-    return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
 
 
 def _vit_names(depth: int) -> List[str]:

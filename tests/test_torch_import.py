@@ -28,8 +28,8 @@ assert not bad, bad
 print(" ".join(names))
 """
 # the modules of the JEPA slice, the fused patch embed, the chained blocks,
-# the classifier stage with its engine and data path, the CLIs and the data
-# parallelism, among all others
+# the classifier stage with its engine and data path, the CLIs, the data
+# parallelism and the checkpoint-fidelity CLIs, among all others
 CLI_MODULES = {"scripts.utils", "scripts.data", "scripts.training.pretrain_mae",
                "scripts.training.train_mae", "scripts.training.pretrain_jepa",
                "scripts.evaluation.evaluate_classifier", "scripts.evaluation.knn_eval",
@@ -40,14 +40,16 @@ CLI_MODULES = {"scripts.utils", "scripts.data", "scripts.training.pretrain_mae",
                "scripts.evaluation.visualize_val_acc_by_mode", "scripts.ablation.common",
                "scripts.ablation.run_pretrain_ablation", "scripts.ablation.run_train_ablation",
                "scripts.ablation.run_baseline_ablation", "scripts.weight_utils.extract_weights",
-               "scripts.weight_utils.copy_ckpts", "scripts.weight_utils.convert_to_torch"}
+               "scripts.weight_utils.copy_ckpts", "scripts.weight_utils.convert_to_torch",
+               "scripts.evaluation.parity_check", "scripts.evaluation.run_parity_protocol",
+               "scripts.weight_utils.convert_torch_checkpoint"}
 NEW_MODULES = {"config", "ops.jepa_masking", "ops.embed_fused", "models.jepa",
                "training.jepa_task", "ops.block_chain", "ops.block_fused",
                "models.classifier", "training.trainer", "utils.checkpoint", "utils.load",
                "utils.metrics_logger", "data.stl10", "data.pipeline", "data.loaders",
                "runtime.native", "utils.umap_np", "utils.profiling", "parallel",
                "parallel.mesh", "parallel.multihost", "bench", "utils.flops",
-               "utils.flax_msgpack"} | CLI_MODULES
+               "utils.flax_msgpack", "utils.interop"} | CLI_MODULES
 
 
 def _run(args, timeout=120):
