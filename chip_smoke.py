@@ -370,6 +370,28 @@ LOSS_RTOL = 2e-2      # bf16 step, kernels on the card vs plain on the CPU
 # tensor's largest magnitude (tests/test_torch_classifier.py's bf16 bound
 # against the JAX step); a wrong backward is off by O(1) of it
 STEP_GRAD_REL = 1e-1
+# phase 23, f32 training: the f32 kernels against their plain versions (TF32
+# off), the forward within F32_ATOL and each backward output within
+# F32_BWD_REL of the plain one's largest magnitude (+1e-6): f32 summation in
+# another order over ~1e5 rows moves it by ~1e-6 of that, a layout fault by
+# O(1); an f32 step at B=16, card vs CPU: the loss within F32_LOSS_RTOL and
+# each gradient within F32_BWD_REL of the CPU tensor's largest magnitude
+F32_BWD_REL = 1e-4
+F32_LOSS_RTOL = 1e-5
+DT_NAME = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def step_tolerances(dtype) -> tuple:
+    """(loss rtol, gradient bound) of a B=16 step, card vs CPU, at ``dtype``."""
+    return (F32_LOSS_RTOL, F32_BWD_REL) if dtype == torch.float32 else (LOSS_RTOL, STEP_GRAD_REL)
+
+
+def launch_names(per_step: dict, dtype) -> dict:
+    """Launch counts keyed for ``dtype``: an f32 kernel counts under its bf16
+    twin's key + ``_f32`` (``block_fused.LAUNCHES``, ``attention_core.LAUNCHES``)."""
+    if dtype == torch.float32:
+        return {f"{k}_f32": v for k, v in per_step.items()}
+    return per_step
 
 
 def fail(msg: str) -> None:
@@ -526,16 +548,18 @@ def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
     return r
 
 
-def branch_inputs(kind: str, L: int, D: int, seed: int, batch: int = BATCH):
-    """bf16 activations and f32 params at realistic scales, on the card."""
+def branch_inputs(kind: str, L: int, D: int, seed: int, batch: int = BATCH,
+                  dtype=torch.bfloat16):
+    """Activations (bf16, or ``dtype``) and f32 params at realistic scales,
+    on the card."""
     g = torch.Generator().manual_seed(seed)
     n = 3 * D if kind == "attn" else 4 * D
     rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     wb_in = D if kind == "attn" else n
     params = [1.0 + 0.1 * rn(D), 0.1 * rn(D), rn(n, D) * D**-0.5, 0.1 * rn(n),
               rn(D, wb_in) * wb_in**-0.5, 0.1 * rn(D)]
-    x = rn(batch, L, D).to(torch.bfloat16)
-    dy = rn(batch, L, D).to(torch.bfloat16)
+    x = rn(batch, L, D).to(dtype)
+    dy = rn(batch, L, D).to(dtype)
     return x.cuda(), dy.cuda(), [p.cuda() for p in params]
 
 
@@ -608,6 +632,13 @@ def check_kernels() -> dict:
     return {k: summarize(per[k], errs[k], STEP_CALLS) for k in KERNELS}
 
 
+def bound_f32(nbytes: float, flops: float):
+    """(ms, what bounds it): the least time for f32 work, its products at the
+    f32 CUDA-core peak (no TF32)."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def f32_bound(kind: str, B: int, L: int, D: int):
     """Least time of one f32 forward at (B, L, D), F = 4D: x read and the
     output written once, the f32 weights read once; the products (qkv 6,
@@ -618,9 +649,7 @@ def f32_bound(kind: str, B: int, L: int, D: int):
         w, flops = 4 * D * D + 6 * D, 8 * M * D * D + 4 * B * L * L * D
     else:
         w, flops = 8 * D * D + 7 * D, 16 * M * D * D
-    tb = (2 * M * D + w) * 4 / PEAK_BYTES * 1e3
-    to = flops / PEAK_F32_FLOPS * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    return bound_f32((2 * M * D + w) * 4, flops)
 
 
 def check_f32() -> dict:
@@ -845,11 +874,12 @@ def check_stack(kind: str) -> dict:
     return {k: summarize(per[k], errs[k], calls) for k in names}
 
 
-def attention_inputs(entry: str, L: int, D: int, H: int, seed: int):
-    """Unit-normal bf16 leaves of the entry's layout, and dO, on the card."""
+def attention_inputs(entry: str, L: int, D: int, H: int, seed: int, batch: int = BATCH,
+                     dtype=torch.bfloat16):
+    """Unit-normal leaves (bf16, or ``dtype``) of the entry's layout, and dO,
+    on the card."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(BATCH, L, D, generator=g).to(torch.bfloat16).cuda()
-                   for _ in range(4))
+    q, k, v, do = (torch.randn(batch, L, D, generator=g).to(dtype).cuda() for _ in range(4))
     if entry == "mha_stacked_qkv":
         return [torch.cat([q, k, v], dim=-1)], do
     if entry == "mha_pallas":
@@ -1164,8 +1194,9 @@ def flagship_images(seed: int = 0, n: int = BATCH, device="cuda"):
             "weight": torch.ones(n, device=device)}
 
 
-def timed_steps(task, state, batch, name: str, what: str):
-    """WARMUP steps, then STEPS steps between zeroed and read launch counts;
+def timed_steps(task, state, batch, name: str, what: str, device: bool = False):
+    """WARMUP steps, then STEPS steps between zeroed and read launch counts
+    (with ``device``, then the step's device time under the profiler);
     returns (state, per-step sums, launches, ms/step)."""
     ctx = task.epoch_context(0)
     torch.cuda.reset_peak_memory_stats()
@@ -1186,7 +1217,8 @@ def timed_steps(task, state, batch, name: str, what: str):
     wall = time.perf_counter() - t0
     launches = launch_counts()
     ms = start.elapsed_time(end) / STEPS
-    print(f"  {what} B={BATCH} bf16 on {name}: {ms:.3f} ms/step (CUDA events), "
+    print(f"  {what} B={BATCH} {DT_NAME[task.model.dtype]} on {name}: {ms:.3f} ms/step "
+          f"(CUDA events), "
           f"{BATCH / ms * 1e3:.1f} img/s; wall {wall / STEPS * 1e3:.3f} ms/step; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     losses = [float(s["loss_sum"]) / BATCH for s in sums]
@@ -1194,6 +1226,9 @@ def timed_steps(task, state, batch, name: str, what: str):
     print(f"  launches over {STEPS} steps: {launches}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{what}: non-finite loss: {losses}")
+    if device:
+        dev = device_ms(lambda: task.train_step(state, batch, 0, ctx), iters=3)
+        print(f"  {what}: {dev:.3f} device ms/step (torch.profiler, 3 steps)", flush=True)
     return state, sums, launches, ms
 
 
@@ -1204,19 +1239,20 @@ def check_moved(before: dict, after: dict, what: str) -> None:
 
 
 def mae_step(model_cfg: dict, name: str, impl: str, fused: bool = False,
-             pre_cfg: dict = PRE_CFG, route: str = ""):
-    """Phases 4, 6, 7, 9, 11, 12, 19: the flagship step through MAETask on
-    the card (``route`` names a lineage route of phase 19); returns its
+             pre_cfg: dict = PRE_CFG, route: str = "", dtype=torch.bfloat16):
+    """Phases 4, 6, 7, 9, 11, 12, 19, 23: the flagship step through MAETask
+    on the card (``route`` names a lineage route of phase 19); returns its
     launches and ms/step."""
     with fused_embed(fused):
-        task = MAETask(model_cfg, pre_cfg, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
+        task = MAETask(model_cfg, pre_cfg, dtype=dtype, device="cuda", attn_impl=impl)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
         what = (f"MAE step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
                 + (f" {route}" if route else ""))
-        state, _, launches, ms = timed_steps(task, state, flagship_images(), name, what)
+        state, _, launches, ms = timed_steps(task, state, flagship_images(), name, what,
+                                             device=dtype == torch.float32)
     check_moved(before, state.params, what)
-    want = expected(mae_launches(impl, fused), STEPS)
+    want = expected(launch_names(mae_launches(impl, fused), dtype), STEPS)
     if launches != want:
         fail(f"{what}: launches in {STEPS} steps {launches}, expected {want}")
     del task, state
@@ -1230,11 +1266,10 @@ def on_cpu(draws: tuple) -> tuple:
 
 
 def check_step_grads(what: str, gpu, gs, gbatch: dict, cpu, cs, cbatch: dict, draws: tuple,
-                     ctx=None) -> None:
+                     ctx=None, rel: float = STEP_GRAD_REL) -> None:
     """One step's trainable gradients, kernels on the card against the plain
     path on the CPU from the same weights and draws, before the step updates
-    the params: each within STEP_GRAD_REL of the CPU tensor's largest
-    magnitude."""
+    the params: each within ``rel`` of the CPU tensor's largest magnitude."""
     names, g_gpu, _ = gpu.gradients(gs, gbatch, ctx, draws)
     names_cpu, g_cpu, _ = cpu.gradients(cs, cbatch, ctx, on_cpu(draws))
     if names != names_cpu:
@@ -1242,22 +1277,24 @@ def check_step_grads(what: str, gpu, gs, gbatch: dict, cpu, cs, cbatch: dict, dr
     worst, worst_name = 0.0, ""
     for k, a, b in zip(names, g_gpu, g_cpu):
         err = (a.float().cpu() - b.float()).abs().max().item()
-        lim = STEP_GRAD_REL * b.float().abs().max().item() + 1e-6
+        lim = rel * b.float().abs().max().item() + 1e-6
         if err / lim > worst:
             worst, worst_name = err / lim, k
         if not err <= lim:
             fail(f"{what} gradient {k}: card vs CPU max abs err {err:.3e} > {lim:.3e}")
     print(f"  {what}: {len(names)} trainable gradients, card vs CPU, the worst at "
-          f"{worst:.3f} of its bound ({worst_name}; bound {STEP_GRAD_REL:g} of each CPU "
+          f"{worst:.3f} of its bound ({worst_name}; bound {rel:g} of each CPU "
           f"tensor's largest magnitude)")
 
 
-def cpu_agreement(model_cfg: dict, impl: str, pre_cfg: dict = PRE_CFG, route: str = "") -> None:
-    """Phases 5-7, 11, 12, 19: B=16, same weights and draws, kernels vs plain
-    CPU path."""
+def cpu_agreement(model_cfg: dict, impl: str, pre_cfg: dict = PRE_CFG, route: str = "",
+                  dtype=torch.bfloat16) -> None:
+    """Phases 5-7, 11, 12, 19, 23: B=16, same weights and draws, kernels vs
+    plain CPU path."""
     n = 16
-    gpu = MAETask(model_cfg, pre_cfg, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
-    cpu = MAETask(model_cfg, pre_cfg, dtype=torch.bfloat16, device="cpu", attn_impl=impl)
+    loss_rtol, grad_rel = step_tolerances(dtype)
+    gpu = MAETask(model_cfg, pre_cfg, dtype=dtype, device="cuda", attn_impl=impl)
+    cpu = MAETask(model_cfg, pre_cfg, dtype=dtype, device="cpu", attn_impl=impl)
     gs, cs = gpu.init_state(1), cpu.init_state(1)
     cpu.model.load_state_dict(gpu.model.state_dict())
     images = torch.from_numpy(
@@ -1266,38 +1303,38 @@ def cpu_agreement(model_cfg: dict, impl: str, pre_cfg: dict = PRE_CFG, route: st
     ctx = gpu.epoch_context(0)
     draws = gpu.draw(gs.generator, n, ctx)
     weight = torch.ones(n)
-    check_step_grads(f"attn_impl={impl} {route} B={n}", gpu, gs,
-                     {"image": images.cuda(), "weight": weight.cuda()},
-                     cpu, cs, {"image": images, "weight": weight}, draws, ctx)
+    what = f"attn_impl={impl} {route} B={n} {DT_NAME[dtype]}"
+    check_step_grads(what, gpu, gs, {"image": images.cuda(), "weight": weight.cuda()},
+                     cpu, cs, {"image": images, "weight": weight}, draws, ctx, grad_rel)
     reset_counts()
     _, s_gpu = gpu.train_step(gs, {"image": images.cuda(), "weight": weight.cuda()},
                               0, ctx, draws)
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, ctx,
                               on_cpu(draws))
-    if launch_counts() != launched or launched != expected(mae_launches(impl)):
+    if launch_counts() != launched or launched != expected(launch_names(mae_launches(impl),
+                                                                        dtype)):
         fail(f"launch counts: {launch_counts()} (the GPU step must launch one of each "
              f"kernel of attn_impl={impl} per block, the CPU step none)")
     lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
-    print(f"  attn_impl={impl} {route} B={n} loss: kernels on the card {lg:.6f}, "
-          f"plain on the CPU {lc:.6f}")
-    if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
-        fail(f"loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
+    print(f"  {what} loss: kernels on the card {lg:.7f}, plain on the CPU {lc:.7f}")
+    if not abs(lg - lc) <= loss_rtol * abs(lc):
+        fail(f"loss disagrees: {lg} vs {lc} (rtol {loss_rtol})")
 
 
 def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
-              impl: str = "auto", route: str = ""):
-    """Phases 8, 9, 13, 14, 19: the flagship JEPA step through JEPATask on
-    the card; returns its launches and ms/step."""
+              impl: str = "auto", route: str = "", dtype=torch.bfloat16):
+    """Phases 8, 9, 13, 14, 19, 23: the flagship JEPA step through JEPATask
+    on the card; returns its launches and ms/step."""
     what = (f"JEPA step attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if fused else "")
             + (f" {route}" if route else ""))
     with fused_embed(fused):
-        task = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda",
-                        attn_impl=impl)
+        task = JEPATask(model_cfg, jepa_cfg, dtype=dtype, device="cuda", attn_impl=impl)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
         extra0 = {k: v.clone() for k, v in state.extra.items()}
-        state, sums, launches, ms = timed_steps(task, state, flagship_images(), name, what)
+        state, sums, launches, ms = timed_steps(task, state, flagship_images(), name, what,
+                                                device=dtype == torch.float32)
     check_moved(before, state.params, what)
     check_moved(extra0, state.extra, what + " (EMA target)")
     metrics = task.epoch_metrics_from_sums(
@@ -1308,7 +1345,7 @@ def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
             fail(f"{what}: {k} = {metrics[k]}")
     if not metrics["train_ema_drift"] > 0:
         fail(f"{what}: the EMA target did not drift from the encoder ({metrics})")
-    want = expected(jepa_launches(fused, impl), STEPS)
+    want = expected(launch_names(jepa_launches(fused, impl), dtype), STEPS)
     if launches != want:
         fail(f"{what}: launches in {STEPS} steps {launches}, expected {want}")
     del task, state
@@ -1317,12 +1354,13 @@ def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
 
 
 def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto",
-                       route: str = "") -> None:
-    """Phases 10, 13, 14, 19: B=16, same weights, EMA and draws, kernels vs
-    plain CPU."""
+                       route: str = "", dtype=torch.bfloat16) -> None:
+    """Phases 10, 13, 14, 19, 23: B=16, same weights, EMA and draws, kernels
+    vs plain CPU."""
     n = 16
-    gpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cuda", attn_impl=impl)
-    cpu = JEPATask(model_cfg, jepa_cfg, dtype=torch.bfloat16, device="cpu", attn_impl=impl)
+    loss_rtol, grad_rel = step_tolerances(dtype)
+    gpu = JEPATask(model_cfg, jepa_cfg, dtype=dtype, device="cuda", attn_impl=impl)
+    cpu = JEPATask(model_cfg, jepa_cfg, dtype=dtype, device="cpu", attn_impl=impl)
     gs, cs = gpu.init_state(1), cpu.init_state(1)
     cpu.model.load_state_dict(gpu.model.state_dict())
     cs.extra = {k: v.cpu().clone() for k, v in gs.extra.items()}
@@ -1330,30 +1368,30 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto",
         np.random.default_rng(1).integers(0, 256, (n, 96, 96, 3)).astype(np.uint8))
     draws = gpu.draw(gs.generator, n, None)
     weight = torch.ones(n)
-    check_step_grads(f"JEPA attn_impl={impl} {route} B={n}", gpu, gs,
-                     {"image": images.cuda(), "weight": weight.cuda()},
-                     cpu, cs, {"image": images, "weight": weight}, draws)
+    what = f"JEPA attn_impl={impl} {route} B={n} {DT_NAME[dtype]}"
+    check_step_grads(what, gpu, gs, {"image": images.cuda(), "weight": weight.cuda()},
+                     cpu, cs, {"image": images, "weight": weight}, draws, rel=grad_rel)
     reset_counts()
     _, s_gpu = gpu.train_step(gs, {"image": images.cuda(), "weight": weight.cuda()},
                               0, None, draws)
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, None,
                               on_cpu(draws))
-    if launch_counts() != launched or launched != expected(jepa_launches(False, impl)):
+    want = launch_names(jepa_launches(False, impl), dtype)
+    if launch_counts() != launched or launched != expected(want):
         fail(f"launch counts: {launch_counts()} (the GPU JEPA step must launch "
-             f"{jepa_launches(False, impl)}, the CPU step nothing)")
+             f"{want}, the CPU step nothing)")
     lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
-    print(f"  JEPA attn_impl={impl} {route} B={n} loss: kernels on the card {lg:.6f}, "
-          f"plain on the CPU {lc:.6f}")
-    if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
-        fail(f"JEPA loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
+    print(f"  {what} loss: kernels on the card {lg:.7f}, plain on the CPU {lc:.7f}")
+    if not abs(lg - lc) <= loss_rtol * abs(lc):
+        fail(f"JEPA loss disagrees: {lg} vs {lc} (rtol {loss_rtol})")
 
 
 def classifier_task(model_cfg: dict, train_cfg: dict, policy: str, device: str,
-                    impl: str = "auto", augment: bool = True):
-    """``ClassifierTask`` on the configuration's train section, bf16, under
-    one freeze policy of ``FREEZE``."""
-    task = ClassifierTask(model_cfg, train_cfg, dtype=torch.bfloat16, device=device,
+                    impl: str = "auto", augment: bool = True, dtype=torch.bfloat16):
+    """``ClassifierTask`` on the configuration's train section, at ``dtype``,
+    under one freeze policy of ``FREEZE``."""
+    task = ClassifierTask(model_cfg, train_cfg, dtype=dtype, device=device,
                           attn_impl=impl, augment=augment)
     freeze_encoder, unfreeze = FREEZE[policy]
     task.set_freeze_policy(freeze_encoder=freeze_encoder, unfreeze_last_layers=unfreeze)
@@ -1373,8 +1411,8 @@ def check_frozen(task, before: dict, after: dict, what: str) -> None:
 
 
 def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple(FREEZE),
-                     augment: bool = True):
-    """Phases 15 and 19: the flagship classifier step through
+                     augment: bool = True, dtype=torch.bfloat16):
+    """Phases 15, 19 and 23: the flagship classifier step through
     ``ClassifierTask`` under each of ``policies``, then (augmentation on)
     its eval step; exact launches per step. Returns the launches and the
     ms/step of each policy."""
@@ -1382,13 +1420,15 @@ def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple
     step_ms = {}
     batch = flagship_images()
     for policy in policies:
-        task = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment)
+        task = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment,
+                               dtype=dtype)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
         what = f"classifier step {policy}" + ("" if augment else " augment off")
-        state, sums, got, step_ms[policy] = timed_steps(task, state, batch, name, what)
+        state, sums, got, step_ms[policy] = timed_steps(task, state, batch, name, what,
+                                                        device=dtype == torch.float32)
         check_frozen(task, before, state.params, what)
-        want = expected(CLS_LAUNCHES[policy], STEPS)
+        want = expected(launch_names(CLS_LAUNCHES[policy], dtype), STEPS)
         if got != want:
             fail(f"{what}: launches in {STEPS} steps {got}, expected {want}")
         metrics = task.epoch_metrics_from_sums({k: float(v) for k, v in sums[-1].items()},
@@ -1411,11 +1451,11 @@ def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple
             got = launch_counts()
             ms = start.elapsed_time(end) / STEPS
             m = task.epoch_metrics_from_sums({k: float(v) for k, v in s.items()}, "val")
-            print(f"  classifier eval step B={BATCH} bf16 on {name}: {ms:.3f} ms/step "
-                  f"(CUDA events), {BATCH / ms * 1e3:.1f} img/s; {m}", flush=True)
-            if got != expected(CLS_LAUNCHES["eval"], STEPS):
-                fail(f"classifier eval: launches in {STEPS} steps {got}, expected "
-                     f"{expected(CLS_LAUNCHES['eval'], STEPS)}")
+            print(f"  classifier eval step B={BATCH} {DT_NAME[dtype]} on {name}: {ms:.3f} "
+                  f"ms/step (CUDA events), {BATCH / ms * 1e3:.1f} img/s; {m}", flush=True)
+            want = expected(launch_names(CLS_LAUNCHES["eval"], dtype), STEPS)
+            if got != want:
+                fail(f"classifier eval: launches in {STEPS} steps {got}, expected {want}")
             if not all(math.isfinite(v) for v in m.values()):
                 fail(f"classifier eval: {m}")
             for k, v in got.items():
@@ -1426,15 +1466,18 @@ def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple
 
 
 def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict, policies=tuple(FREEZE),
-                             augment: bool = True) -> None:
-    """Phases 16 and 19: B=16, same weights and draws, kernels on the card
-    against the plain path on the CPU, under each of ``policies`` (the loss,
-    every trainable gradient, the frozen tensors' bits); then (augmentation
-    on) the eval step's sums."""
+                             augment: bool = True, dtype=torch.bfloat16) -> None:
+    """Phases 16, 19 and 23: B=16, same weights and draws, kernels on the
+    card against the plain path on the CPU, under each of ``policies`` (the
+    loss, every trainable gradient, the frozen tensors' bits); then
+    (augmentation on) the eval step's sums."""
     n = 16
+    loss_rtol, grad_rel = step_tolerances(dtype)
     for policy in policies:
-        gpu = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment)
-        cpu = classifier_task(model_cfg, train_cfg, policy, "cpu", augment=augment)
+        gpu = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment,
+                              dtype=dtype)
+        cpu = classifier_task(model_cfg, train_cfg, policy, "cpu", augment=augment,
+                              dtype=dtype)
         gs, cs = gpu.init_state(1), cpu.init_state(1)
         cpu.model.load_state_dict(gpu.model.state_dict())
         batch = flagship_images(1, n, "cpu")
@@ -1443,31 +1486,34 @@ def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict, policies=tuple(FR
             eg = gpu.eval_step(gs, {k: v.cuda() for k, v in batch.items()}, None)
             launched = launch_counts()
             ec = cpu.eval_step(cs, batch, None)
-            if launch_counts() != launched or launched != expected(CLS_LAUNCHES["eval"]):
+            want = launch_names(CLS_LAUNCHES["eval"], dtype)
+            if launch_counts() != launched or launched != expected(want):
                 fail(f"classifier eval launch counts: {launch_counts()}")
             print(f"  eval B={n}: card {({k: round(float(v), 5) for k, v in eg.items()})}, "
                   f"CPU {({k: round(float(v), 5) for k, v in ec.items()})}")
             if not abs(float(eg["acc_sum"]) - float(ec["acc_sum"])) <= 1.0:
                 fail(f"eval acc_sum disagrees: {float(eg['acc_sum'])} vs {float(ec['acc_sum'])}")
             lg, lc = float(eg["loss_sum"]), float(ec["loss_sum"])
-            if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
-                fail(f"eval loss_sum disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
+            if not abs(lg - lc) <= loss_rtol * abs(lc):
+                fail(f"eval loss_sum disagrees: {lg} vs {lc} (rtol {loss_rtol})")
         draws = gpu.draw(gs.generator, n, None)
         before = {k: v.detach().clone() for k, v in cs.params.items()}
-        check_step_grads(f"classifier {policy}", gpu, gs, {k: v.cuda() for k, v in batch.items()},
-                         cpu, cs, batch, draws)
+        check_step_grads(f"classifier {policy} {DT_NAME[dtype]}", gpu, gs,
+                         {k: v.cuda() for k, v in batch.items()}, cpu, cs, batch, draws,
+                         rel=grad_rel)
         reset_counts()
         _, s_gpu = gpu.train_step(gs, {k: v.cuda() for k, v in batch.items()}, 0, None, draws)
         launched = launch_counts()
         _, s_cpu = cpu.train_step(cs, batch, 0, None, on_cpu(draws))
-        if launch_counts() != launched or launched != expected(CLS_LAUNCHES[policy]):
+        want = launch_names(CLS_LAUNCHES[policy], dtype)
+        if launch_counts() != launched or launched != expected(want):
             fail(f"classifier {policy} launch counts: {launch_counts()}, expected "
-                 f"{CLS_LAUNCHES[policy]} on the card and nothing on the CPU")
+                 f"{want} on the card and nothing on the CPU")
         lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
-        print(f"  classifier {policy} B={n} loss: kernels on the card {lg:.6f}, plain on "
-              f"the CPU {lc:.6f}")
-        if not abs(lg - lc) <= LOSS_RTOL * abs(lc):
-            fail(f"classifier {policy} loss disagrees: {lg} vs {lc} (rtol {LOSS_RTOL})")
+        print(f"  classifier {policy} B={n} {DT_NAME[dtype]} loss: kernels on the card "
+              f"{lg:.7f}, plain on the CPU {lc:.7f}")
+        if not abs(lg - lc) <= loss_rtol * abs(lc):
+            fail(f"classifier {policy} loss disagrees: {lg} vs {lc} (rtol {loss_rtol})")
         check_frozen(cpu, before, cs.params, f"classifier {policy} on the CPU")
         check_frozen(gpu, before, gs.params, f"classifier {policy} on the card")
 
@@ -2839,34 +2885,399 @@ def checkpoint_fidelity(cfg: dict) -> dict:
     return total
 
 
+# phase 23: f32 training on the card. Rows 1, 2 and 5 at f32
+# (csrc/branch_f32.cu; row 4 at f32 is phase 3f's kernel, which the f32 step
+# runs with a gradient too) and rows 8-11 at f32 (csrc/mha_f32.cu): key ->
+# (branch, TPU kernel)
+F32_TRAIN_KERNELS = {
+    "attn_branch_fwd_f32": ("attn", _TPU + "block_pallas.py:722"),
+    "attn_branch_bwd_f32": ("attn", _TPU + "block_pallas.py:752"),
+    "mlp_branch_bwd_f32": ("mlp", _TPU + "block_pallas.py:831"),
+}
+# (B, L, D, H) checked beyond the model's geometries, correctness only: the
+# rest of tests/test_torch_cuda.py's SHAPES (head dim 12 with ragged L, L=160
+# at d=32) and of its ATTN_SHAPES (ragged L at every head dim up to 32)
+F32_ODD_SHAPES = ((3, 17, 48, 4), (2, 160, 64, 2))
+F32_ATTN_ODD = ((3, 17, 48, 4), (2, 23, 16, 2), (2, 160, 64, 2), (2, 176, 32, 2),
+                (2, 256, 64, 2)) + tuple((3, L, 2 * d, 2) for L in (1, 15, 16, 17, 33, 48, 144)
+                                         for d in (8, 16, 24, 32))
+F32_TIMING = {"iters": 5, "warmup": 2}  # the f32 kernels take ms a call at B=768
+F32_FUSED_N = 3  # phase 23 (f): replayed and eager MAE steps at f32
+F32_FIT_BATCH = 256  # phase 23 (e): 15 steps in the epoch of 3760 images
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Both TF32 switches off inside the block (an f32 product or convolution
+    in TF32 keeps three digits), restored after."""
+    was = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    print("  TF32 off for matmul and cuDNN (was "
+          f"{was[0]} / {was[1]}; restored after the phase)", flush=True)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def f32_grad_bounds(kind: str, B: int, L: int, D: int):
+    """Per-call (stash forward, backward) bounds of an f32 branch at (B, L,
+    D), F = 4D: f32 activations read and written once (the stash forward
+    writes ``a`` too; the backward reads x, dy and ``a`` and writes dx), the
+    weights read and their gradients written once; the operations of
+    ``branch_bounds`` at the f32 CUDA-core peak."""
+    M, att = B * L, B * L * L * D
+    act = M * D * 4
+    if kind == "attn":
+        w = (4 * D * D + 6 * D) * 4
+        return (bound_f32(3 * act + w, 8 * M * D * D + 4 * att),
+                bound_f32(4 * act + 2 * w, 22 * M * D * D + 10 * att))
+    w = (8 * D * D + 7 * D) * 4
+    return bound_f32(2 * act + w, 16 * M * D * D), bound_f32(3 * act + 2 * w, 40 * M * D * D)
+
+
+def check_close(what: str, names, got, want, rel: float) -> float:
+    """Each tensor within ``rel`` of its plain twin's largest magnitude
+    (+1e-6); returns the largest error."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        err = (a - b).abs().max().item()
+        lim = rel * b.abs().max().item() + 1e-6
+        if not err <= lim:
+            fail(f"{what} {name}: max abs err {err:.3e} > {lim:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_f32_branches() -> dict:
+    """Phase 23 (a): the f32 attention branch (stash forward, backward) and
+    the f32 MLP branch's backward against autograd over their plain
+    versions at f32, at the model's geometries (B=768, timed per call) and
+    F32_ODD_SHAPES: the forward within F32_ATOL, each of the seven backward
+    outputs within F32_BWD_REL; one launch of each f32 kernel and no other;
+    the no-grad forward equal to the stash forward and a second backward
+    equal to the first, bit for bit."""
+    per = {k: {} for k in F32_TRAIN_KERNELS}
+    errs = dict.fromkeys(F32_TRAIN_KERNELS, 0.0)
+    names = ["dx", "d_ln_scale", "d_ln_bias", "d_w_a", "d_b_a", "d_w_b", "d_b_b"]
+    cases = [(g, BATCH, *GEOMETRIES[g]) for g in _GRAD_GEOS] + [(None, *s) for s in F32_ODD_SHAPES]
+    for geo, B, L, D, H in cases:
+        for kind in ("attn", "mlp"):
+            x, dy, params = branch_inputs(kind, L, D, seed=B + L + D, batch=B,
+                                          dtype=torch.float32)
+            extra = (H,) if kind == "attn" else ()
+            kern = bf.fused_attn_branch if kind == "attn" else bf.fused_mlp_branch
+            ref = bf.attn_branch_ref if kind == "attn" else bf.mlp_branch_ref
+            leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+            reset_counts()
+            out_k = kern(*leaves, *extra)
+            grads_k = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
+            torch.cuda.synchronize()
+            want = {f"{kind}_branch_fwd_f32": 1, f"{kind}_branch_bwd_f32": 1}
+            if launch_counts() != expected(want):
+                fail(f"f32 {kind}: launched {nonzero(launch_counts())}, expected {want}")
+            again = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
+            with torch.no_grad():
+                out_ns = kern(x, *params, *extra)
+            out_r = ref(*leaves, *extra)
+            grads_r = torch.autograd.grad(out_r, leaves, dy, retain_graph=True)
+            torch.cuda.synchronize()
+            what = f"f32 {kind} B={B} L={L} D={D}"
+            if not (torch.equal(out_ns, out_k) and all(map(torch.equal, grads_k, again))):
+                fail(f"{what}: the no-grad forward or a second backward differs")
+            fwd_err = (out_k - out_r).abs().max().item()
+            if not fwd_err <= F32_ATOL:
+                fail(f"{what} forward: max abs err {fwd_err} > {F32_ATOL}")
+            bwd_err = check_close(what, names, grads_k, grads_r, F32_BWD_REL)
+            fwd_key = "attn_branch_fwd_f32" if kind == "attn" else None
+            bwd_key = f"{kind}_branch_bwd_f32"
+            if fwd_key:
+                errs[fwd_key] = max(errs[fwd_key], fwd_err)
+            errs[bwd_key] = max(errs[bwd_key], bwd_err)
+            line = f"  {what}: fwd max abs err {fwd_err:.3e}, bwd {bwd_err:.3e}"
+            if geo is not None:
+                (bf_ms, bf_by), (bb_ms, bb_by) = f32_grad_bounds(kind, B, L, D)
+                t_bwd = cuda_ms(lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True),
+                                **F32_TIMING)
+                t_pbwd = cuda_ms(lambda: torch.autograd.grad(out_r, leaves, dy,
+                                                             retain_graph=True), **F32_TIMING)
+                per[bwd_key][geo] = {"ms": t_bwd, "plain_ms": t_pbwd, "bound_ms": bb_ms,
+                                     "bound_by": bb_by}
+                line += f"; bwd {t_bwd:.3f} ms (plain {t_pbwd:.3f}, bound {bb_ms:.3f} by {bb_by})"
+                if fwd_key:
+                    t_fwd = cuda_ms(lambda: kern(*leaves, *extra), **F32_TIMING)
+                    t_pfwd = cuda_ms(lambda: ref(*leaves, *extra), **F32_TIMING)
+                    per[fwd_key][geo] = {"ms": t_fwd, "plain_ms": t_pfwd, "bound_ms": bf_ms,
+                                         "bound_by": bf_by}
+                    line += (f"; stash fwd {t_fwd:.3f} ms (plain {t_pfwd:.3f}, bound "
+                             f"{bf_ms:.3f} by {bf_by})")
+            print(line, flush=True)
+            del out_k, out_r, out_ns, grads_k, grads_r, again, leaves
+            torch.cuda.empty_cache()
+    return {k: summarize(per[k], errs[k], STEP_CALLS) for k in F32_TRAIN_KERNELS}
+
+
+def sdpa_f32_kernels() -> None:
+    """Which backend SDPA takes at f32 on this card (the library yardstick of
+    the f32 attention entries), as PyTorch's dispatch reports it, and the
+    kernels it runs forward and backward at the decoder's shape where the
+    profiler records them."""
+    from torch.nn.attention import SDPBackend
+
+    L, D, H = GEOMETRIES["dec"]
+    leaves, do = attention_inputs("mha_stacked", L, D, H, seed=0, dtype=torch.float32)
+    qh, doh = sdpa_inputs("mha_stacked", leaves, do, H)
+    choice = torch._fused_sdp_choice(*qh)
+    names = {b.value: name for name, b in SDPBackend.__members__.items()}
+    print(f"  SDPA at f32 takes the {names.get(choice, choice)} backend "
+          "(torch._fused_sdp_choice)", flush=True)
+    out = F.scaled_dot_product_attention(*qh)
+    for what, fn in (("fwd", lambda: F.scaled_dot_product_attention(*qh)),
+                     ("bwd", lambda: torch.autograd.grad(out, qh, doh, retain_graph=True))):
+        shares = {}
+        ms = device_ms(fn, iters=3, by_kernel=shares)
+        print(f"  SDPA at f32, {what}: {ms:.4f} device ms; kernels: "
+              f"{kernel_shares(shares) or 'not recorded'}", flush=True)
+
+
+def attention_bounds_f32(B: int, L: int, D: int):
+    """``attention_bounds`` with f32 tensors, at the f32 CUDA-core peak."""
+    act, mm = B * L * D * 4, 2 * B * L * L * D
+    return bound_f32(4 * act, 2 * mm), bound_f32(7 * act, 5 * mm)
+
+
+def check_f32_attention() -> dict:
+    """Phase 23 (a): the four attention entries at f32 (``csrc/mha_f32.cu``)
+    against their plain versions, forward within F32_ATOL and each gradient
+    within F32_BWD_REL, one launch each way under the entry's f32 key, at
+    their geometries (B=768, timed per call, SDPA at f32 as the library
+    call) and F32_ATTN_ODD."""
+    sdpa_f32_kernels()
+    res = {}
+    for entry, (kern, ref, _, _, where) in ATTENTION.items():
+        call = attention_call(entry)
+        per = {"fwd": {}, "bwd": {}}
+        err = {"fwd": 0.0, "bwd": 0.0}
+        cases = [(g, BATCH, *GEOMETRIES[g]) for g in where] + [(None, *s) for s in F32_ATTN_ODD]
+        for geo, B, L, D, H in cases:
+            leaves, do = attention_inputs(entry, L, D, H, seed=B + L + D, batch=B,
+                                          dtype=torch.float32)
+            xs = [t.clone().requires_grad_() for t in leaves]
+            reset_counts()
+            out_k = call(kern, xs, H)
+            grads_k = torch.autograd.grad(out_k, xs, do, retain_graph=True)
+            torch.cuda.synchronize()
+            want = {f"{entry}_fwd_f32": 1, f"{entry}_bwd_f32": 1}
+            if launch_counts() != expected(want):
+                fail(f"{entry} f32: launched {nonzero(launch_counts())}, expected {want}")
+            out_r = call(ref, xs, H)
+            grads_r = torch.autograd.grad(out_r, xs, do, retain_graph=True)
+            with torch.no_grad():
+                out_ng = call(kern, leaves, H)
+            torch.cuda.synchronize()
+            what = f"{entry} f32 B={B} L={L} D={D} H={H}"
+            if not torch.equal(out_ng, out_k):
+                fail(f"{what}: the no-grad forward differs from the forward")
+            fwd_err = (out_k - out_r).abs().max().item()
+            if not fwd_err <= F32_ATOL:
+                fail(f"{what} forward: max abs err {fwd_err} > {F32_ATOL}")
+            names = ["dqkv"] if len(xs) == 1 else ["dq", "dk", "dv"]
+            bwd_err = check_close(what, names, grads_k, grads_r, F32_BWD_REL)
+            err["fwd"], err["bwd"] = max(err["fwd"], fwd_err), max(err["bwd"], bwd_err)
+            if geo is not None:
+                qh, doh = sdpa_inputs(entry, leaves, do, H)
+                out_s = F.scaled_dot_product_attention(*qh)
+                with torch.no_grad():
+                    t_fwd = {"ms": cuda_ms(lambda: call(kern, leaves, H), **F32_TIMING),
+                             "plain_ms": cuda_ms(lambda: call(ref, leaves, H), **F32_TIMING),
+                             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*qh),
+                                                   **F32_TIMING)}
+                t_bwd = {
+                    "ms": cuda_ms(lambda: torch.autograd.grad(out_k, xs, do, retain_graph=True),
+                                  **F32_TIMING),
+                    "plain_ms": cuda_ms(
+                        lambda: torch.autograd.grad(out_r, xs, do, retain_graph=True),
+                        **F32_TIMING),
+                    "library_ms": cuda_ms(
+                        lambda: torch.autograd.grad(out_s, qh, doh, retain_graph=True),
+                        **F32_TIMING)}
+                (bf_ms, bf_by), (bb_ms, bb_by) = attention_bounds_f32(B, L, D)
+                per["fwd"][geo] = {**t_fwd, "bound_ms": bf_ms, "bound_by": bf_by}
+                per["bwd"][geo] = {**t_bwd, "bound_ms": bb_ms, "bound_by": bb_by}
+                print(f"  {what}: fwd {t_fwd['ms']:.3f} ms (plain {t_fwd['plain_ms']:.3f}, "
+                      f"sdpa {t_fwd['library_ms']:.3f}, bound {bf_ms:.3f}), bwd "
+                      f"{t_bwd['ms']:.3f} ms (plain {t_bwd['plain_ms']:.3f}, sdpa "
+                      f"{t_bwd['library_ms']:.3f}, bound {bb_ms:.3f}); max abs err fwd "
+                      f"{fwd_err:.3e}, bwd {bwd_err:.3e}", flush=True)
+                del out_s, qh
+            del out_k, out_r, grads_k, grads_r, xs
+        print(f"  {entry} f32: {len(cases)} shapes, max abs err fwd {err['fwd']:.3e}, "
+              f"bwd {err['bwd']:.3e}", flush=True)
+        for pas in ("fwd", "bwd"):
+            r = summarize(per[pas], err[pas], {"mae": STEP_CALLS["mae"]})
+            res[f"{entry}_{pas}_f32"] = {**r, "step": "mae"}
+    return res
+
+
+def f32_fit(cfg: dict) -> dict:
+    """Phase 23 (e): ``Trainer.fit`` of ``MAETask(dtype=torch.float32)`` for
+    one epoch on phase 17's synthetic STL-10 at B=F32_FIT_BATCH, no warm-up
+    (so that the rate is not ~0 through the epoch), a record per step: every
+    step's loss finite, the last three steps' mean below the first three's,
+    the val loss finite, and the launches of the epoch exact."""
+    import copy
+    import tempfile
+
+    c = copy.deepcopy(cfg)
+    c["pretrain"].update(batch_size=F32_FIT_BATCH, warmup_epochs=0)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        write_synthetic_stl10(tmp / "data", num_train=1000, num_test=800, num_unlabeled=4000,
+                              seed=0, class_signal="texture")
+        mtrain, mval = get_pretrain_dataloaders(c, tmp / "data")
+        reset_counts()
+        trainer = Trainer(MAETask(c["model"], c["pretrain"], dtype=torch.float32, device="cuda"),
+                          1, tmp / "mae_f32", hyper_parameters=c, log_every_n_steps=1)
+        m = trainer.fit(mtrain, mval)
+        got = launch_counts()
+        recs = [json.loads(x) for x in (tmp / "mae_f32" / "metrics.jsonl").read_text().splitlines()
+                if x]
+    losses = [r["train_loss"] for r in recs if "epoch_time_s" not in r]
+    print(f"  MAE f32 fit, 1 epoch of {len(mtrain)} steps at B={F32_FIT_BATCH}: step losses "
+          f"{[round(v, 5) for v in losses]}; val_loss {m['val_loss']:.5f}", flush=True)
+    if (len(losses) != len(mtrain) or not all(map(math.isfinite, losses + [m["val_loss"]]))
+            or not np.mean(losses[-3:]) < np.mean(losses[:3])):
+        fail(f"f32 fit: step losses {losses}, val_loss {m['val_loss']}")
+    steps, evals = len(mtrain), len(mval)
+    want = expected(launch_names({
+        "attn_branch_fwd": 6 * steps, "attn_branch_bwd": 6 * steps,
+        "mlp_branch_fwd": 6 * (steps + evals), "mlp_branch_bwd": 6 * steps,
+        "attn_branch_fwd_nograd": 6 * evals}, torch.float32))
+    if got != want:
+        fail(f"f32 fit launches {nonzero(got)}, expected {nonzero(want)}")
+    return got
+
+
+def f32_fused_equality(model_cfg: dict) -> dict:
+    """Phase 23 (f): ``train_steps_fused`` at f32: F32_FUSED_N replayed MAE
+    steps (one eager step, the capture, replays) equal as many eager steps
+    bit for bit, under deterministic algorithms; returns the host launch
+    counts of both runs."""
+    runs = []
+    with deterministic(True):
+        for fused in (False, True):
+            task = MAETask(model_cfg, PRE_CFG, dtype=torch.float32, device="cuda")
+            state = task.init_state(0)
+            batch, ctx = flagship_images(), task.epoch_context(0)
+            torch.cuda.synchronize()
+            reset_counts()
+            if fused:
+                state, sums = task.train_steps_fused(state, batch, 0, ctx, F32_FUSED_N)
+            else:
+                for _ in range(F32_FUSED_N):
+                    state, sums = task.train_step(state, batch, 0, ctx)
+            torch.cuda.synchronize()
+            runs.append((state, sums, launch_counts()))
+            del task
+    (se, sums_e, ce), (sg, sums_g, cg) = runs
+    a, b = state_tensors(se), state_tensors(sg)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    differ += [k for k in sums_e if k != "lr" and not torch.equal(sums_e[k], sums_g[k])]
+    if not torch.equal(se.generator.get_state(), sg.generator.get_state()):
+        differ.append("generator")
+    print(f"  MAE f32: {F32_FUSED_N} replayed vs eager steps, deterministic algorithms: "
+          f"{len(differ)} of {len(a) + len(sums_e)} tensors differ", flush=True)
+    if differ:
+        fail(f"f32 fused: the replayed steps differ from the eager ones in {differ[:8]}")
+    # the capture launches one step's kernels, a replay none (host counters)
+    per_step = expected(launch_names(mae_launches("auto"), torch.float32))
+    if ce != {k: v * F32_FUSED_N for k, v in per_step.items()} or cg != {
+            k: v * 2 for k, v in per_step.items()}:
+        fail(f"f32 fused: eager {nonzero(ce)}, one eager step and the capture {nonzero(cg)}")
+    del se, sg
+    torch.cuda.empty_cache()
+    return {k: ce[k] + cg[k] for k in ce}
+
+
+def f32_training(cfg: dict, name: str):
+    """Phase 23: f32 training on the card, TF32 off. Returns (the kernel
+    lines' entries, the host launch counts of the main-path runs)."""
+    model_cfg = cfg["model"]
+    jepa_cfg = {**cfg["jepa"], "batch_size": BATCH}
+    train_cfg = {**cfg["train"], "batch_size": BATCH}
+    f32 = torch.float32
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    with no_tf32():
+        print("phase 23 (a): the f32 kernels vs their plain versions", flush=True)
+        res = check_f32_branches()
+        res.update(check_f32_attention())
+        print("phase 23 (b): the MAE, JEPA and classifier steps at f32, B=768, auto", flush=True)
+        add(mae_step(model_cfg, name, "auto", dtype=f32)[0])
+        add(jepa_step(model_cfg, jepa_cfg, name, fused=False, dtype=f32)[0])
+        add(classifier_steps(model_cfg, train_cfg, name, dtype=f32)[0])
+        print("phase 23 (c): the MAE step at f32 on packed and pallas", flush=True)
+        for impl in ("packed", "pallas"):
+            add(mae_step(model_cfg, name, impl, dtype=f32)[0])
+        print("phase 23 (d): B=16 f32 steps, kernels vs plain CPU path", flush=True)
+        for impl in ("auto", "packed", "pallas"):
+            cpu_agreement(model_cfg, impl, dtype=f32)
+        jepa_cpu_agreement(model_cfg, jepa_cfg, dtype=f32)
+        classifier_cpu_agreement(model_cfg, train_cfg, dtype=f32)
+        print("phase 23 (e): Trainer.fit of the f32 MAE task, one epoch", flush=True)
+        add(f32_fit(cfg))
+        print("phase 23 (f): train_steps_fused at f32 vs eager steps", flush=True)
+        add(f32_fused_equality(model_cfg))
+    return res, counts
+
+
+@contextlib.contextmanager
+def timed_phase(times: dict, key: str, title: str):
+    """Print the phase's title, run it, then print its wall time and keep it
+    in ``times`` under ``key``."""
+    print(f"phase {key}: {title}", flush=True)
+    t0 = time.perf_counter()
+    yield
+    times[key] = round(time.perf_counter() - t0, 1)
+    print(f"  phase {key}: {times[key]} s wall", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+    times = {}
     print(f"phase 1: {card()}", flush=True)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load()
-    print(f"phase 2: built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with timed_phase(times, "2", "build the kernels"):
+        t0 = time.perf_counter()
+        lib = _build.build()
+        _build.load()
+        print(f"  built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("phase 3: branch kernels vs plain versions (B=768, bf16)", flush=True)
-    res = check_kernels()
-    print("phase 3: the branch GEMM per product vs gemm_ref and torch.matmul", flush=True)
-    print(json.dumps({"gemm_table": gemm_table()}), flush=True)
-    print("phase 3b: attention kernels vs plain versions (B=768, bf16)", flush=True)
-    res.update(check_attention())
-    print("phase 3c: patch-embed kernels vs plain version (B=768, bf16)", flush=True)
-    res.update(check_embed())
-    print("phase 3d: whole-block kernels vs plain version (B=768, bf16)", flush=True)
-    res.update(check_stack("block"))
-    print("phase 3e: chained-block kernels vs plain version (B=768, bf16)", flush=True)
-    res.update(check_stack("chain"))
-    print("phase 3f: f32 branch forwards vs plain versions (TF32 off)", flush=True)
-    res.update(check_f32())
+    with timed_phase(times, "3", "branch kernels vs plain versions (B=768, bf16)"):
+        res = check_kernels()
+        print("  the branch GEMM per product vs gemm_ref and torch.matmul", flush=True)
+        print(json.dumps({"gemm_table": gemm_table()}), flush=True)
+    with timed_phase(times, "3b", "attention kernels vs plain versions (B=768, bf16)"):
+        res.update(check_attention())
+    with timed_phase(times, "3c", "patch-embed kernels vs plain version (B=768, bf16)"):
+        res.update(check_embed())
+    with timed_phase(times, "3d", "whole-block kernels vs plain version (B=768, bf16)"):
+        res.update(check_stack("block"))
+    with timed_phase(times, "3e", "chained-block kernels vs plain version (B=768, bf16)"):
+        res.update(check_stack("chain"))
+    with timed_phase(times, "3f", "f32 branch forwards vs plain versions (TF32 off)"):
+        res.update(check_f32())
 
     cfg = load_config(REPO / "configs" / "mae.yaml")
     model_cfg = cfg["model"]
@@ -2879,58 +3290,64 @@ def main() -> None:
 
     mae_ms = {}
     for phase, impl in ((4, "auto"), (6, "packed"), (7, "pallas")):
-        print(f"phase {phase}: MAE pretraining step, attn_impl={impl}", flush=True)
-        counts, mae_ms[impl] = mae_step(model_cfg, name, impl)
-        add(counts)
-        print(f"phase {5 if impl == 'auto' else phase}: B=16 step, attn_impl={impl}, "
-              "kernels vs plain CPU path", flush=True)
-        cpu_agreement(model_cfg, impl)
-    print("phase 8: JEPA pretraining step, attn_impl=auto", flush=True)
-    add(jepa_step(model_cfg, jepa_cfg, name, fused=False)[0])
-    print("phase 9: JEPA and MAE steps with SSRL_FUSED_EMBED=1", flush=True)
-    add(jepa_step(model_cfg, jepa_cfg, name, fused=True)[0])
-    add(mae_step(model_cfg, name, "auto", fused=True)[0])
-    print("phase 10: B=16 JEPA step, kernels vs plain CPU path", flush=True)
-    jepa_cpu_agreement(model_cfg, jepa_cfg)
+        with timed_phase(times, str(phase), f"MAE pretraining step, attn_impl={impl}"):
+            counts, mae_ms[impl] = mae_step(model_cfg, name, impl)
+            add(counts)
+        with timed_phase(times, "5" if impl == "auto" else f"{phase} (B=16)",
+                         f"B=16 step, attn_impl={impl}, kernels vs plain CPU path"):
+            cpu_agreement(model_cfg, impl)
+    with timed_phase(times, "8", "JEPA pretraining step, attn_impl=auto"):
+        add(jepa_step(model_cfg, jepa_cfg, name, fused=False)[0])
+    with timed_phase(times, "9", "JEPA and MAE steps with SSRL_FUSED_EMBED=1"):
+        add(jepa_step(model_cfg, jepa_cfg, name, fused=True)[0])
+        add(mae_step(model_cfg, name, "auto", fused=True)[0])
+    with timed_phase(times, "10", "B=16 JEPA step, kernels vs plain CPU path"):
+        jepa_cpu_agreement(model_cfg, jepa_cfg)
     for phase, impl in ((11, "block"), (12, "chain")):
-        print(f"phase {phase}: MAE pretraining step, attn_impl={impl}, then B=16 "
-              "kernels vs plain CPU path", flush=True)
-        add(mae_step(model_cfg, name, impl)[0])
-        cpu_agreement(model_cfg, impl)
+        with timed_phase(times, str(phase), f"MAE pretraining step, attn_impl={impl}, then "
+                         "B=16 kernels vs plain CPU path"):
+            add(mae_step(model_cfg, name, impl)[0])
+            cpu_agreement(model_cfg, impl)
     for phase, impl in ((13, "block"), (14, "chain")):
-        print(f"phase {phase}: JEPA pretraining step, attn_impl={impl}, then B=16 "
-              "kernels vs plain CPU path", flush=True)
-        add(jepa_step(model_cfg, jepa_cfg, name, fused=False, impl=impl)[0])
-        jepa_cpu_agreement(model_cfg, jepa_cfg, impl)
+        with timed_phase(times, str(phase), f"JEPA pretraining step, attn_impl={impl}, then "
+                         "B=16 kernels vs plain CPU path"):
+            add(jepa_step(model_cfg, jepa_cfg, name, fused=False, impl=impl)[0])
+            jepa_cpu_agreement(model_cfg, jepa_cfg, impl)
     train_cfg = {**cfg["train"], "batch_size": BATCH}
-    print("phase 15: classifier step (full fine-tune, probe, unfreeze 2) and eval step, "
-          "attn_impl=auto", flush=True)
-    add(classifier_steps(model_cfg, train_cfg, name)[0])
-    print("phase 16: B=16 classifier steps and eval step, kernels vs plain CPU path",
-          flush=True)
-    classifier_cpu_agreement(model_cfg, train_cfg)
-    print("phase 17: the stage end to end: MAE fit, classifier fit from its best.ckpt, "
-          "test, resume", flush=True)
-    add(stage_end_to_end(cfg, mae_ms["auto"]))
-    print("phase 18: the CLIs on the card: pretrain, probe, evaluate, JEPA, k-NN, features, "
-          "reconstruction, ablation cells", flush=True)
-    add(cli_end_to_end(cfg))
-    print("phase 19: the lineage paths: MAE (augment off, SSRL_AUG_PATCHES=0, dense loss), "
-          "JEPA (augment off, dense loss), classifier full fine-tune (augment off)", flush=True)
-    counts, lineage_ms = lineage_paths(cfg, name)
-    add(counts)
-    print(json.dumps({"lineage_ms": lineage_ms}), flush=True)
-    print("phase 20: data parallelism on the card: a one-rank nccl group, two gloo ranks, "
-          "pretrain_mae under torch.distributed.run", flush=True)
-    add(data_parallel(cfg))
-    print("phase 21: the bench's steady-state mode: the train step as a CUDA-graph replay",
-          flush=True)
-    counts, fused_ms = fused_replay_process()
-    add(counts)
-    print(json.dumps({"fused_ms": fused_ms}), flush=True)
-    print("phase 22: checkpoint fidelity: parity_check, run_parity_protocol, "
-          "convert_torch_checkpoint, a resume from a JAX-native checkpoint", flush=True)
-    add(checkpoint_fidelity(cfg))
+    with timed_phase(times, "15", "classifier step (full fine-tune, probe, unfreeze 2) and "
+                     "eval step, attn_impl=auto"):
+        add(classifier_steps(model_cfg, train_cfg, name)[0])
+    with timed_phase(times, "16", "B=16 classifier steps and eval step, kernels vs plain "
+                     "CPU path"):
+        classifier_cpu_agreement(model_cfg, train_cfg)
+    with timed_phase(times, "17", "the stage end to end: MAE fit, classifier fit from its "
+                     "best.ckpt, test, resume"):
+        add(stage_end_to_end(cfg, mae_ms["auto"]))
+    with timed_phase(times, "18", "the CLIs on the card: pretrain, probe, evaluate, JEPA, "
+                     "k-NN, features, reconstruction, ablation cells"):
+        add(cli_end_to_end(cfg))
+    with timed_phase(times, "19", "the lineage paths: MAE (augment off, SSRL_AUG_PATCHES=0, "
+                     "dense loss), JEPA (augment off, dense loss), classifier full fine-tune "
+                     "(augment off)"):
+        counts, lineage_ms = lineage_paths(cfg, name)
+        add(counts)
+        print(json.dumps({"lineage_ms": lineage_ms}), flush=True)
+    with timed_phase(times, "20", "data parallelism on the card: a one-rank nccl group, two "
+                     "gloo ranks, pretrain_mae under torch.distributed.run"):
+        add(data_parallel(cfg))
+    with timed_phase(times, "21", "the bench's steady-state mode: the train step as a "
+                     "CUDA-graph replay"):
+        counts, fused_ms = fused_replay_process()
+        add(counts)
+        print(json.dumps({"fused_ms": fused_ms}), flush=True)
+    with timed_phase(times, "22", "checkpoint fidelity: parity_check, run_parity_protocol, "
+                     "convert_torch_checkpoint, a resume from a JAX-native checkpoint"):
+        add(checkpoint_fidelity(cfg))
+    with timed_phase(times, "23", "f32 training: the f32 kernels, the MAE, JEPA and "
+                     "classifier steps at f32, Trainer.fit, fused replays"):
+        f32_res, counts = f32_training(cfg, name)
+        res.update(f32_res)
+        add(counts)
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]
@@ -2945,6 +3362,11 @@ def main() -> None:
              for k, replaces in CHAIN_KERNELS.items()]
     rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/branch_f32.cu", replaces)
              for k, (_, replaces) in F32_KERNELS.items()]
+    rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/branch_f32.cu", replaces)
+             for k, (_, replaces) in F32_TRAIN_KERNELS.items()]
+    rows += [(f"{entry}_{pas}_f32", "ssrl_vit_mae_jepa_torch/csrc/mha_f32.cu", replaces)
+             for entry, (*_, r_fwd, r_bwd, _) in ATTENTION.items()
+             for pas, replaces in (("fwd", r_fwd), ("bwd", r_bwd))]
     kernels = []
     for k, src, replaces in rows:
         r = res[k]
@@ -2957,6 +3379,8 @@ def main() -> None:
             **{kk: v for kk, v in r.items() if kk not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    times["total"] = round(time.perf_counter() - t_start, 1)
+    print(json.dumps({"phase_s": times}), flush=True)
     print(card())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,64 +1,74 @@
-// f32 forward of the two residual branches of a pre-LN transformer block on
-// Hopper (sm_90a), for the callers that run a model in f32 without a gradient
-// (the feature, k-NN and reconstruction entry points):
+// f32 forward and backward of the two residual branches of a pre-LN
+// transformer block on Hopper (sm_90a), for a model that runs in f32:
 //   attn: out = x + (MHA(LN1(x) @ Wqkv^T + bqkv) @ Wp^T + bp)
 //   mlp:  out = x + (gelu(LN2(x) @ W1^T + b1) @ W2^T + b2)
 //
 // Replaces the f32 instantiation of the TPU kernels of
-// ssrl_vit_mae_jepa_tpu/ops/block_pallas.py: _ab_fwd_only (:692, the
-// stash-free attention-branch forward, body _attn_branch_fwd_only_kernel) and
-// _mb_fwd (:807, body _mlp_branch_fwd_kernel). The bf16 kernels of the same
-// functions are attn_branch.cu and mlp_branch.cu.
+// ssrl_vit_mae_jepa_tpu/ops/block_pallas.py: _ab_fwd (:722, the attention
+// branch's training forward, which stashes the attention output `a`),
+// _ab_fwd_only (:692, the same without the stash), _ab_bwd (:752, body
+// _attn_branch_bwd_kernel :573-614), _mb_fwd (:807) and _mb_bwd (:831, body
+// _mlp_branch_bwd_kernel :622-651). The bf16 kernels of the same functions
+// are attn_branch.cu and mlp_branch.cu; the attention core is mha_f32.cu.
 //
-// Numerics contract (block_pallas.py:28-32 at f32): f32 operands, f32
-// accumulation, no TF32 and no rounding point anywhere; LayerNorm statistics
-// two-pass with eps 1e-6; q scaled by d^-1/2 before the scores; softmax in
-// f32 (max-subtracted, expf); exact erf GELU (erff). The plain versions are
-// ops/block_fused.py::attn_branch_ref and mlp_branch_ref at f32.
+// Numerics contract (block_pallas.py:28-32 at f32, where every cast is a
+// no-op): f32 operands, f32 accumulation, no TF32 and no rounding point
+// anywhere; LayerNorm statistics two-pass with eps 1e-6; q scaled by d^-1/2
+// before the scores; softmax in f32 (max-subtracted, expf); exact erf GELU
+// (erff; the TPU kernels use a rational erf within 1.5e-7 of it). The plain
+// versions are ops/block_fused.py::attn_branch_ref / mlp_branch_ref (forward)
+// and attn_bwd_plain / mlp_bwd_plain (backward) at f32.
+//
+// Backward sequences (the TPU bodies', recomputing from x as they do):
+//   attn: y1 = LN1(x); qkv = y1 Wqkv^T + bqkv; dWp = gy^T a; da = gy Wp;
+//         (dq, dk, dv) = the attention backward of (qkv, da) into dqkv;
+//         dWqkv = dqkv^T y1; dbqkv = colsum(dqkv); dy1 = dqkv Wqkv;
+//         dx = gy + LN1'(dy1); d ln1 and dbp = colsum(gy) from the LN
+//         backward's partials.
+//   mlp:  y2 = LN2(x); z = y2 W1^T + b1, h = gelu(z); dW2 = gy^T h;
+//         dz = (gy W2) o gelu'(z); dW1 = dz^T y2; db1 = colsum(dz);
+//         dy2 = dz W1; dx = gy + LN2'(dy2); d ln2 and db2 as above.
+// Weight gradients are TN products split over the B*L rows into f32
+// partials, then reduced column by column in one fixed order (common.cuh::
+// reduce_rows), as attn_branch.cu does; no atomics anywhere, so two calls
+// give the same bits and a CUDA-graph replay equals the eager step.
 //
 // What bounds it on the H100: the f32 products run on the CUDA cores (67
-// TFLOP/s, no tensor-core path without TF32). At B=256, L=145, D=144 a block
-// does ~20 GFLOP against ~0.2 GB of f32 activations, so it is bound by
-// operations (~0.3 ms a block at peak).
+// TFLOP/s, no tensor-core path without TF32). At B=768, L=145, D=192 a
+// branch forward does ~50-90 GFLOP and its backward ~2.5x that against
+// well under 1 GB of f32 activations, so it is bound by operations.
 //
 // What this design does about it: little, on purpose -- it is the first,
-// simple version. A warp-per-row LayerNorm pass; a 64x64x16 shared-memory
-// SIMT GEMM (256 threads, 4x4 outputs each, float4 reads from shared memory)
-// whose epilogue adds the bias and applies the GELU or the residual from
-// registers; and an attention core with one block per (image, head, 32 query
-// rows) that keeps K, V, the scaled Q rows and their f32 scores (32 x L) in
-// shared memory. Intermediates (y, qkv, a, h) go through device memory.
-#include <cuda_runtime.h>
+// simple version, right before fast. A warp-per-row LayerNorm pass (forward,
+// and a backward that also writes its column partials); one 64x64x16
+// shared-memory SIMT GEMM (256 threads, 4x4 outputs each, float4 reads from
+// shared memory) in three layouts, whose epilogue adds the bias and applies
+// the GELU, its derivative or the residual from registers; the attention
+// core of mha_f32.cu. Intermediates (y, qkv, a, z, h and their gradients) go
+// through device memory.
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
+#include "mha.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-6f;
-constexpr float kInvSqrt2 = 0.7071067811865476f;
+// the SIMT GEMM's epilogues (F_NONE writes the raw f32 sum: the TN
+// partials and the data gradients)
+enum F32Epi { F_NONE = 0, F_BIAS, F_BIAS_GELU, F_BIAS_RESID, F_BIAS_GELU_Z, F_GELU_BWD };
 
-enum Epi { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESID = 2 };
-
-inline int cdiv_i(long long a, long long b) { return (int)((a + b - 1) / b); }
-inline size_t align256(size_t b) { return (b + 255) & ~(size_t)255; }
-
-__device__ __forceinline__ float wsum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float gelu_erf(float z) {
+  return 0.5f * z * (1.f + erff(z * kInvSqrt2));
 }
 
-__device__ __forceinline__ float wmax(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// d gelu / dz = Phi(z) + z * phi(z), with the exact erf
+__device__ __forceinline__ float gelu_erf_grad(float z) {
+  return 0.5f * (1.f + erff(z * kInvSqrt2)) + z * expf(-0.5f * z * z) * kInvSqrt2Pi;
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm, one warp per row, any D
+// LayerNorm, one warp per row: the forward for any D, the backward for D <= 256
 // ---------------------------------------------------------------------------
-
-constexpr int LN_WARPS = 8;
 
 __global__ void ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ s,
                               const float* __restrict__ b, float* __restrict__ y, int M,
@@ -69,55 +79,171 @@ __global__ void ln_f32_kernel(const float* __restrict__ x, const float* __restri
   const float* xr = x + (size_t)row * D;
   float t = 0.f;
   for (int c = lane; c < D; c += 32) t += xr[c];
-  const float mu = wsum(t) / (float)D;
+  const float mu = warp_sum(t) / (float)D;
   float q = 0.f;
   for (int c = lane; c < D; c += 32) {
     const float d = xr[c] - mu;
     q += d * d;
   }
-  const float inv = 1.f / sqrtf(wsum(q) / (float)D + kEps);
+  const float inv = 1.f / sqrtf(warp_sum(q) / (float)D + kLnEps);
   float* yr = y + (size_t)row * D;
   for (int c = lane; c < D; c += 32) yr[c] = (xr[c] - mu) * inv * s[c] + b[c];
 }
 
+// dx = gy + LN'(dy) from the f32 x, dy and gy, with the statistics of
+// ln_f32_kernel; per-block partial column sums of [dy * xhat | dy | gy] ->
+// part[blockIdx.x][3][D] (the LN scale and bias gradients and the branch
+// output's bias gradient).
+__global__ void ln_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ s,
+                                  const float* __restrict__ dy, const float* __restrict__ gy,
+                                  float* __restrict__ dx, float* __restrict__ part, int M,
+                                  int D, int rows_per_block) {
+  __shared__ float red[LN_WARPS][3][256];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float as[LN_MAXV], ab[LN_MAXV], ag[LN_MAXV];
+#pragma unroll
+  for (int i = 0; i < LN_MAXV; ++i) as[i] = ab[i] = ag[i] = 0.f;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(M, r0 + rows_per_block);
+  for (int row = r0 + warp; row < r1; row += LN_WARPS) {
+    const size_t base = (size_t)row * D;
+    float v[LN_MAXV], g0[LN_MAXV], d[LN_MAXV];
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < LN_MAXV; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < D ? x[base + c] : 0.f;
+      t += v[i];
+    }
+    const float mu = warp_sum(t) / (float)D;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < LN_MAXV; ++i) {
+      const float dv = (lane + 32 * i < D) ? v[i] - mu : 0.f;
+      q += dv * dv;
+    }
+    const float inv = 1.f / sqrtf(warp_sum(q) / (float)D + kLnEps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < LN_MAXV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < D) {
+        v[i] = (v[i] - mu) * inv;  // xhat
+        d[i] = dy[base + c];
+        g0[i] = d[i] * s[c];
+      } else {
+        v[i] = d[i] = g0[i] = 0.f;
+      }
+      s1 += g0[i];
+      s2 += g0[i] * v[i];
+    }
+    const float m1 = warp_sum(s1) / (float)D;
+    const float m2 = warp_sum(s2) / (float)D;
+#pragma unroll
+    for (int i = 0; i < LN_MAXV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < D) {
+        const float g = gy[base + c];
+        dx[base + c] = g + (g0[i] - m1 - v[i] * m2) * inv;
+        as[i] += d[i] * v[i];
+        ab[i] += d[i];
+        ag[i] += g;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LN_MAXV; ++i) {
+    const int c = lane + 32 * i;
+    red[warp][0][c] = as[i];
+    red[warp][1][c] = ab[i];
+    red[warp][2][c] = ag[i];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 3 * D; j += blockDim.x) {
+    const int k = j / D, c = j - k * D;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < LN_WARPS; ++w) t += red[w][k][c];
+    part[(size_t)blockIdx.x * 3 * D + j] = t;
+  }
+}
+
+void launch_ln(const float* x, const float* s, const float* b, float* y, int M, int D,
+               cudaStream_t st) {
+  ln_f32_kernel<<<cdiv(M, LN_WARPS), 32 * LN_WARPS, 0, st>>>(x, s, b, y, M, D);
+}
+
+// LN backward, then its partials reduced into out3 = [d scale | d bias | sum gy].
+cudaError_t launch_ln_bwd_f32(const float* x, const float* s, const float* dy,
+                              const float* gy, float* dx, float* out3, float* part,
+                              float* tmp, int M, int D, cudaStream_t st) {
+  const int nb = ln_bwd_blocks(M);
+  ln_bwd_f32_kernel<<<nb, 32 * LN_WARPS, 0, st>>>(x, s, dy, gy, dx, part, M, D,
+                                                  cdiv(M, nb));
+  SSRL_TRY(cudaGetLastError());
+  reduce_rows(part, nb, 3 * D, out3, tmp, st);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
-// C[M][N] = epi(A[M][K] @ W[N][K]^T + bias[N]) (W in torch Linear layout)
+// The SIMT GEMM, C[M][N] = sum_k A(m, k) B(k, n), in the layouts of gemm.cuh:
+//   NT: A[M][K], B[N][K] (x @ W^T, W in torch Linear layout)
+//   NN: A[M][K], B[K][N] (dY @ W)
+//   TN: A[K][M], B[K][N] (dY^T @ X over the B*L rows; gridDim.z splits K
+//       into chunks of k_chunk rows, each writing its partial C + z*M*N)
 // ---------------------------------------------------------------------------
 
 constexpr int GBM = 64, GBN = 64, GBK = 16, GTHREADS = 256;
+constexpr int TN_SPLITS = 64;  // at most: reduce_rows then takes one pass
 
-template <int EPI>
+template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(GTHREADS)
-    gemm_nt_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                       const float* __restrict__ bias, const float* __restrict__ R,
-                       float* __restrict__ C, int M, int N, int K) {
+    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                    const float* __restrict__ bias, const float* __restrict__ R,
+                    float* __restrict__ C, float* __restrict__ Z, int M, int N, int K,
+                    int k_chunk) {
   // +4 keeps each row 16-byte aligned for the float4 reads
   __shared__ __align__(16) float As[GBK][GBM + 4];
-  __shared__ __align__(16) float Ws[GBK][GBN + 4];
+  __shared__ __align__(16) float Bs[GBK][GBN + 4];
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const int kb = LAYOUT == ssrl::GEMM_TN ? blockIdx.z * k_chunk : 0;
+  const int ke = LAYOUT == ssrl::GEMM_TN ? min(K, kb + k_chunk) : K;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += GBK) {
+  for (int k0 = kb; k0 < ke; k0 += GBK) {
 #pragma unroll
     for (int i = 0; i < (GBM * GBK) / GTHREADS; ++i) {
       const int idx = tid + GTHREADS * i;
-      const int r = idx / GBK, kk = idx % GBK;
-      const int gk = k0 + kk;
-      const int gm = m0 + r, gn = n0 + r;
-      As[kk][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-      Ws[kk][r] = (gn < N && gk < K) ? W[(size_t)gn * K + gk] : 0.f;
+      if (LAYOUT == ssrl::GEMM_TN) {  // A[K][M]: neighbouring threads on m
+        const int kk = idx / GBM, r = idx % GBM;
+        const int gk = k0 + kk, gm = m0 + r;
+        As[kk][r] = (gm < M && gk < ke) ? A[(size_t)gk * M + gm] : 0.f;
+      } else {  // A[M][K]: neighbouring threads on k
+        const int r = idx / GBK, kk = idx % GBK;
+        const int gk = k0 + kk, gm = m0 + r;
+        As[kk][r] = (gm < M && gk < ke) ? A[(size_t)gm * K + gk] : 0.f;
+      }
+      if (LAYOUT == ssrl::GEMM_NT) {  // B[N][K]
+        const int r = idx / GBK, kk = idx % GBK;
+        const int gk = k0 + kk, gn = n0 + r;
+        Bs[kk][r] = (gn < N && gk < ke) ? B[(size_t)gn * K + gk] : 0.f;
+      } else {  // B[K][N]
+        const int kk = idx / GBN, r = idx % GBN;
+        const int gk = k0 + kk, gn = n0 + r;
+        Bs[kk][r] = (gn < N && gk < ke) ? B[(size_t)gk * N + gn] : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < GBK; ++kk) {
       const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
+      const float4 w = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w};
       const float wv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -128,6 +254,7 @@ __global__ void __launch_bounds__(GTHREADS)
     __syncthreads();
   }
 
+  float* Cz = LAYOUT == ssrl::GEMM_TN ? C + (size_t)blockIdx.z * M * N : C;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
@@ -136,176 +263,220 @@ __global__ void __launch_bounds__(GTHREADS)
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
       if (n >= N) continue;
-      float v = acc[i][j] + bias[n];
-      if (EPI == EPI_BIAS_GELU) v = 0.5f * v * (1.f + erff(v * kInvSqrt2));
-      if (EPI == EPI_BIAS_RESID) v = R[(size_t)m * N + n] + v;
-      C[(size_t)m * N + n] = v;
+      const size_t o = (size_t)m * N + n;
+      float v = acc[i][j];
+      if (EPI == F_GELU_BWD) v *= gelu_erf_grad(R[o]);
+      if (EPI == F_BIAS || EPI == F_BIAS_GELU || EPI == F_BIAS_RESID || EPI == F_BIAS_GELU_Z)
+        v += bias[n];
+      if (EPI == F_BIAS_GELU_Z) Z[o] = v;
+      if (EPI == F_BIAS_GELU || EPI == F_BIAS_GELU_Z) v = gelu_erf(v);
+      if (EPI == F_BIAS_RESID) v = R[o] + v;
+      Cz[o] = v;
     }
   }
 }
 
-template <int EPI>
-cudaError_t gemm_nt_f32(const float* A, const float* W, const float* bias, const float* R,
-                        float* C, int M, int N, int K, cudaStream_t st) {
-  const dim3 grid(cdiv_i(N, GBN), cdiv_i(M, GBM));
-  gemm_nt_f32_kernel<EPI><<<grid, GTHREADS, 0, st>>>(A, W, bias, R, C, M, N, K);
+template <int LAYOUT, int EPI = F_NONE>
+cudaError_t gemm_f32(const float* A, const float* B, const float* bias, const float* R,
+                     float* C, float* Z, int M, int N, int K, cudaStream_t st) {
+  dim3 grid(cdiv(N, GBN), cdiv(M, GBM));
+  gemm_f32_kernel<LAYOUT, EPI><<<grid, GTHREADS, 0, st>>>(A, B, bias, R, C, Z, M, N, K, 0);
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Attention core: a[b, l, h*d + c] = softmax(q k^T * scale) v, from the
-// (B*L, 3D) qkv rows (q | k | v, head h at columns h*d of each)
-// ---------------------------------------------------------------------------
+// The row chunk of a TN product over K rows: a multiple of GBK, in at most
+// TN_SPLITS chunks.
+int tn_chunk(int K) { return cdiv(cdiv(K, TN_SPLITS), GBK) * GBK; }
 
-constexpr int ATT_QR = 32;  // query rows a block
-constexpr int ATT_THREADS = 256;
-constexpr size_t kMaxShared = 232448;  // the H100's 227 KB a block
-
-size_t attn_shared_bytes(int L, int d) {
-  const size_t dp = d + 1, lp = L + 1;
-  return sizeof(float) * ((size_t)L * dp + (size_t)L * d + ATT_QR * dp + ATT_QR * lp);
+// out[M][N] = A^T B over the K rows: split-K partials into `part`
+// (tn_chunk's splits x M x N floats), then reduced in one fixed order.
+cudaError_t gemm_tn_f32(const float* A, const float* B, float* out, float* part, int M,
+                        int N, int K, cudaStream_t st) {
+  const int chunk = tn_chunk(K);
+  const int splits = cdiv(K, chunk);
+  dim3 grid(cdiv(N, GBN), cdiv(M, GBM), splits);
+  gemm_f32_kernel<ssrl::GEMM_TN, F_NONE>
+      <<<grid, GTHREADS, 0, st>>>(A, B, nullptr, nullptr, part, nullptr, M, N, K, chunk);
+  SSRL_TRY(cudaGetLastError());
+  reduce_rows(part, splits, M * N, out, nullptr, st);  // splits <= 64: one pass
+  return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(ATT_THREADS)
-    attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ a, int L, int D,
-                    int H, float scale) {
-  extern __shared__ float sm[];
-  const int d = D / H, dp = d + 1, lp = L + 1;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int r0 = blockIdx.y * ATT_QR;
-  const int nr = min(ATT_QR, L - r0);
-  float* Ks = sm;                  // [L][d + 1]: conflict-free column walks
-  float* Vs = Ks + (size_t)L * dp;  // [L][d]
-  float* Qs = Vs + (size_t)L * d;   // [ATT_QR][d + 1]
-  float* Ss = Qs + ATT_QR * dp;     // [ATT_QR][L + 1]
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t ld = 3 * (size_t)D;
-  const float* base = qkv + (size_t)b * L * ld;
-
-  for (int i = tid; i < L * d; i += nt) {
-    const int j = i / d, c = i - j * d;
-    Ks[j * dp + c] = base[j * ld + D + h * d + c];
-    Vs[j * d + c] = base[j * ld + 2 * D + h * d + c];
-  }
-  for (int i = tid; i < nr * d; i += nt) {
-    const int r = i / d, c = i - r * d;
-    Qs[r * dp + c] = base[(r0 + r) * ld + h * d + c] * scale;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < nr * L; i += nt) {
-    const int r = i / L, j = i - r * L;
-    float s = 0.f;
-    for (int c = 0; c < d; ++c) s = fmaf(Qs[r * dp + c], Ks[j * dp + c], s);
-    Ss[r * lp + j] = s;
-  }
-  __syncthreads();
-
-  const int lane = tid & 31;
-  for (int r = tid >> 5; r < nr; r += nt >> 5) {
-    float* sr = Ss + r * lp;
-    float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, sr[j]);
-    m = wmax(m);
-    float t = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(sr[j] - m);
-      sr[j] = e;
-      t += e;
-    }
-    const float sum = wsum(t);
-    for (int j = lane; j < L; j += 32) sr[j] = sr[j] / sum;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < nr * d; i += nt) {
-    const int r = i / d, c = i - r * d;
-    const float* pr = Ss + r * lp;
-    float o = 0.f;
-    for (int j = 0; j < L; ++j) o = fmaf(pr[j], Vs[j * d + c], o);
-    a[((size_t)b * L + r0 + r) * D + h * d + c] = o;
-  }
+size_t tn_part_floats(int M, int N, int K) {
+  return (size_t)cdiv(K, tn_chunk(K)) * M * N;
 }
 
-struct AttnWs {
-  float *y1, *qkv, *a;
+// ---------------------------------------------------------------------------
+// The attention core's view of the fused (B*L, 3D) qkv buffer (q | k | v
+// along the features), the attention output `a` (B*L, D) and, backward, the
+// gradients: dqkv in qkv's layout, da in a's
+// ---------------------------------------------------------------------------
+
+ssrl::MhaArgsT<float> qkv_args(const float* qkv, int B, int L, int D, int H, float scale) {
+  ssrl::MhaArgsT<float> m{};
+  m.q = qkv;
+  m.k = qkv + D;
+  m.v = qkv + 2 * D;
+  m.in_b = (long long)L * 3 * D; m.in_h = D / H; m.in_r = 3 * D;
+  m.out_b = (long long)L * D; m.out_h = D / H; m.out_r = D;
+  m.B = B; m.H = H; m.L = L; m.d = D / H;
+  m.scale = scale;
+  m.post = ssrl::kPreScaled;
+  return m;
+}
+
+bool attn_ok(int B, int L, int D, int H, bool bwd) {
+  return B >= 1 && H >= 1 && D % H == 0 && ssrl::mha_f32_fits(L, D / H, bwd) &&
+         (!bwd || D <= 256);
+}
+
+size_t attn_fwd_carve(Carver& c, size_t M, int D, bool stash, float** y1, float** qkv,
+                      float** a_scratch) {
+  *y1 = c.take<float>(M * D);
+  *qkv = c.take<float>(M * 3 * D);
+  *a_scratch = stash ? nullptr : c.take<float>(M * D);
+  return c.off;
+}
+
+// y1 = LN1(x); qkv = y1 Wqkv^T + bqkv
+cudaError_t ln_qkv(const float* x, const float* s, const float* b, const float* wqkv,
+                   const float* bqkv, float* y1, float* qkv, int M, int D, cudaStream_t st) {
+  launch_ln(x, s, b, y1, M, D, st);
+  return gemm_f32<ssrl::GEMM_NT, F_BIAS>(y1, wqkv, bqkv, nullptr, qkv, nullptr, M, 3 * D, D,
+                                         st);
+}
+
+struct AttnBwdWs {
+  float *y1, *qkv, *da, *dqkv, *dy1, *part, *tmp;
 };
 
-size_t attn_carve(char* p, int B, int L, int D, AttnWs* w) {
-  const size_t M = (size_t)B * L;
-  size_t off = 0;
-  auto take = [&](size_t n) {
-    float* r = p ? reinterpret_cast<float*>(p + off) : nullptr;
-    off += align256(n * sizeof(float));
-    return r;
-  };
-  w->y1 = take(M * D);
-  w->qkv = take(M * 3 * D);
-  w->a = take(M * D);
-  return off;
+size_t attn_bwd_carve(Carver& c, int B, int L, int D, AttnBwdWs* w) {
+  const int M = B * L;
+  size_t part = tn_part_floats(D, D, M);
+  const size_t cands[2] = {tn_part_floats(3 * D, D, M), (size_t)ln_bwd_blocks(M) * 3 * D};
+  for (size_t x : cands) part = x > part ? x : part;
+  w->y1 = c.take<float>((size_t)M * D);
+  w->qkv = c.take<float>((size_t)M * 3 * D);
+  w->da = c.take<float>((size_t)M * D);
+  w->dqkv = c.take<float>((size_t)M * 3 * D);
+  w->dy1 = c.take<float>((size_t)M * D);
+  w->part = c.take<float>(part);
+  w->tmp = c.take<float>((size_t)64 * 3 * D);
+  return c.off;
 }
 
-size_t mlp_carve(char* p, int M, int D, int F, float** y2, float** h) {
-  size_t off = 0;
-  auto take = [&](size_t n) {
-    float* r = p ? reinterpret_cast<float*>(p + off) : nullptr;
-    off += align256(n * sizeof(float));
-    return r;
-  };
-  *y2 = take((size_t)M * D);
-  *h = take((size_t)M * F);
-  return off;
+struct MlpBwdWs {
+  float *y2, *z, *h, *dy2, *part, *tmp;
+};
+
+size_t mlp_bwd_carve(Carver& c, int M, int D, int F, MlpBwdWs* w) {
+  size_t part = tn_part_floats(D, F, M);  // dW2 (D, F); dW1 (F, D) is as large
+  const size_t ln = (size_t)ln_bwd_blocks(M) * 3 * D;
+  part = ln > part ? ln : part;
+  w->y2 = c.take<float>((size_t)M * D);
+  w->z = c.take<float>((size_t)M * F);
+  w->h = c.take<float>((size_t)M * F);  // h, then dz (h is dead after dW2)
+  w->dy2 = c.take<float>((size_t)M * D);
+  w->part = c.take<float>(part);
+  w->tmp = c.take<float>((size_t)64 * (F > 3 * D ? F : 3 * D));
+  return c.off;
+}
+
+size_t mlp_fwd_carve(Carver& c, int M, int D, int F, float** y2, float** h) {
+  *y2 = c.take<float>((size_t)M * D);
+  *h = c.take<float>((size_t)M * F);
+  return c.off;
 }
 
 }  // namespace
 
 extern "C" {
 
-// whether the attention core takes (L, d): K, V, 32 query rows and their
-// scores in one block's shared memory
-int ssrl_attn_f32_fits(int L, int d) {
-  return L >= 1 && d >= 1 && attn_shared_bytes(L, d) <= kMaxShared;
+long long ssrl_attn_branch_fwd_f32_workspace(int B, int L, int D, int stash) {
+  Carver c{nullptr};
+  float *y1, *qkv, *as;
+  return (long long)attn_fwd_carve(c, (size_t)B * L, D, stash != 0, &y1, &qkv, &as);
 }
 
-long long ssrl_attn_branch_fwd_f32_workspace(int B, int L, int D) {
-  AttnWs w;
-  return (long long)attn_carve(nullptr, B, L, D, &w);
-}
-
-// x, out: [B][L][D] f32; ln_s, ln_b: [D]; wqkv: [3D][D], bqkv: [3D], wp:
-// [D][D], bp: [D], all f32 (torch Linear layout).
+// x, out, a: [B][L][D] f32; ln_s, ln_b: [D]; wqkv: [3D][D], bqkv: [3D], wp:
+// [D][D], bp: [D], all f32 (torch Linear layout). With `a` non-null the
+// attention output is written there (the stash of the training forward);
+// with `a` null it goes to the workspace.
 int ssrl_attn_branch_fwd_f32(const void* x, const void* ln_s, const void* ln_b,
                              const void* wqkv, const void* bqkv, const void* wp,
-                             const void* bp, void* out, void* ws, int B, int L, int D,
+                             const void* bp, void* out, void* a, void* ws, int B, int L, int D,
                              int H, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H < 1 || D % H || !ssrl_attn_f32_fits(L, D / H)) return (int)cudaErrorInvalidValue;
-  AttnWs w;
-  attn_carve(static_cast<char*>(ws), B, L, D, &w);
+  if (!attn_ok(B, L, D, H, false)) return (int)cudaErrorInvalidValue;
   const int M = B * L;
+  Carver c{static_cast<char*>(ws)};
+  float *y1, *qkv, *a_scratch;
+  attn_fwd_carve(c, M, D, a != nullptr, &y1, &qkv, &a_scratch);
+  float* abuf = a ? static_cast<float*>(a) : a_scratch;
   const float* xf = static_cast<const float*>(x);
-  ln_f32_kernel<<<cdiv_i(M, LN_WARPS), 32 * LN_WARPS, 0, st>>>(
-      xf, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), w.y1, M, D);
-  cudaError_t e = gemm_nt_f32<EPI_BIAS>(w.y1, static_cast<const float*>(wqkv),
-                                        static_cast<const float*>(bqkv), nullptr, w.qkv, M,
-                                        3 * D, D, st);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = attn_shared_bytes(L, D / H);
-  e = cudaFuncSetAttribute(attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attn_f32_kernel<<<dim3(B * H, cdiv_i(L, ATT_QR)), ATT_THREADS, smem, st>>>(w.qkv, w.a, L,
-                                                                            D, H, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)gemm_nt_f32<EPI_BIAS_RESID>(w.a, static_cast<const float*>(wp),
-                                          static_cast<const float*>(bp), xf,
-                                          static_cast<float*>(out), M, D, D, st);
+  SSRL_TRY(ln_qkv(xf, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+                  static_cast<const float*>(wqkv), static_cast<const float*>(bqkv), y1, qkv,
+                  M, D, st));
+  ssrl::MhaArgsT<float> m = qkv_args(qkv, B, L, D, H, scale);
+  m.o = abuf;
+  SSRL_TRY(ssrl::mha_f32_fwd(m, st));
+  return (int)gemm_f32<ssrl::GEMM_NT, F_BIAS_RESID>(
+      abuf, static_cast<const float*>(wp), static_cast<const float*>(bp), xf,
+      static_cast<float*>(out), nullptr, M, D, D, st);
+}
+
+long long ssrl_attn_branch_bwd_f32_workspace(int B, int L, int D) {
+  Carver c{nullptr};
+  AttnBwdWs w;
+  return (long long)attn_bwd_carve(c, B, L, D, &w);
+}
+
+// From x, the stashed attention output a and the output gradient g (all
+// [B][L][D] f32): dx [B][L][D]; dln3 [3][D] = (d ln_s, d ln_b, d bp); dwqkv
+// [3D][D]; dbqkv [3D]; dwp [D][D]; all f32.
+int ssrl_attn_branch_bwd_f32(const void* x, const void* ln_s, const void* ln_b,
+                             const void* wqkv, const void* bqkv, const void* wp,
+                             const void* a, const void* g, void* dx, void* dln3, void* dwqkv,
+                             void* dbqkv, void* dwp, void* ws, int B, int L, int D, int H,
+                             float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!attn_ok(B, L, D, H, true)) return (int)cudaErrorInvalidValue;
+  const int M = B * L;
+  Carver c{static_cast<char*>(ws)};
+  AttnBwdWs w;
+  attn_bwd_carve(c, B, L, D, &w);
+  const float* xf = static_cast<const float*>(x);
+  const float* s = static_cast<const float*>(ln_s);
+  const float* wq = static_cast<const float*>(wqkv);
+  const float* gy = static_cast<const float*>(g);
+  SSRL_TRY(ln_qkv(xf, s, static_cast<const float*>(ln_b), wq,
+                  static_cast<const float*>(bqkv), w.y1, w.qkv, M, D, st));
+  // dWp = gy^T a; da = gy Wp
+  SSRL_TRY(gemm_tn_f32(gy, static_cast<const float*>(a), static_cast<float*>(dwp), w.part,
+                       D, D, M, st));
+  SSRL_TRY(gemm_f32<ssrl::GEMM_NN>(gy, static_cast<const float*>(wp), nullptr, nullptr, w.da,
+                                   nullptr, M, D, D, st));
+  // the attention backward into dqkv (q | k | v columns, qkv's layout)
+  ssrl::MhaArgsT<float> m = qkv_args(w.qkv, B, L, D, H, scale);
+  m.dO = w.da;
+  m.dq = w.dqkv;
+  m.dk = w.dqkv + D;
+  m.dv = w.dqkv + 2 * D;
+  SSRL_TRY(ssrl::mha_f32_bwd(m, st));
+  // dWqkv = dqkv^T y1; dbqkv = colsum(dqkv); dy1 = dqkv Wqkv
+  SSRL_TRY(gemm_tn_f32(w.dqkv, w.y1, static_cast<float*>(dwqkv), w.part, 3 * D, D, M, st));
+  reduce_rows(w.dqkv, M, 3 * D, static_cast<float*>(dbqkv), w.tmp, st);
+  SSRL_TRY(cudaGetLastError());
+  SSRL_TRY(gemm_f32<ssrl::GEMM_NN>(w.dqkv, wq, nullptr, nullptr, w.dy1, nullptr, M, D, 3 * D,
+                                   st));
+  return (int)launch_ln_bwd_f32(xf, s, w.dy1, gy, static_cast<float*>(dx),
+                                static_cast<float*>(dln3), w.part, w.tmp, M, D, st);
 }
 
 long long ssrl_mlp_branch_fwd_f32_workspace(int M, int D, int F) {
+  Carver c{nullptr};
   float *y2, *h;
-  return (long long)mlp_carve(nullptr, M, D, F, &y2, &h);
+  return (long long)mlp_fwd_carve(c, M, D, F, &y2, &h);
 }
 
 // x, out: [M][D] f32; ln_s, ln_b: [D]; w1: [F][D], b1: [F], w2: [D][F], b2:
@@ -314,18 +485,57 @@ int ssrl_mlp_branch_fwd_f32(const void* x, const void* ln_s, const void* ln_b,
                             const void* w1, const void* b1, const void* w2, const void* b2,
                             void* out, void* ws, int M, int D, int F, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Carver c{static_cast<char*>(ws)};
   float *y2, *h;
-  mlp_carve(static_cast<char*>(ws), M, D, F, &y2, &h);
+  mlp_fwd_carve(c, M, D, F, &y2, &h);
   const float* xf = static_cast<const float*>(x);
-  ln_f32_kernel<<<cdiv_i(M, LN_WARPS), 32 * LN_WARPS, 0, st>>>(
-      xf, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), y2, M, D);
-  cudaError_t e = gemm_nt_f32<EPI_BIAS_GELU>(y2, static_cast<const float*>(w1),
-                                             static_cast<const float*>(b1), nullptr, h, M, F,
-                                             D, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)gemm_nt_f32<EPI_BIAS_RESID>(h, static_cast<const float*>(w2),
-                                          static_cast<const float*>(b2), xf,
-                                          static_cast<float*>(out), M, D, F, st);
+  launch_ln(xf, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), y2, M, D,
+            st);
+  SSRL_TRY((gemm_f32<ssrl::GEMM_NT, F_BIAS_GELU>(y2, static_cast<const float*>(w1),
+                                                static_cast<const float*>(b1), nullptr, h,
+                                                nullptr, M, F, D, st)));
+  return (int)gemm_f32<ssrl::GEMM_NT, F_BIAS_RESID>(
+      h, static_cast<const float*>(w2), static_cast<const float*>(b2), xf,
+      static_cast<float*>(out), nullptr, M, D, F, st);
+}
+
+long long ssrl_mlp_branch_bwd_f32_workspace(int M, int D, int F) {
+  Carver c{nullptr};
+  MlpBwdWs w;
+  return (long long)mlp_bwd_carve(c, M, D, F, &w);
+}
+
+// From x and the output gradient g ([M][D] f32): dx [M][D]; dln3 [3][D] =
+// (d ln_s, d ln_b, d b2); dw1 [F][D]; db1 [F]; dw2 [D][F]; all f32.
+int ssrl_mlp_branch_bwd_f32(const void* x, const void* ln_s, const void* ln_b,
+                            const void* w1, const void* b1, const void* w2, const void* g,
+                            void* dx, void* dln3, void* dw1, void* db1, void* dw2, void* ws,
+                            int M, int D, int F, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || D < 1 || D > 256 || F < 1) return (int)cudaErrorInvalidValue;
+  Carver c{static_cast<char*>(ws)};
+  MlpBwdWs w;
+  mlp_bwd_carve(c, M, D, F, &w);
+  const float* xf = static_cast<const float*>(x);
+  const float* s = static_cast<const float*>(ln_s);
+  const float* w1f = static_cast<const float*>(w1);
+  const float* gy = static_cast<const float*>(g);
+  launch_ln(xf, s, static_cast<const float*>(ln_b), w.y2, M, D, st);
+  // z = y2 W1^T + b1, h = gelu(z)
+  SSRL_TRY((gemm_f32<ssrl::GEMM_NT, F_BIAS_GELU_Z>(w.y2, w1f, static_cast<const float*>(b1),
+                                                  nullptr, w.h, w.z, M, F, D, st)));
+  // dW2 = gy^T h; then dz = (gy W2) o gelu'(z) over h's buffer
+  SSRL_TRY(gemm_tn_f32(gy, w.h, static_cast<float*>(dw2), w.part, D, F, M, st));
+  float* dz = w.h;
+  SSRL_TRY((gemm_f32<ssrl::GEMM_NN, F_GELU_BWD>(gy, static_cast<const float*>(w2), nullptr,
+                                               w.z, dz, nullptr, M, F, D, st)));
+  // dW1 = dz^T y2; db1 = colsum(dz); dy2 = dz W1
+  SSRL_TRY(gemm_tn_f32(dz, w.y2, static_cast<float*>(dw1), w.part, F, D, M, st));
+  reduce_rows(dz, M, F, static_cast<float*>(db1), w.tmp, st);
+  SSRL_TRY(cudaGetLastError());
+  SSRL_TRY(gemm_f32<ssrl::GEMM_NN>(dz, w1f, nullptr, nullptr, w.dy2, nullptr, M, D, F, st));
+  return (int)launch_ln_bwd_f32(xf, s, w.dy2, gy, static_cast<float*>(dx),
+                                static_cast<float*>(dln3), w.part, w.tmp, M, D, st);
 }
 
 }  // extern "C"

@@ -2,8 +2,9 @@
 // attention entries and by the attention branch (csrc/attn_branch.cu).
 //
 // One problem is softmax(q k^T / sqrt(d)) v over B images and H heads of
-// L tokens and head dim d, on bf16 tensors addressed by strides, so that one
-// kernel serves every layout the callers hold:
+// L tokens and head dim d, on bf16 tensors (mha.cu) or f32 tensors
+// (mha_f32.cu) addressed by strides, so that one kernel serves every layout
+// the callers hold:
 //   element (b, h, i, c) of q, k, v, dq, dk, dv is at
 //     ptr[b * in_b + h * in_h + i * in_r + c],
 //   element (b, h, i, c) of o and dO at
@@ -30,18 +31,20 @@ namespace ssrl {
 // output once from its f32 accumulator.
 enum MhaScale : int { kPreScaled = 0, kPostScaled = 1 };
 
-struct MhaArgs {
-  const __nv_bfloat16 *q, *k, *v;
-  const __nv_bfloat16* dO;       // backward input
-  __nv_bfloat16* o;              // forward output
-  __nv_bfloat16 *dq, *dk, *dv;   // backward outputs, in the layout of q, k, v
-  float* colpart;  // backward, may be null: [B][3 * H * d] f32 column sums of dq | dk | dv
+template <typename T>
+struct MhaArgsT {
+  const T *q, *k, *v;
+  const T* dO;       // backward input
+  T* o;              // forward output
+  T *dq, *dk, *dv;   // backward outputs, in the layout of q, k, v
+  float* colpart;  // bf16 backward, may be null: [B][3 * H * d] f32 column sums of dq | dk | dv
   long long in_b, out_b;
   int in_h, in_r, out_h, out_r;
   int B, H, L, d;
   float scale;
   int post;  // MhaScale
 };
+using MhaArgs = MhaArgsT<__nv_bfloat16>;
 
 // Whether (L, d) fits the kernels: d <= 32 and L <= 256 (the backward's
 // shared memory then leaves two blocks per SM).
@@ -49,5 +52,13 @@ bool mha_fits(int L, int d);
 // Launch on `st`; return cudaGetLastError() after the launch.
 cudaError_t mha_fwd(const MhaArgs& a, cudaStream_t st);
 cudaError_t mha_bwd(const MhaArgs& a, cudaStream_t st);
+
+// The f32 core (mha_f32.cu): the same function on f32 tensors with no
+// rounding point (each scale contract without its bf16 roundings), no TF32;
+// colpart is not written. Its fit is set by shared memory: the forward's
+// (bwd = false), or the forward's and the backward's (bwd = true).
+bool mha_f32_fits(int L, int d, bool bwd);
+cudaError_t mha_f32_fwd(const MhaArgsT<float>& a, cudaStream_t st);
+cudaError_t mha_f32_bwd(const MhaArgsT<float>& a, cudaStream_t st);
 
 }  // namespace ssrl

@@ -6,8 +6,9 @@ before PV, the PV product accumulated in f32 and rounded once. The policies
 ``use_packed``, ``use_stacked_split`` and ``multi_head_attention`` keep the
 JAX package's semantics, with two substitutions: "on the TPU" becomes "the
 tensor is on a CUDA device", and the kernels' VMEM ``supported`` becomes the
-fit of ``csrc/mha.cu`` (``attention_core.fits``: L <= 256, d <= 32). A forced
-``"packed"`` or ``"pallas"`` on a shape the kernel cannot take raises.
+fit of ``csrc/mha.cu`` (``attention_core.fits``: L <= 256, d <= 32, which
+``csrc/mha_f32.cu`` takes too). A forced ``"packed"`` or ``"pallas"`` on a
+shape the kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -41,8 +42,7 @@ def _on_cuda(device) -> bool:
 
 
 def supported(L: int, d: int, dtype) -> bool:
-    """Whether the attention kernel takes this shape and dtype (f32 only on
-    the CPU path: the card raises for it)."""
+    """Whether the attention kernels take this shape and dtype."""
     return dtype in (torch.bfloat16, torch.float32) and fits(L, d)
 
 

@@ -1,11 +1,12 @@
-"""Multi-head attention: one CUDA kernel, three layouts, two scale contracts.
+"""Multi-head attention: one CUDA kernel per dtype, three layouts, two
+scale contracts.
 
 The four attention entries of the port (``attention_stacked.py``,
 ``attention_heads.py``, ``attention_packed.py``) compute one function,
 softmax(q kᵀ/√d) v over heads, each on its own layout. An :class:`Entry`
 says how the entry's tensors map onto the (B, H, L, d) problem; the kernel of
-``csrc/mha.cu`` reads and writes them in place through strides, so no layout
-copy is made on the card.
+``csrc/mha.cu`` (bf16) or ``csrc/mha_f32.cu`` (f32) reads and writes them in
+place through strides, so no layout copy is made on the card.
 
 Two rounding contracts (``csrc/mha.cuh``):
 
@@ -23,7 +24,9 @@ when it needs it. The forward's softmax is exact (row max, then row sum,
 then division); the backward runs in two phases, per 16-query strip (the
 row max and sum and rowsum(dP∘P), then dS and dq) and per 16-key strip (P
 recomputed from those statistics, dS, then dk and dv). Its fit is d ≤ 32
-and L ≤ 256 (:func:`fits`).
+and L ≤ 256 (:func:`fits`). The f32 kernel computes the same function with
+no rounding point, by a simpler design (one block per (image, head) for the
+backward, its strips' scores in shared memory), over the same fit.
 
 :func:`attend` routes by device: a CPU tensor takes the plain version, a
 ``torch.autograd.Function`` whose forward and backward repeat the kernel's
@@ -39,14 +42,16 @@ import torch
 
 from ssrl_vit_mae_jepa_torch import _build
 
-#: kernel launches by wrapper entry; a wrapper adds one where it launches
+#: kernel launches by wrapper entry and pass, the f32 kernel's under
+#: ``<entry>_<pass>_f32``; a wrapper adds one where it launches
 LAUNCHES = {
-    f"{name}_{pas}": 0
+    f"{name}_{pas}{suffix}": 0
     for name in ("mha_stacked_qkv", "mha_stacked", "mha_pallas", "mha_packed")
     for pas in ("fwd", "bwd")
+    for suffix in ("", "_f32")
 }
 
-MAX_L, MAX_D = 256, 32  # the kernel's fit (csrc/mha.cu: ssrl::mha_fits)
+MAX_L, MAX_D = 256, 32  # the kernels' fit (csrc/mha.cu: ssrl::mha_fits)
 
 
 def reset_launch_counts() -> None:
@@ -55,9 +60,12 @@ def reset_launch_counts() -> None:
 
 
 def fits(L: int, d: int) -> bool:
-    """Whether the kernel takes (L, d): ``ssrl::mha_fits`` of ``csrc/mha.cu``,
+    """Whether the kernels take (L, d): ``ssrl::mha_fits`` of ``csrc/mha.cu``,
     the head dim at most 32 (one or two 16-column tiles) and L ≤ 256 (the
-    backward's shared memory then leaves two blocks per SM)."""
+    backward's shared memory then leaves two blocks per SM). The f32 kernel
+    of ``csrc/mha_f32.cu`` takes the same shapes: its fit is its shared
+    memory (``ssrl_attn_f32_fits``), 172 KB at most within this one (L=256,
+    d=32), so at f32 too the entries refuse what the bf16 fit refuses."""
     return 1 <= L <= MAX_L and 1 <= d <= MAX_D
 
 
@@ -177,12 +185,17 @@ def _launch(entry: Entry, pas: str, ins, outs, o_like) -> None:
     if any(_strides(t) != in_s for t in (*ins[:3], *(outs if pas == "bwd" else ()))):
         raise ValueError("q, k, v and their gradients must share strides")
     lib = _build.load()
-    LAUNCHES[f"{entry.name}_{pas}"] += 1
-    fn = lib.ssrl_mha_fwd if pas == "fwd" else lib.ssrl_mha_bwd
+    f32 = q.dtype == torch.float32
+    name = f"{entry.name}_{pas}" + ("_f32" if f32 else "")
+    LAUNCHES[name] += 1
+    if f32:
+        fn = lib.ssrl_mha_f32_fwd if pas == "fwd" else lib.ssrl_mha_f32_bwd
+    else:
+        fn = lib.ssrl_mha_fwd if pas == "fwd" else lib.ssrl_mha_bwd
     _build.check(fn(
         *(t.data_ptr() for t in (*ins, *outs)), *in_s, *out_s, B, H, L, d,
         _scale(d), int(entry.post), torch.cuda.current_stream(q.device).cuda_stream,
-    ), f"{entry.name}_{pas}")
+    ), name)
 
 
 class _Kernel(torch.autograd.Function):
@@ -220,9 +233,10 @@ def _check_shapes(entry: Entry, xs, num_heads) -> None:
 
 
 def _check_cuda(entry: Entry, xs, num_heads) -> None:
-    """Raise on what the kernel does not take: bf16 only, and the fit."""
-    if xs[0].dtype != torch.bfloat16:
-        raise TypeError(f"{entry.name} takes bfloat16 on the card, got {xs[0].dtype}")
+    """Raise on what the kernels do not take: bf16 or f32, and the fit."""
+    dt = xs[0].dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{entry.name} takes bfloat16 or float32 on the card, got {dt}")
     _, _, L, d = entry.views(xs, num_heads)[0].shape
     if not fits(L, d):
         raise ValueError(

@@ -17,12 +17,13 @@ CPU tensor they run the plain versions ``attn_branch_ref`` /
 same rounding points in tensor ops. There is no fallback: a CUDA tensor the
 kernel does not take raises.
 
-The split branches also take f32 activations without a gradient (the JAX
-kernels' f32 instantiation, which the feature and reconstruction entry
-points run): ``csrc/branch_f32.cu``, f32 throughout with no rounding point,
-whose plain versions are ``attn_branch_ref`` / ``mlp_branch_ref`` at f32. An
-f32 branch that needs a gradient raises ``NotImplementedError``: the f32
-backward kernels are not ported (ROADMAP queue 2).
+The split branches also take f32 activations (the JAX kernels' f32
+instantiation: an f32 model's training step, and the feature and
+reconstruction entry points): ``csrc/branch_f32.cu``, forward with or
+without the stash and backward, f32 throughout with no rounding point, whose
+plain versions are ``attn_branch_ref`` / ``mlp_branch_ref`` and
+``attn_bwd_plain`` / ``mlp_bwd_plain`` at f32. The whole block and the chain
+take bf16 only and refuse f32 in words (``F32_TODO``, ROADMAP queue 2).
 
 Numerics (``block_pallas.py:28-32``): LN statistics and softmax in f32, LN
 eps 1e-6, products of rounded operands accumulated in f32, bf16 rounding of
@@ -58,8 +59,11 @@ LAUNCHES = {
     "block_fwd_nograd": 0,  # the same kernel for no-grad callers
     "block_bwd": 0,
     "gemm": 0,  # the GEMM alone (``gemm``), for its own checks; never on a step
-    "attn_branch_fwd_nograd_f32": 0,  # csrc/branch_f32.cu: f32, no grad
-    "mlp_branch_fwd_f32": 0,
+    "attn_branch_fwd_f32": 0,  # csrc/branch_f32.cu: the f32 branches
+    "attn_branch_fwd_nograd_f32": 0,
+    "attn_branch_bwd_f32": 0,
+    "mlp_branch_fwd_f32": 0,  # with and without grad: the same kernel
+    "mlp_branch_bwd_f32": 0,
 }
 
 
@@ -387,40 +391,55 @@ def _workspace(nbytes: int, x: torch.Tensor) -> torch.Tensor:
     return torch.empty(int(nbytes), dtype=torch.uint8, device=x.device)
 
 
+def _entry(x: torch.Tensor, name: str):
+    """(the C entry ``ssrl_<name>`` of x's dtype, its workspace size, its
+    ``LAUNCHES`` key): the f32 kernels of ``csrc/branch_f32.cu`` take the
+    bf16 entries' arguments under ``<name>_f32``."""
+    key = name + ("_f32" if x.dtype == torch.float32 else "")
+    lib = _build.load()
+    return getattr(lib, f"ssrl_{key}"), getattr(lib, f"ssrl_{key}_workspace"), key
+
+
 def _attn_fwd_cuda(x, kp, num_heads: int, stash: bool):
     B, L, D = x.shape
     lib = _build.load()
+    if x.dtype == torch.float32 and not lib.ssrl_attn_f32_fits(L, D // num_heads, int(stash)):
+        raise ValueError(f"the f32 attention core does not take L={L} d={D // num_heads}"
+                         + (" with a backward" if stash else ""))
+    fn, ws_fn, key = _entry(x, "attn_branch_fwd")
     out = torch.empty_like(x)
     a = torch.empty_like(x) if stash else None
-    ws = _workspace(lib.ssrl_attn_branch_fwd_workspace(B, L, D, int(stash)), x)
-    LAUNCHES["attn_branch_fwd" if stash else "attn_branch_fwd_nograd"] += 1
-    _build.check(lib.ssrl_attn_branch_fwd(
+    ws = _workspace(ws_fn(B, L, D, int(stash)), x)
+    if not stash:  # the same kernel, counted apart: attn_branch_fwd_nograd[_f32]
+        key = key.replace("_fwd", "_fwd_nograd")
+    LAUNCHES[key] += 1
+    _build.check(fn(
         x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(),
         a.data_ptr() if stash else None, ws.data_ptr(),
         B, L, D, num_heads, _scale(D, num_heads), _stream(x),
-    ), "attn_branch_fwd")
+    ), key)
     return out, a
 
 
 def _attn_bwd_cuda(x, kp, a, g, num_heads: int):
     B, L, D = x.shape
-    lib = _build.load()
+    fn, ws_fn, name = _entry(x, "attn_branch_bwd")
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dln3 = torch.empty((3, D), **f32)
     dwqkv = torch.empty((3 * D, D), **f32)
     dbqkv = torch.empty((3 * D,), **f32)
     dwp = torch.empty((D, D), **f32)
-    ws = _workspace(lib.ssrl_attn_branch_bwd_workspace(B, L, D), x)
+    ws = _workspace(ws_fn(B, L, D), x)
     s, b, wqkv, bqkv, wp, _ = kp
-    LAUNCHES["attn_branch_bwd"] += 1
-    _build.check(lib.ssrl_attn_branch_bwd(
+    LAUNCHES[name] += 1
+    _build.check(fn(
         x.data_ptr(), s.data_ptr(), b.data_ptr(), wqkv.data_ptr(),
         bqkv.data_ptr(), wp.data_ptr(), a.data_ptr(), g.data_ptr(),
         dx.data_ptr(), dln3.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
         dwp.data_ptr(), ws.data_ptr(),
         B, L, D, num_heads, _scale(D, num_heads), _stream(x),
-    ), "attn_branch_bwd")
+    ), name)
     # (d ln_s, d ln_b, d wqkv, d bqkv, d wp, d bp)
     return dx, (dln3[0], dln3[1], dwqkv, dbqkv, dwp, dln3[2])
 
@@ -428,36 +447,36 @@ def _attn_bwd_cuda(x, kp, a, g, num_heads: int):
 def _mlp_fwd_cuda(x, kp):
     B, L, D = x.shape
     F_ = kp[2].shape[0]
-    lib = _build.load()
+    fn, ws_fn, name = _entry(x, "mlp_branch_fwd")
     out = torch.empty_like(x)
-    ws = _workspace(lib.ssrl_mlp_branch_fwd_workspace(B * L, D, F_), x)
-    LAUNCHES["mlp_branch_fwd"] += 1
-    _build.check(lib.ssrl_mlp_branch_fwd(
+    ws = _workspace(ws_fn(B * L, D, F_), x)
+    LAUNCHES[name] += 1
+    _build.check(fn(
         x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(),
         ws.data_ptr(), B * L, D, F_, _stream(x),
-    ), "mlp_branch_fwd")
+    ), name)
     return out
 
 
 def _mlp_bwd_cuda(x, kp, g):
     B, L, D = x.shape
     F_ = kp[2].shape[0]
-    lib = _build.load()
+    fn, ws_fn, name = _entry(x, "mlp_branch_bwd")
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dln3 = torch.empty((3, D), **f32)
     dw1 = torch.empty((F_, D), **f32)
     db1 = torch.empty((F_,), **f32)
     dw2 = torch.empty((D, F_), **f32)
-    ws = _workspace(lib.ssrl_mlp_branch_bwd_workspace(B * L, D, F_), x)
+    ws = _workspace(ws_fn(B * L, D, F_), x)
     s, b, w1, b1, w2, _ = kp
-    LAUNCHES["mlp_branch_bwd"] += 1
-    _build.check(lib.ssrl_mlp_branch_bwd(
+    LAUNCHES[name] += 1
+    _build.check(fn(
         x.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), g.data_ptr(), dx.data_ptr(), dln3.data_ptr(),
         dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), ws.data_ptr(),
         B * L, D, F_, _stream(x),
-    ), "mlp_branch_bwd")
+    ), name)
     # (d ln_s, d ln_b, d w1, d b1, d w2, d b2)
     return dx, (dln3[0], dln3[1], dw1, db1, dw2, dln3[2])
 
@@ -495,6 +514,8 @@ def grad_views(buf: torch.Tensor, D: int, F_: int):
 def check_block(x, params, num_heads: int) -> int:
     """Raise on what the block kernels do not take; return F."""
     B, L, D = x.shape if x.dim() == 3 else (0, 0, -1)
+    if x.dtype == torch.float32:
+        raise TypeError(F32_TODO)
     _check_x(x, D)
     F_ = params[8].shape[0]
     if not supported(B, L, D, num_heads, F_):
@@ -583,44 +604,12 @@ class _MlpBranch(torch.autograd.Function):
         return (dx, *(d.to(t) for d, t in zip(dparams, ctx.param_dtypes)))
 
 
-# ---------------------------------------------------------------------------
-# f32 forward without a gradient (csrc/branch_f32.cu)
-# ---------------------------------------------------------------------------
-
-#: the split branches' activation dtypes on the card (f32: forward only)
+#: the split branches' activation dtypes on the card
 _BRANCH_DTYPES = (torch.bfloat16, torch.float32)
-F32_GRAD_TODO = ("the f32 branch kernels are forward-only: the f32 backward is not "
-                 "ported yet (ROADMAP queue 2, the f32 backward of rows 1, 2 and 5-7); "
-                 "train in bf16 or run this f32 forward under torch.no_grad()")
-
-
-def _attn_fwd_f32_cuda(x, kp, num_heads: int):
-    B, L, D = x.shape
-    lib = _build.load()
-    if not lib.ssrl_attn_f32_fits(L, D // num_heads):
-        raise ValueError(f"the f32 attention core does not take L={L} d={D // num_heads}")
-    out = torch.empty_like(x)
-    ws = _workspace(lib.ssrl_attn_branch_fwd_f32_workspace(B, L, D), x)
-    LAUNCHES["attn_branch_fwd_nograd_f32"] += 1
-    _build.check(lib.ssrl_attn_branch_fwd_f32(
-        x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(), ws.data_ptr(),
-        B, L, D, num_heads, _scale(D, num_heads), _stream(x),
-    ), "attn_branch_fwd_nograd_f32")
-    return out
-
-
-def _mlp_fwd_f32_cuda(x, kp):
-    B, L, D = x.shape
-    F_ = kp[2].shape[0]
-    lib = _build.load()
-    out = torch.empty_like(x)
-    ws = _workspace(lib.ssrl_mlp_branch_fwd_f32_workspace(B * L, D, F_), x)
-    LAUNCHES["mlp_branch_fwd_f32"] += 1
-    _build.check(lib.ssrl_mlp_branch_fwd_f32(
-        x.data_ptr(), *(p.data_ptr() for p in kp), out.data_ptr(), ws.data_ptr(),
-        B * L, D, F_, _stream(x),
-    ), "mlp_branch_fwd_f32")
-    return out
+#: what is not ported at f32: the whole block, the chain and the fused embed
+F32_TODO = ("the f32 whole-block, chain and fused patch-embed kernels are not ported yet "
+            "(ROADMAP queue 2); at f32 use attn_impl auto, split, packed or pallas and "
+            "leave SSRL_FUSED_EMBED unset, or run in bf16")
 
 
 def _needs_grad(x, params) -> bool:
@@ -640,7 +629,7 @@ def fused_attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads)
 
     Without grad the CUDA forward stashes no attention output ``a`` (the
     no-grad primal of ``block_pallas._fused_attn_branch``); f32 activations
-    take the f32 kernel, without grad only."""
+    take the f32 kernels of ``csrc/branch_f32.cu``."""
     params = (ln_scale, ln_bias, wqkv, bqkv, wproj, bproj)
     if _route(x) == "cpu":
         return attn_branch_ref(x, *params, num_heads)
@@ -650,10 +639,6 @@ def fused_attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads)
         raise ValueError(f"D={D} is not a multiple of num_heads={num_heads}")
     _check_params(params, [(D,), (D,), (3 * D, D), (3 * D,), (D, D), (D,)])
     x = x.contiguous()
-    if x.dtype == torch.float32:
-        if _needs_grad(x, params):
-            raise NotImplementedError(F32_GRAD_TODO)
-        return _attn_fwd_f32_cuda(x, _prep6(*params, x.dtype), num_heads)
     if _needs_grad(x, params):
         return _AttnBranch.apply(x, *params, num_heads)
     return _attn_fwd_cuda(x, _prep6(*params, x.dtype), num_heads, stash=False)[0]
@@ -661,7 +646,7 @@ def fused_attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads)
 
 def fused_mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2):
     """x + fc2(GELU(fc1(LN2(x)))): kernels on CUDA, plain on CPU; f32
-    activations take the f32 kernel, without grad only."""
+    activations take the f32 kernels."""
     params = (ln_scale, ln_bias, w1, b1, w2, b2)
     if _route(x) == "cpu":
         return mlp_branch_ref(x, *params)
@@ -670,10 +655,6 @@ def fused_mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2):
     _check_x(x, D, _BRANCH_DTYPES)
     _check_params(params, [(D,), (D,), (F_, D), (F_,), (D, F_), (D,)])
     x = x.contiguous()
-    if x.dtype == torch.float32:
-        if _needs_grad(x, params):
-            raise NotImplementedError(F32_GRAD_TODO)
-        return _mlp_fwd_f32_cuda(x, _prep6(*params, x.dtype))
     if _needs_grad(x, params):
         return _MlpBranch.apply(x, *params)
     return _mlp_fwd_cuda(x, _prep6(*params, x.dtype))

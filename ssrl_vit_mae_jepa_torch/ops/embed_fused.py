@@ -88,7 +88,8 @@ def _stream(x: torch.Tensor) -> int:
 
 def _check(patches, w, b, cls, pos, idx_keep) -> None:
     if patches.dtype != torch.bfloat16:
-        raise TypeError(f"the patch-embed kernel takes bfloat16 patches, got {patches.dtype}")
+        raise TypeError(f"the patch-embed kernel takes bfloat16 patches, got {patches.dtype}"
+                        " (the f32 kernel is not ported yet: ROADMAP queue 2)")
     if patches.dim() != 3:
         raise ValueError(f"expected (B, N, Pc) patches, got {tuple(patches.shape)}")
     B, N, Pc = patches.shape

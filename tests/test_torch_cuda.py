@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 branch GEMM alone (every layout and epilogue against ``gemm_ref``), the
-two branch kernels and their f32 forwards (``csrc/branch_f32.cu``, held in
-f32 to 5e-5), the whole-block kernel of ``csrc/fused_block.cu``, the
+two branch kernels and their f32 kernels (``csrc/branch_f32.cu``: the
+forwards held in f32 to 5e-5, the backwards to 1e-4 of each output's largest
+magnitude), the whole-block kernel of ``csrc/fused_block.cu``, the
 chained-block kernel of ``csrc/block_chain.cu``, the four attention entries
-of ``csrc/mha.cu`` and the fused patch embed of ``csrc/patch_embed.cu``.
+of ``csrc/mha.cu`` (and at f32 of ``csrc/mha_f32.cu``), the fused patch embed
+of ``csrc/patch_embed.cu``, and f32 training steps against the CPU.
 
 Marked ``cuda`` and skipped without a GPU. The file imports no JAX, so it
 also runs where JAX is not installed; ``tests/conftest.py`` does import JAX,
@@ -11,7 +13,7 @@ so there run it without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-bf16 throughout. The forward is held to 6e-2 absolute (the bf16 forward
+bf16 unless a test says f32. The forward is held to 6e-2 absolute (the bf16 forward
 tolerance of ``tests/test_block_kernel.py``). In the backward both sides
 round to bf16 at different points (the plain version's autograd rounds dW,
 dP and dy1 to bf16, the kernels keep them in f32), so each of the seven
@@ -107,16 +109,20 @@ def test_kernel_matches_plain(cuda, kind, B, L, D, H):
 
 @pytest.mark.cuda
 def test_cuda_rejects_float32(cuda):
-    """The branch kernels refuse an f32 input that needs a gradient (the f32
-    backward is not ported) and any dtype but bf16 and f32."""
+    """The branch kernels refuse any dtype but bf16 and f32; the whole block,
+    the chain and the fused patch embed, whose f32 kernels are not ported,
+    refuse f32 in words that name ROADMAP queue 2."""
     x, _, params = _inputs("mlp", 2, 5, 16, cuda)
-    xa, _, pa = _inputs("attn", 2, 5, 16, cuda)
-    with pytest.raises(NotImplementedError, match="f32 backward"):
-        bf.fused_mlp_branch(x.float().requires_grad_(), *params)
-    with pytest.raises(NotImplementedError, match="f32 backward"):
-        bf.fused_attn_branch(xa.float(), *[p.requires_grad_() for p in pa], 2)
     with pytest.raises(TypeError):
         bf.fused_mlp_branch(x.half(), *params)
+    xb, _, bparams = _stack_inputs(2, 17, 48, 2, cuda)
+    with pytest.raises(TypeError, match="ROADMAP queue 2"):
+        bf.fused_block(xb.float(), bparams[0], 4)
+    with pytest.raises(TypeError, match="ROADMAP queue 2"):
+        bc.fused_block_chain(xb.float(), bparams, 4)
+    patches, eparams, idx, _ = _embed_inputs(2, 20, 48, 40, 7, cuda)
+    with pytest.raises(TypeError, match="ROADMAP queue 2"):
+        ef.fused_patch_embed(patches.float(), *eparams, idx)
 
 
 # (B, L, D, H) of the f32 forwards: the feature extractor's encoder at its
@@ -172,6 +178,47 @@ def test_f32_encoder_forward_launches_only_the_f32_kernels(cuda):
     with torch.no_grad():
         want = vit_cpu(images.cpu())
     torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=0)
+
+
+# (B, L, D, H) of the f32 training kernels: F32_SHAPES and the JEPA
+# predictor's head dim 16
+F32_GRAD_SHAPES = F32_SHAPES + [(64, 145, 96, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["attn", "mlp"])
+@pytest.mark.parametrize("B,L,D,H", F32_GRAD_SHAPES)
+def test_f32_grad_kernels_match_plain(cuda, kind, B, L, D, H):
+    """The f32 training kernels of ``csrc/branch_f32.cu`` (the attention
+    branch's stash forward and backward, the MLP branch's forward under grad
+    and backward) against autograd over the plain f32 versions with TF32
+    off: the forward within 5e-5, each of the seven backward outputs within
+    1e-4 of its largest magnitude (+1e-6; f32 sums in another order move it
+    by ~1e-6 of that, a layout fault by O(1)); one launch each way and no
+    other kernel; the no-grad forward and a second backward equal bit for
+    bit (no atomics)."""
+    x, dy, params = _inputs(kind, B, L, D, cuda)
+    x, dy = x.float(), dy.float()
+    extra = (H,) if kind == "attn" else ()
+    kern = bf.fused_attn_branch if kind == "attn" else bf.fused_mlp_branch
+    ref = bf.attn_branch_ref if kind == "attn" else bf.mlp_branch_ref
+    leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    _reset()
+    out = kern(*leaves, *extra)
+    grads = torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    assert _launched() == {f"{kind}_branch_fwd_f32": 1, f"{kind}_branch_bwd_f32": 1}
+    assert all(torch.equal(a, b) for a, b in
+               zip(grads, torch.autograd.grad(out, leaves, dy, retain_graph=True)))
+    with torch.no_grad():
+        assert torch.equal(kern(x, *params, *extra), out)
+    out_r = ref(*leaves, *extra)
+    grads_r = torch.autograd.grad(out_r, leaves, dy)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, out_r, atol=5e-5, rtol=0)
+    for a, b in zip(grads, grads_r):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item() + 1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -470,10 +517,41 @@ def test_branch_dbqkv_is_the_column_sums_of_dqkv(cuda, B, L, D, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H", ATTN_SHAPES)
+@pytest.mark.parametrize("entry", list(ATTENTION))
+def test_f32_attention_kernel_matches_plain(cuda, entry, B, L, D, H):
+    """``csrc/mha_f32.cu`` through each entry at f32 against the plain f32
+    version: the forward within 5e-5, each gradient within 1e-4 of its
+    largest magnitude (+1e-6); one launch each way under the entry's f32
+    key; the no-grad forward and a second backward equal bit for bit."""
+    kern, ref = ATTENTION[entry]
+    leaves, do = _attention_inputs(entry, B, L, D, H, cuda, torch.float32)
+    xs = [t.clone().requires_grad_() for t in leaves]
+    _reset()
+    out = _attention_call(entry, kern, xs, H)
+    grads = torch.autograd.grad(out, xs, do, retain_graph=True)
+    torch.cuda.synchronize()
+    assert _launched() == {f"{entry}_fwd_f32": 1, f"{entry}_bwd_f32": 1}
+    assert all(torch.equal(a, b) for a, b in
+               zip(grads, torch.autograd.grad(out, xs, do, retain_graph=True)))
+    with torch.no_grad():
+        assert torch.equal(_attention_call(entry, kern, leaves, H), out)
+    out_r = _attention_call(entry, ref, xs, H)
+    grads_r = torch.autograd.grad(out_r, xs, do)
+    assert out.dtype == torch.float32 and out.shape == out_r.shape
+    torch.testing.assert_close(out, out_r, atol=5e-5, rtol=0)
+    for a, b in zip(grads, grads_r):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item() + 1e-6, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("entry", list(ATTENTION))
 def test_attention_rejects_float32(cuda, entry):
-    leaves, _ = _attention_inputs(entry, 2, 17, 48, 4, cuda, torch.float32)
-    with pytest.raises(TypeError):
+    """The entries take bf16 and f32 on the card (the f32 ones above);
+    float16 they refuse."""
+    leaves, _ = _attention_inputs(entry, 2, 17, 48, 4, cuda, torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         _attention_call(entry, ATTENTION[entry][0], leaves, 4)
 
 
@@ -487,10 +565,14 @@ def test_attention_refuses_shapes_beyond_the_fit(cuda, entry):
 
 @pytest.mark.cuda
 def test_fit_matches_the_library(cuda):
+    """``attention_core.fits`` is the bf16 kernel's fit, and the f32 kernel
+    (forward and backward) takes every shape within it."""
     lib = _build.load()
     for d in (1, 8, 12, 16, 17, 24, 32, 33):
         for L in (1, 16, 37, 145, 160, 161, 176, 177, 200, 256, 257, 300, 400):
             assert bool(lib.ssrl_mha_fits(L, d)) == core.fits(L, d), (L, d)
+            if core.fits(L, d):
+                assert lib.ssrl_attn_f32_fits(L, d, 1), (L, d)
 
 
 # ---------------------------------------------------------------------------
@@ -696,9 +778,68 @@ FUSED_JEPA = {**FUSED_PRE, "predictor_embed_dim": 48, "predictor_depth": 1,
               "predictor_num_heads": 4}
 
 
+# case -> (task kind, attn_impl, freeze policy of CLS_POLICIES or None)
+F32_STEP_CASES = {"mae-auto": ("mae", "auto", None), "mae-packed": ("mae", "packed", None),
+                  "mae-pallas": ("mae", "pallas", None), "jepa": ("jepa", "auto", None),
+                  "cls-full": ("cls", "auto", "full"), "cls-probe": ("cls", "auto", "probe"),
+                  "cls-unfreeze1": ("cls", "auto", "unfreeze1")}
+
+
+def _step_task(case, device, dtype):
+    kind, impl, policy = F32_STEP_CASES[case]
+    if kind == "mae":
+        return MAETask(FUSED_MODEL, FUSED_PRE, dtype=dtype, device=device, attn_impl=impl)
+    if kind == "jepa":
+        return JEPATask(FUSED_MODEL, FUSED_JEPA, dtype=dtype, device=device, attn_impl=impl)
+    task = ClassifierTask(CLS_MODEL, CLS_TRAIN, dtype=dtype, device=device, attn_impl=impl)
+    freeze, unfreeze, _ = CLS_POLICIES[policy]
+    task.set_freeze_policy(freeze_encoder=freeze, unfreeze_last_layers=unfreeze)
+    return task
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(F32_STEP_CASES))
+def test_f32_step_matches_the_cpu(cuda, case):
+    """One f32 step's gradients on the card at a toy geometry, TF32 off:
+    exactly the kernels of the bf16 step of the same task and route, each
+    under its ``_f32`` key; the loss within rtol 1e-5 of the CPU step's from
+    the same weights (and EMA target) and draws, and each trainable
+    gradient within 1e-4 of the CPU tensor's largest magnitude (+1e-6)."""
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, (8, 96, 96, 3), generator=g, dtype=torch.uint8),
+             "label": torch.randint(0, 10, (8,), generator=g), "weight": torch.ones(8)}
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    bf16 = _step_task(case, "cuda", torch.bfloat16)
+    bs = bf16.init_state(0)
+    _reset()
+    bf16.gradients(bs, gbatch, bf16.epoch_context(0))
+    want = {f"{k}_f32": v for k, v in _launched().items()}
+    gpu, cpu = (_step_task(case, dev, torch.float32) for dev in ("cuda", "cpu"))
+    gs, cs = gpu.init_state(0), cpu.init_state(0)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    if gs.extra is not None:
+        cs.extra = {k: v.cpu().clone() for k, v in gs.extra.items()}
+    ctx = gpu.epoch_context(0)
+    draws = gpu.draw(gs.generator, 8, ctx)
+    _reset()
+    names, grads, sums = gpu.gradients(gs, gbatch, ctx, draws)
+    torch.cuda.synchronize()
+    assert _launched() == want
+    cdraws = tuple(None if d is None else d.cpu() for d in draws)
+    names_c, grads_c, sums_c = cpu.gradients(cs, batch, ctx, cdraws)
+    assert names == names_c and _launched() == want
+    assert float(sums["loss_sum"]) == pytest.approx(float(sums_c["loss_sum"]), rel=1e-5)
+    for k, a, b in zip(names, grads, grads_c):
+        assert a.dtype == torch.float32, k
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4 * b.abs().max().item() + 1e-6,
+                                   rtol=0, msg=k)
+
+
 def _fused_task(kind):
     if kind == "mae":
         return MAETask(FUSED_MODEL, FUSED_PRE, device="cuda")
+    if kind == "mae_f32":
+        return MAETask(FUSED_MODEL, FUSED_PRE, dtype=torch.float32, device="cuda")
     if kind == "jepa":
         return JEPATask(FUSED_MODEL, FUSED_JEPA, device="cuda")
     return ClassifierTask(CLS_MODEL, CLS_TRAIN, device="cuda")
@@ -711,7 +852,7 @@ def _fused_state_tensors(state):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["mae", "jepa", "classifier"])
+@pytest.mark.parametrize("kind", ["mae", "jepa", "classifier", "mae_f32"])
 def test_fused_steps_replay_the_eager_steps(cuda, kind):
     """``train_steps_fused(n=3)`` (one eager step, the capture, two replays)
     and a second call (three replays) equal six ``train_step``s from the
