@@ -3,7 +3,7 @@
 pretraining steps, then the classifier stage and the engine under it, then
 the port's CLIs, then the lineage paths of the step and data parallelism,
 then the bench's steady-state mode (the step as a CUDA-graph replay), then
-checkpoint fidelity.
+checkpoint fidelity, then f32 training on every route.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -176,6 +176,39 @@ Phases (any failure exits nonzero; nothing is caught):
      and Adam moments equal the file's after the relayout, count and rate
      equal, then one more epoch with exact launches of rows 1-5 and finite
      losses.
+  23. f32 training on auto, packed and pallas, TF32 off (switched off,
+     printed, restored): (a) the f32 split branches of
+     ``csrc/branch_f32.cu`` (the attention branch's stash forward and
+     backward, the MLP branch's backward) at the block geometries of phase
+     3 and two odd shapes, and the four attention entries at f32
+     (``csrc/mha_f32.cu``) at their geometries and 33 ragged shapes, against
+     their plain versions (forward within 5e-5, each gradient within 1e-4
+     of its largest magnitude), SDPA at f32 the library yardstick; (b) the
+     MAE, JEPA and classifier (full, probe, unfreeze 2, eval) steps at f32,
+     B=768, auto, exact f32 launches, ms/step and device ms/step; (c) MAE
+     on packed and pallas at f32; (d) B=16 at f32 against the CPU (loss
+     rtol 1e-5, each gradient within 1e-4 of the CPU tensor's largest
+     magnitude); (e) a one-epoch f32 MAE ``Trainer.fit`` at B=256 with a
+     falling loss and exact launches; (f) 3 replayed f32 MAE steps
+     (``train_steps_fused``) equal to 3 eager ones bit for bit.
+  24. f32 on attn_impl block and chain with ``SSRL_FUSED_EMBED=1``, TF32
+     off: (a) the f32 whole block (``csrc/fused_block_f32.cu``) at the block
+     geometries of phase 3, forward and all 13 backward outputs against
+     ``block_ref`` (the target encoder's through the no-grad forward); the
+     f32 chain (``csrc/block_chain_f32.cu``) at the MAE encoder (N=4), the
+     decoder (N=2) and the no-grad JEPA target (N=4) against ``chain_ref``;
+     both forwards equal to the f32 split kernels' bit for bit, a second
+     backward to the first; the f32 fused embed (``csrc/patch_embed_f32.cu``)
+     at K=37, K=45 and no index against its plain version, with a gather +
+     ``torch.matmul`` at f32 as the yardstick; forward within 5e-5, each
+     backward output within 1e-4 of its largest magnitude; per-call times
+     and f32 bounds; (b) the MAE and JEPA steps on block and on chain and
+     the classifier's full fine-tune (and eval step) on block, f32, B=768,
+     with the fused embed: finite losses, moved params, exact f32 launches
+     per step, ms/step and device ms/step (an ``{"f32_step_ms": ...}``
+     line); (c) the same routes at B=16 against the CPU at f32 (loss rtol
+     1e-5, gradients 1e-4); (d) 3 replayed f32 MAE steps on block with the
+     fused embed equal to 3 eager ones bit for bit.
 
 With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
 phase 20 (b), and ``--fused-replay OUT`` is phase 21 in a fresh process
@@ -186,19 +219,20 @@ N cards builds the kernels, runs phase 20 (b) with one process per card over
 (c) with N processes, and prints a ``{"dp_cards": ...}`` line before the
 last.
 
-Each main-path run (phases 4, 6-9, 11-15, 17-22) zeroes every launch count
+Each main-path run (phases 4, 6-9, 11-15, 17-24) zeroes every launch count
 just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
 
-The line before the last is ``{"kernels": [...]}`` (23 entries): per
+The line before the last is ``{"kernels": [...]}`` (42 entries): per
 kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
 ``step`` (the MAE step where it runs the kernel, else the JEPA step),
 ``*_jepa`` the same per JEPA step, ``*_classifier`` per full fine-tune
 step of the classifier, ``*_<geometry>`` per call (``*_cls`` the
 classifier's geometry); for the f32 forwards per ``extract_features``
 batch of 256 (``step`` "features"), ``*_reconstruction`` per
-``reconstruct_batch`` of 8, and their bound is the f32 CUDA-core rate. ``ms`` and
+``reconstruct_batch`` of 8; every f32 kernel's bound is the f32 CUDA-core
+rate (the f32 training kernels per f32 step of ``step``). ``ms`` and
 the other times are CUDA-event means of the wrapper's call, host work
 included; ``device_ms`` and ``library_device_ms`` (attention and embed
 rows) are the summed durations of the device kernels one call launches.
@@ -338,6 +372,23 @@ CLS_LAUNCHES = {
                   "mlp_branch_fwd": 4, "mlp_branch_bwd": 2},
     "eval": {"attn_branch_fwd_nograd": 4, "mlp_branch_fwd": 4},
 }
+# the classifier's full fine-tune and eval step on attn_impl="block" (phase 24)
+CLS_BLOCK_LAUNCHES = {"full": {"block_fwd": 4, "block_bwd": 4}, "eval": {"block_fwd_nograd": 4}}
+
+
+def cls_launches(policy: str, impl: str = "auto", fused: bool = False) -> dict:
+    """Launches of a classifier step under ``policy`` (or of the eval step)
+    on ``impl`` (auto, or block for the full fine-tune and eval); with the
+    fused embed one embed forward more, and one backward where the embed
+    trains (the full fine-tune only)."""
+    want = dict((CLS_BLOCK_LAUNCHES if impl == "block" else CLS_LAUNCHES)[policy])
+    if fused:
+        want["patch_embed_fwd"] = 1
+        if policy == "full":
+            want["patch_embed_bwd"] = 1
+    return want
+
+
 # the attention entry each forced impl's main path must launch
 IMPL_ENTRY = {"packed": "mha_stacked_qkv", "pallas": "mha_pallas"}
 # the f32 forwards of csrc/branch_f32.cu (phase 3f): geometry -> (B, L, D, H);
@@ -388,10 +439,8 @@ def step_tolerances(dtype) -> tuple:
 
 def launch_names(per_step: dict, dtype) -> dict:
     """Launch counts keyed for ``dtype``: an f32 kernel counts under its bf16
-    twin's key + ``_f32`` (``block_fused.LAUNCHES``, ``attention_core.LAUNCHES``)."""
-    if dtype == torch.float32:
-        return {f"{k}_f32": v for k, v in per_step.items()}
-    return per_step
+    twin's key + ``_f32`` (``block_fused.dtype_key``)."""
+    return {bf.dtype_key(dtype, k): v for k, v in per_step.items()}
 
 
 def fail(msg: str) -> None:
@@ -497,11 +546,12 @@ def attention_bounds(L: int, D: int):
     return bound(4 * act, 2 * mm), bound(7 * act, 5 * mm)
 
 
-def stack_bounds(L: int, D: int, N: int, stash: bool):
+def stack_bounds(L: int, D: int, N: int, stash: bool, f32: bool = False):
     """Per-call (fwd, bwd) bounds of N blocks at (B, L, D), F = 4D. Bytes:
     x and the output (dy and dx) once, the chain's 3N - 1 stash tensors
-    written by its forward and read by its backward, bf16 weights and f32
-    LN params read once, f32 gradients written once. Operations per block:
+    written by its forward and read by its backward, bf16 (``f32``: f32)
+    activations and weights and f32 LN params read once, f32 gradients
+    written once; with ``f32`` the operations at the f32 CUDA-core peak. Operations per block:
     forward qkv 6, proj 2, fc1 8, fc2 8 (x MD^2) and attention 4BL^2D.
     Backward of the whole block (only x is an input): the forward up to
     x_mid again (8MD^2, 4BL^2D), the MLP's 40MD^2 (fc1 again, dh, dW2, dW1,
@@ -509,16 +559,18 @@ def stack_bounds(L: int, D: int, N: int, stash: bool):
     chain block (a and x_mid stashed): qkv again 6, the MLP's 40, 16, and
     the attention backward with QK^T again 10BL^2D."""
     M = BATCH * L
-    act = M * D * 2
-    w = N * ((12 * D * D + 9 * D) * 2 + 4 * D * 4)
+    e = 4 if f32 else 2
+    bnd = bound_f32 if f32 else bound
+    act = M * D * e
+    w = N * ((12 * D * D + 9 * D) * e + 4 * D * 4)
     grads = N * (12 * D * D + 13 * D) * 4
     att = BATCH * L * L * D
     st = (3 * N - 1) * act if stash else 0
-    fwd = bound(2 * act + st + w, N * (24 * M * D * D + 4 * att))
+    fwd = bnd(2 * act + st + w, N * (24 * M * D * D + 4 * att))
     if stash:
-        bwd = bound(3 * act + st + w + grads, N * (62 * M * D * D + 10 * att))
+        bwd = bnd(3 * act + st + w + grads, N * (62 * M * D * D + 10 * att))
     else:
-        bwd = bound(3 * act + w + grads, N * (64 * M * D * D + 12 * att))
+        bwd = bnd(3 * act + w + grads, N * (64 * M * D * D + 12 * att))
     return fwd, bwd
 
 
@@ -787,8 +839,9 @@ def gemm_table() -> list:
     return rows
 
 
-def stack_inputs(L: int, D: int, N: int, seed: int):
-    """bf16 x and dy, and N blocks' 12 f32 params each, on the card."""
+def stack_inputs(L: int, D: int, N: int, seed: int, dtype=torch.bfloat16):
+    """bf16 (or ``dtype``) x and dy, and N blocks' 12 f32 params each, on the
+    card."""
     g = torch.Generator().manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     F_ = 4 * D
@@ -799,23 +852,31 @@ def stack_inputs(L: int, D: int, N: int, seed: int):
                 rn(F_, D) * D**-0.5, 0.1 * rn(F_), rn(D, F_) * F_**-0.5, 0.1 * rn(D)]
 
     params = [[t.cuda() for t in block()] for _ in range(N)]
-    x, dy = (rn(BATCH, L, D).to(torch.bfloat16).cuda() for _ in range(2))
+    x, dy = (rn(BATCH, L, D).to(dtype).cuda() for _ in range(2))
     return x, dy, params
 
 
-def check_stack(kind: str) -> dict:
+def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
     """Phases 3d (``kind="block"``: one block per geometry) and 3e
-    (``"chain"``: CHAIN_DEPTH blocks): the kernels against their plain
-    versions, every backward output, and per-call times; the target
-    geometry runs the no-grad forward only."""
-    names = BLOCK_KERNELS if kind == "block" else CHAIN_KERNELS
+    (``"chain"``: CHAIN_DEPTH blocks), and at f32 phase 24 (a): the kernels
+    against their plain versions, every backward output, and per-call
+    times; the target geometry runs the no-grad forward only. At f32 the
+    chain runs at F32_CHAIN_GEOS, the forward is held to F32_ATOL and each
+    backward output to F32_BWD_REL, and both kinds' forwards equal the f32
+    split kernels' bit for bit (one function at f32)."""
+    f32 = dtype == torch.float32
+    names = [bf.dtype_key(dtype, k)
+             for k in (BLOCK_KERNELS if kind == "block" else CHAIN_KERNELS)]
     fwd, nograd, bwd = names
     per = {k: {} for k in names}
     errs = dict.fromkeys(names, 0.0)
-    for geo, (L, D, H) in GEOMETRIES.items():
+    timing = F32_TIMING if f32 else {}
+    geos = [g for g in GEOMETRIES if not (f32 and kind == "chain") or g in F32_CHAIN_GEOS]
+    for geo in geos:
+        L, D, H = GEOMETRIES[geo]
         grad = geo != "tgt"
         N = 1 if kind == "block" else CHAIN_DEPTH[geo]
-        x, dy, params = stack_inputs(L, D, N, seed=L + D + N)
+        x, dy, params = stack_inputs(L, D, N, seed=L + D + N, dtype=dtype)
         if kind == "block":
             kern = lambda x, pl: bf.fused_block(x, pl[0], H)  # noqa: E731
             ref = lambda x, pl: bf.block_ref(x, pl[0], H)  # noqa: E731
@@ -830,7 +891,7 @@ def check_stack(kind: str) -> dict:
             out_ng = kern(x, params)
             out_r = ref(x, params)
             split = None
-            if kind == "chain":
+            if kind == "chain" or f32:
                 split = x
                 for p in params:
                     split = bf.fused_mlp_branch(bf.fused_attn_branch(split, *p[:6], H), *p[6:])
@@ -838,35 +899,49 @@ def check_stack(kind: str) -> dict:
         if not torch.equal(out_ng, out_k):
             fail(f"{kind}@{geo}: the no-grad forward differs from the forward")
         if split is not None and not torch.equal(split, out_k):
-            fail(f"chain@{geo}: the forward differs from the split kernels'")
+            fail(f"{kind}@{geo} {DT_NAME[dtype]}: the forward differs from the split kernels'")
         fwd_err = (out_k.float() - out_r.float()).abs().max().item()
-        if not fwd_err <= FWD_ATOL * N:  # a rounding flipped in one block carries on
-            fail(f"{kind}@{geo} forward: max abs err {fwd_err} > {FWD_ATOL * N}")
-        (bf_ms, bf_by), (bb_ms, bb_by) = stack_bounds(L, D, N, stash=kind == "chain" and grad)
+        # bf16: a rounding flipped in one block carries on
+        atol = F32_ATOL if f32 else FWD_ATOL * N
+        if not fwd_err <= atol:
+            fail(f"{kind}@{geo} {DT_NAME[dtype]} forward: max abs err {fwd_err} > {atol}")
+        (bf_ms, bf_by), (bb_ms, bb_by) = stack_bounds(L, D, N, stash=kind == "chain" and grad,
+                                                      f32=f32)
         with torch.no_grad():
-            t_plain = cuda_ms(lambda: ref(x, params))
-            t_ng = cuda_ms(lambda: kern(x, params))
-        t_fwd = cuda_ms(lambda: kern(xl, pl)) if grad else t_ng
+            t_plain = cuda_ms(lambda: ref(x, params), **timing)
+            t_ng = cuda_ms(lambda: kern(x, params), **timing)
+        t_fwd = cuda_ms(lambda: kern(xl, pl), **timing) if grad else t_ng
         key = fwd if grad else nograd
         per[key][geo] = {"ms": t_fwd, "plain_ms": t_plain, "bound_ms": bf_ms, "bound_by": bf_by}
         errs[key] = max(errs[key], fwd_err)
-        line = (f"  {kind}@{geo} L={L} D={D} N={N}: fwd {t_fwd:.3f} ms (plain {t_plain:.3f}, "
-                f"bound {bf_ms:.3f})")
+        line = (f"  {kind}@{geo} {DT_NAME[dtype]} L={L} D={D} N={N}: fwd {t_fwd:.3f} ms (plain "
+                f"{t_plain:.3f}, bound {bf_ms:.3f})")
         if grad:
             grads_k = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
             out_rg = ref(xl, pl)
             grads_r = torch.autograd.grad(out_rg, leaves, dy, retain_graph=True)
             gnames = ["dx"] + [f"d{i // 12}_{i % 12}" for i in range(12 * N)]
-            bwd_err = check_grads(f"{kind}@{geo}", gnames, grads_k, grads_r)
-            t_bwd = cuda_ms(lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True))
-            t_pbwd = cuda_ms(lambda: torch.autograd.grad(out_rg, leaves, dy, retain_graph=True))
+            if f32:
+                again = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
+                if not all(map(torch.equal, grads_k, again)):
+                    fail(f"{kind}@{geo} f32: a second backward differs from the first")
+                del again
+                bwd_err = check_close(f"{kind}@{geo} f32", gnames, grads_k, grads_r,
+                                      F32_BWD_REL)
+            else:
+                bwd_err = check_grads(f"{kind}@{geo}", gnames, grads_k, grads_r)
+            t_bwd = cuda_ms(lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True),
+                            **timing)
+            t_pbwd = cuda_ms(lambda: torch.autograd.grad(out_rg, leaves, dy, retain_graph=True),
+                             **timing)
             per[bwd][geo] = {"ms": t_bwd, "plain_ms": t_pbwd, "bound_ms": bb_ms,
                              "bound_by": bb_by}
             errs[bwd] = max(errs[bwd], bwd_err)
-            line += f", bwd {t_bwd:.3f} ms (plain {t_pbwd:.3f}, bound {bb_ms:.3f})"
+            line += (f", bwd {t_bwd:.3f} ms (plain {t_pbwd:.3f}, bound {bb_ms:.3f}); bwd max "
+                     f"abs err {bwd_err:.3e}")
             del grads_k, grads_r, out_rg
         else:
-            line += f" (no-grad; with grad {cuda_ms(lambda: kern(xl, pl)):.3f})"
+            line += f" (no-grad; with grad {cuda_ms(lambda: kern(xl, pl), **timing):.3f})"
         print(line + f"; fwd max abs err {fwd_err:.3e}", flush=True)
         del out_k, out_r, out_ng, split, xl, pl, leaves
         torch.cuda.empty_cache()
@@ -993,57 +1068,65 @@ def check_attention() -> dict:
     return res
 
 
-def embed_inputs(K, seed: int):
-    """Patches, embedding params and dy at the flagship geometry, on the
-    card; the index holds CLS first and K - 1 distinct patch tokens per
-    image, unsorted (the JEPA context's argsort order)."""
+def embed_inputs(K, seed: int, dtype=torch.bfloat16):
+    """Patches (bf16, or ``dtype``), f32 embedding params and dy at the
+    flagship geometry, on the card; the index holds CLS first and K - 1
+    distinct patch tokens per image, unsorted (the JEPA context's argsort
+    order)."""
     g = torch.Generator().manual_seed(seed)
     N, Pc, D = EMBED_N, EMBED_PC, EMBED_D
-    patches = (torch.rand(BATCH, N, Pc, generator=g) * 2 - 1).to(torch.bfloat16)
+    patches = (torch.rand(BATCH, N, Pc, generator=g) * 2 - 1).to(dtype)
     params = [torch.randn(D, Pc, generator=g) * Pc**-0.5, 0.02 * torch.randn(D, generator=g),
               0.02 * torch.randn(1, 1, D, generator=g), 0.02 * torch.randn(1, N + 1, D, generator=g)]
     idx = None
     if K is not None:
         perm = torch.argsort(torch.rand(BATCH, N, generator=g), dim=-1)[:, :K - 1] + 1
         idx = torch.cat([torch.zeros(BATCH, 1, dtype=torch.long), perm], dim=1).cuda()
-    dy = torch.randn(BATCH, N + 1 if K is None else K, D, generator=g).to(torch.bfloat16)
+    dy = torch.randn(BATCH, N + 1 if K is None else K, D, generator=g).to(dtype)
     return patches.cuda(), [p.cuda() for p in params], idx, dy.cuda()
 
 
-def embed_bounds(K):
+def embed_bounds(K, f32: bool = False):
     """Per-call bounds of the embed kernels: (fwd, bwd without dpatches, bwd
     with dpatches). The kept non-CLS rows of the patches are read once, the
-    (B, K, D) output or dy once, the bf16 weight and bias, the f32 CLS and
-    position rows and the int64 index once; f32 dW, db and d(cls_pos)
-    written once (dpatches in full: zeros outside the kept rows). Operations:
-    2·rows·Pc·D per product (forward; dW; dpatches)."""
+    (B, K, D) output or dy once, the bf16 (``f32``: f32) weight and bias, the
+    f32 CLS and position rows and the int64 index once; f32 dW, db and
+    d(cls_pos) written once (dpatches in full: zeros outside the kept rows).
+    Operations: 2·rows·Pc·D per product (forward; dW; dpatches), with
+    ``f32`` at the f32 CUDA-core peak."""
     N, Pc, D = EMBED_N, EMBED_PC, EMBED_D
     L = N + 1
+    e = 4 if f32 else 2
+    bnd = bound_f32 if f32 else bound
     k = L if K is None else K
     rows = BATCH * (k - 1)  # kept rows that are patches (CLS is not)
     idx = 0 if K is None else BATCH * k * 8
     gemm = 2 * rows * Pc * D
-    fwd = bound(rows * Pc * 2 + BATCH * k * D * 2 + D * Pc * 2 + D * 2 + L * D * 4 + idx, gemm)
+    fwd = bnd(rows * Pc * e + BATCH * k * D * e + D * Pc * e + D * e + L * D * 4 + idx, gemm)
     grads_out = D * Pc * 4 + D * 4 + L * D * 4
-    bwd = bound(BATCH * k * D * 2 + rows * Pc * 2 + idx + grads_out, gemm)
-    bwd_dp = bound(BATCH * k * D * 2 + rows * Pc * 2 + D * Pc * 2 + idx + grads_out
-                   + BATCH * N * Pc * 2, 2 * gemm)
+    bwd = bnd(BATCH * k * D * e + rows * Pc * e + idx + grads_out, gemm)
+    bwd_dp = bnd(BATCH * k * D * e + rows * Pc * e + D * Pc * e + idx + grads_out
+                 + BATCH * N * Pc * e, 2 * gemm)
     return fwd, bwd, bwd_dp
 
 
-def check_embed() -> dict:
-    """Phase 3c: the embed kernels against the plain version at the three
-    index forms, every output of the backward, and per-call times."""
+def check_embed(dtype=torch.bfloat16) -> dict:
+    """Phase 3c (bf16) and 24 (a) (f32): the embed kernels against the plain
+    version at the three index forms, every output of the backward, and
+    per-call times; at f32 the forward within F32_ATOL and each backward
+    output within F32_BWD_REL."""
+    f32 = dtype == torch.float32
+    fwd_key, bwd_key = (bf.dtype_key(dtype, k) for k in EMBED_KERNELS)
     per = {"fwd": {}, "bwd": {}}
     err = {"fwd": 0.0, "bwd": 0.0}
     for geo, K in EMBED_GEOS.items():
-        patches, params, idx, dy = embed_inputs(K, seed=7 + (K or 0))
+        patches, params, idx, dy = embed_inputs(K, seed=7 + (K or 0), dtype=dtype)
         leaves = [p.clone().requires_grad_() for p in params]
         before = dict(ef.LAUNCHES)
         out_k = ef.fused_patch_embed(patches, *leaves, idx)
         grads_k = torch.autograd.grad(out_k, leaves, dy, retain_graph=True)
-        if ef.LAUNCHES != {"patch_embed_fwd": before["patch_embed_fwd"] + 1,
-                           "patch_embed_bwd": before["patch_embed_bwd"] + 1}:
+        if ef.LAUNCHES != {**before, fwd_key: before[fwd_key] + 1,
+                           bwd_key: before[bwd_key] + 1}:
             fail(f"embed@{geo}: launches {ef.LAUNCHES} after one forward and backward "
                  f"from {before}")
         pl = patches.clone().requires_grad_()
@@ -1059,12 +1142,16 @@ def check_embed() -> dict:
         if not all(torch.equal(a, b) for a, b in zip(grads_k, grads_kp[1:])):
             fail(f"embed@{geo}: the parameter gradients change when dpatches is computed")
         fwd_err = (out_k.float() - out_r.float()).abs().max().item()
-        if not fwd_err <= FWD_ATOL:
-            fail(f"embed@{geo} forward: max abs err {fwd_err} > {FWD_ATOL}")
-        bwd_err = check_grads(f"embed@{geo}", ["dpatches", "dw", "db", "dcls", "dpos"],
-                              grads_kp, grads_r)
+        atol = F32_ATOL if f32 else FWD_ATOL
+        if not fwd_err <= atol:
+            fail(f"embed@{geo} {DT_NAME[dtype]} forward: max abs err {fwd_err} > {atol}")
+        gnames = ["dpatches", "dw", "db", "dcls", "dpos"]
+        if f32:
+            bwd_err = check_close(f"embed@{geo} f32", gnames, grads_kp, grads_r, F32_BWD_REL)
+        else:
+            bwd_err = check_grads(f"embed@{geo}", gnames, grads_kp, grads_r)
         # the yardstick: a gather of the kept patch rows, then torch.matmul
-        wb = params[0].to(torch.bfloat16)
+        wb = params[0].to(dtype)
         src = None if idx is None else (idx.clamp_min(1) - 1)[..., None].expand(-1, -1, EMBED_PC)
         rows = (lambda: patches) if idx is None else (lambda: patches.gather(1, src))
         dyf = dy.reshape(-1, EMBED_D)
@@ -1091,19 +1178,20 @@ def check_embed() -> dict:
                 rows().reshape(-1, EMBED_PC)))
         t_bwd["device_ms"] = device_ms(
             lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True), by_kernel=bwd_shares)
-        (bf_ms, bf_by), (bb_ms, bb_by), (bd_ms, _) = embed_bounds(K)
+        (bf_ms, bf_by), (bb_ms, bb_by), (bd_ms, _) = embed_bounds(K, f32)
         per["fwd"][geo] = {**t_fwd, "bound_ms": bf_ms, "bound_by": bf_by}
         per["bwd"][geo] = {**t_bwd, "bound_ms": bb_ms, "bound_by": bb_by,
                            "ms_dpatches": t_dp, "bound_ms_dpatches": bd_ms}
         err["fwd"], err["bwd"] = max(err["fwd"], fwd_err), max(err["bwd"], bwd_err)
-        print(f"  embed@{geo} K={K}: fwd {t_fwd['ms']:.3f} ms (plain {t_fwd['plain_ms']:.3f}, "
+        print(f"  embed@{geo} {DT_NAME[dtype]} K={K}: fwd {t_fwd['ms']:.3f} ms (plain "
+              f"{t_fwd['plain_ms']:.3f}, "
               f"gather+matmul {t_fwd['library_ms']:.3f}, bound {bf_ms:.4f}), bwd "
               f"{t_bwd['ms']:.3f} ms (plain {t_bwd['plain_ms']:.3f}, gather+matmul "
               f"{t_lib_bwd:.3f}, bound {bb_ms:.4f}), bwd with dpatches {t_dp:.3f} ms "
               f"(bound {bd_ms:.4f}); device fwd {t_fwd['device_ms']:.4f} (gather+matmul "
               f"{t_fwd['library_device_ms']:.4f}), bwd {t_bwd['device_ms']:.4f} "
-              f"(gather+matmul {t_bwd['library_device_ms']:.4f}); fwd max abs err "
-              f"{fwd_err:.3e}", flush=True)
+              f"(gather+matmul {t_bwd['library_device_ms']:.4f}); max abs err fwd "
+              f"{fwd_err:.3e}, bwd {bwd_err:.3e}", flush=True)
         print(f"    device fwd by kernel: {kernel_shares(fwd_shares)}")
         print(f"    device bwd by kernel: {kernel_shares(bwd_shares)}", flush=True)
         del out_k, out_kp, out_r, out_rn, grads_k, grads_kp, grads_r
@@ -1112,7 +1200,7 @@ def check_embed() -> dict:
         r = summarize(per[pas], err[pas], EMBED_CALLS[pas])
         for g, v in per[pas].items():
             r.update({f"{k}_{g}": x for k, x in v.items() if k.endswith("dpatches")})
-        res[f"patch_embed_{pas}"] = r
+        res[bf.dtype_key(dtype, f"patch_embed_{pas}")] = r
     return res
 
 
@@ -1289,9 +1377,10 @@ def check_step_grads(what: str, gpu, gs, gbatch: dict, cpu, cs, cbatch: dict, dr
 
 def cpu_agreement(model_cfg: dict, impl: str, pre_cfg: dict = PRE_CFG, route: str = "",
                   dtype=torch.bfloat16) -> None:
-    """Phases 5-7, 11, 12, 19, 23: B=16, same weights and draws, kernels vs
-    plain CPU path."""
+    """Phases 5-7, 11, 12, 19, 23, 24: B=16, same weights and draws, kernels
+    vs plain CPU path (under the caller's ``SSRL_FUSED_EMBED``)."""
     n = 16
+    fused = ef.use_fused_embed()
     loss_rtol, grad_rel = step_tolerances(dtype)
     gpu = MAETask(model_cfg, pre_cfg, dtype=dtype, device="cuda", attn_impl=impl)
     cpu = MAETask(model_cfg, pre_cfg, dtype=dtype, device="cpu", attn_impl=impl)
@@ -1303,7 +1392,8 @@ def cpu_agreement(model_cfg: dict, impl: str, pre_cfg: dict = PRE_CFG, route: st
     ctx = gpu.epoch_context(0)
     draws = gpu.draw(gs.generator, n, ctx)
     weight = torch.ones(n)
-    what = f"attn_impl={impl} {route} B={n} {DT_NAME[dtype]}"
+    what = (f"attn_impl={impl} {route} B={n} {DT_NAME[dtype]}"
+            + (" SSRL_FUSED_EMBED=1" if fused else ""))
     check_step_grads(what, gpu, gs, {"image": images.cuda(), "weight": weight.cuda()},
                      cpu, cs, {"image": images, "weight": weight}, draws, ctx, grad_rel)
     reset_counts()
@@ -1312,8 +1402,8 @@ def cpu_agreement(model_cfg: dict, impl: str, pre_cfg: dict = PRE_CFG, route: st
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, ctx,
                               on_cpu(draws))
-    if launch_counts() != launched or launched != expected(launch_names(mae_launches(impl),
-                                                                        dtype)):
+    if launch_counts() != launched or launched != expected(
+            launch_names(mae_launches(impl, fused), dtype)):
         fail(f"launch counts: {launch_counts()} (the GPU step must launch one of each "
              f"kernel of attn_impl={impl} per block, the CPU step none)")
     lg, lc = float(s_gpu["loss_sum"]) / n, float(s_cpu["loss_sum"]) / n
@@ -1355,9 +1445,10 @@ def jepa_step(model_cfg: dict, jepa_cfg: dict, name: str, fused: bool,
 
 def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto",
                        route: str = "", dtype=torch.bfloat16) -> None:
-    """Phases 10, 13, 14, 19, 23: B=16, same weights, EMA and draws, kernels
-    vs plain CPU."""
+    """Phases 10, 13, 14, 19, 23, 24: B=16, same weights, EMA and draws,
+    kernels vs plain CPU (under the caller's ``SSRL_FUSED_EMBED``)."""
     n = 16
+    fused = ef.use_fused_embed()
     loss_rtol, grad_rel = step_tolerances(dtype)
     gpu = JEPATask(model_cfg, jepa_cfg, dtype=dtype, device="cuda", attn_impl=impl)
     cpu = JEPATask(model_cfg, jepa_cfg, dtype=dtype, device="cpu", attn_impl=impl)
@@ -1368,7 +1459,8 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto",
         np.random.default_rng(1).integers(0, 256, (n, 96, 96, 3)).astype(np.uint8))
     draws = gpu.draw(gs.generator, n, None)
     weight = torch.ones(n)
-    what = f"JEPA attn_impl={impl} {route} B={n} {DT_NAME[dtype]}"
+    what = (f"JEPA attn_impl={impl} {route} B={n} {DT_NAME[dtype]}"
+            + (" SSRL_FUSED_EMBED=1" if fused else ""))
     check_step_grads(what, gpu, gs, {"image": images.cuda(), "weight": weight.cuda()},
                      cpu, cs, {"image": images, "weight": weight}, draws, rel=grad_rel)
     reset_counts()
@@ -1377,7 +1469,7 @@ def jepa_cpu_agreement(model_cfg: dict, jepa_cfg: dict, impl: str = "auto",
     launched = launch_counts()
     _, s_cpu = cpu.train_step(cs, {"image": images, "weight": weight}, 0, None,
                               on_cpu(draws))
-    want = launch_names(jepa_launches(False, impl), dtype)
+    want = launch_names(jepa_launches(fused, impl), dtype)
     if launch_counts() != launched or launched != expected(want):
         fail(f"launch counts: {launch_counts()} (the GPU JEPA step must launch "
              f"{want}, the CPU step nothing)")
@@ -1411,24 +1503,28 @@ def check_frozen(task, before: dict, after: dict, what: str) -> None:
 
 
 def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple(FREEZE),
-                     augment: bool = True, dtype=torch.bfloat16):
-    """Phases 15, 19 and 23: the flagship classifier step through
-    ``ClassifierTask`` under each of ``policies``, then (augmentation on)
-    its eval step; exact launches per step. Returns the launches and the
-    ms/step of each policy."""
+                     augment: bool = True, dtype=torch.bfloat16, impl: str = "auto"):
+    """Phases 15, 19, 23 and 24: the flagship classifier step through
+    ``ClassifierTask`` on ``impl`` under each of ``policies``, then
+    (augmentation on) its eval step; exact launches per step (under the
+    caller's ``SSRL_FUSED_EMBED``). Returns the launches and the ms/step of
+    each policy."""
+    fused = ef.use_fused_embed()
     launches = dict.fromkeys(launch_counts(), 0)
     step_ms = {}
     batch = flagship_images()
     for policy in policies:
-        task = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment,
+        task = classifier_task(model_cfg, train_cfg, policy, "cuda", impl=impl, augment=augment,
                                dtype=dtype)
         state = task.init_state(0)
         before = {k: v.detach().clone() for k, v in state.params.items()}
-        what = f"classifier step {policy}" + ("" if augment else " augment off")
+        what = (f"classifier step {policy}" + ("" if augment else " augment off")
+                + ("" if impl == "auto" else f" attn_impl={impl}")
+                + (" SSRL_FUSED_EMBED=1" if fused else ""))
         state, sums, got, step_ms[policy] = timed_steps(task, state, batch, name, what,
                                                         device=dtype == torch.float32)
         check_frozen(task, before, state.params, what)
-        want = expected(launch_names(CLS_LAUNCHES[policy], dtype), STEPS)
+        want = expected(launch_names(cls_launches(policy, impl, fused), dtype), STEPS)
         if got != want:
             fail(f"{what}: launches in {STEPS} steps {got}, expected {want}")
         metrics = task.epoch_metrics_from_sums({k: float(v) for k, v in sums[-1].items()},
@@ -1453,7 +1549,7 @@ def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple
             m = task.epoch_metrics_from_sums({k: float(v) for k, v in s.items()}, "val")
             print(f"  classifier eval step B={BATCH} {DT_NAME[dtype]} on {name}: {ms:.3f} "
                   f"ms/step (CUDA events), {BATCH / ms * 1e3:.1f} img/s; {m}", flush=True)
-            want = expected(launch_names(CLS_LAUNCHES["eval"], dtype), STEPS)
+            want = expected(launch_names(cls_launches("eval", impl, fused), dtype), STEPS)
             if got != want:
                 fail(f"classifier eval: launches in {STEPS} steps {got}, expected {want}")
             if not all(math.isfinite(v) for v in m.values()):
@@ -1466,17 +1562,20 @@ def classifier_steps(model_cfg: dict, train_cfg: dict, name: str, policies=tuple
 
 
 def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict, policies=tuple(FREEZE),
-                             augment: bool = True, dtype=torch.bfloat16) -> None:
-    """Phases 16, 19 and 23: B=16, same weights and draws, kernels on the
-    card against the plain path on the CPU, under each of ``policies`` (the
-    loss, every trainable gradient, the frozen tensors' bits); then
-    (augmentation on) the eval step's sums."""
+                             augment: bool = True, dtype=torch.bfloat16,
+                             impl: str = "auto") -> None:
+    """Phases 16, 19, 23 and 24: B=16, same weights and draws, kernels on the
+    card against the plain path on the CPU, on ``impl`` under each of
+    ``policies`` (the loss, every trainable gradient, the frozen tensors'
+    bits); then (augmentation on) the eval step's sums; under the caller's
+    ``SSRL_FUSED_EMBED``."""
     n = 16
+    fused = ef.use_fused_embed()
     loss_rtol, grad_rel = step_tolerances(dtype)
     for policy in policies:
-        gpu = classifier_task(model_cfg, train_cfg, policy, "cuda", augment=augment,
+        gpu = classifier_task(model_cfg, train_cfg, policy, "cuda", impl=impl, augment=augment,
                               dtype=dtype)
-        cpu = classifier_task(model_cfg, train_cfg, policy, "cpu", augment=augment,
+        cpu = classifier_task(model_cfg, train_cfg, policy, "cpu", impl=impl, augment=augment,
                               dtype=dtype)
         gs, cs = gpu.init_state(1), cpu.init_state(1)
         cpu.model.load_state_dict(gpu.model.state_dict())
@@ -1486,7 +1585,7 @@ def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict, policies=tuple(FR
             eg = gpu.eval_step(gs, {k: v.cuda() for k, v in batch.items()}, None)
             launched = launch_counts()
             ec = cpu.eval_step(cs, batch, None)
-            want = launch_names(CLS_LAUNCHES["eval"], dtype)
+            want = launch_names(cls_launches("eval", impl, fused), dtype)
             if launch_counts() != launched or launched != expected(want):
                 fail(f"classifier eval launch counts: {launch_counts()}")
             print(f"  eval B={n}: card {({k: round(float(v), 5) for k, v in eg.items()})}, "
@@ -1498,14 +1597,14 @@ def classifier_cpu_agreement(model_cfg: dict, train_cfg: dict, policies=tuple(FR
                 fail(f"eval loss_sum disagrees: {lg} vs {lc} (rtol {loss_rtol})")
         draws = gpu.draw(gs.generator, n, None)
         before = {k: v.detach().clone() for k, v in cs.params.items()}
-        check_step_grads(f"classifier {policy} {DT_NAME[dtype]}", gpu, gs,
+        check_step_grads(f"classifier {policy} {impl} {DT_NAME[dtype]}", gpu, gs,
                          {k: v.cuda() for k, v in batch.items()}, cpu, cs, batch, draws,
                          rel=grad_rel)
         reset_counts()
         _, s_gpu = gpu.train_step(gs, {k: v.cuda() for k, v in batch.items()}, 0, None, draws)
         launched = launch_counts()
         _, s_cpu = cpu.train_step(cs, batch, 0, None, on_cpu(draws))
-        want = launch_names(CLS_LAUNCHES[policy], dtype)
+        want = launch_names(cls_launches(policy, impl, fused), dtype)
         if launch_counts() != launched or launched != expected(want):
             fail(f"classifier {policy} launch counts: {launch_counts()}, expected "
                  f"{want} on the card and nothing on the CPU")
@@ -2904,6 +3003,13 @@ F32_ATTN_ODD = ((3, 17, 48, 4), (2, 23, 16, 2), (2, 160, 64, 2), (2, 176, 32, 2)
 F32_TIMING = {"iters": 5, "warmup": 2}  # the f32 kernels take ms a call at B=768
 F32_FUSED_N = 3  # phase 23 (f): replayed and eager MAE steps at f32
 F32_FIT_BATCH = 256  # phase 23 (e): 15 steps in the epoch of 3760 images
+# phase 24 (a): the f32 chain at the MAE encoder and decoder stacks and the
+# JEPA target encoder's (no-grad); the whole block at every GEOMETRIES entry
+F32_CHAIN_GEOS = ("enc", "dec", "tgt")
+# phase 24: the f32 kernels of rows 6, 7 and 12 (bf16 key -> source file)
+F32_STACK_SOURCES = {**dict.fromkeys(BLOCK_KERNELS, "fused_block_f32.cu"),
+                     **dict.fromkeys(CHAIN_KERNELS, "block_chain_f32.cu"),
+                     **dict.fromkeys(EMBED_KERNELS, "patch_embed_f32.cu")}
 
 
 @contextlib.contextmanager
@@ -3159,15 +3265,18 @@ def f32_fit(cfg: dict) -> dict:
     return got
 
 
-def f32_fused_equality(model_cfg: dict) -> dict:
-    """Phase 23 (f): ``train_steps_fused`` at f32: F32_FUSED_N replayed MAE
+def f32_fused_equality(model_cfg: dict, impl: str = "auto") -> dict:
+    """Phases 23 (f) and 24 (d): ``train_steps_fused`` at f32 on ``impl``
+    (under the caller's ``SSRL_FUSED_EMBED``): F32_FUSED_N replayed MAE
     steps (one eager step, the capture, replays) equal as many eager steps
     bit for bit, under deterministic algorithms; returns the host launch
     counts of both runs."""
     runs = []
+    embed = ef.use_fused_embed()
     with deterministic(True):
         for fused in (False, True):
-            task = MAETask(model_cfg, PRE_CFG, dtype=torch.float32, device="cuda")
+            task = MAETask(model_cfg, PRE_CFG, dtype=torch.float32, device="cuda",
+                           attn_impl=impl)
             state = task.init_state(0)
             batch, ctx = flagship_images(), task.epoch_context(0)
             torch.cuda.synchronize()
@@ -3186,12 +3295,13 @@ def f32_fused_equality(model_cfg: dict) -> dict:
     differ += [k for k in sums_e if k != "lr" and not torch.equal(sums_e[k], sums_g[k])]
     if not torch.equal(se.generator.get_state(), sg.generator.get_state()):
         differ.append("generator")
-    print(f"  MAE f32: {F32_FUSED_N} replayed vs eager steps, deterministic algorithms: "
+    print(f"  MAE f32 attn_impl={impl}" + (" SSRL_FUSED_EMBED=1" if embed else "")
+          + f": {F32_FUSED_N} replayed vs eager steps, deterministic algorithms: "
           f"{len(differ)} of {len(a) + len(sums_e)} tensors differ", flush=True)
     if differ:
         fail(f"f32 fused: the replayed steps differ from the eager ones in {differ[:8]}")
     # the capture launches one step's kernels, a replay none (host counters)
-    per_step = expected(launch_names(mae_launches("auto"), torch.float32))
+    per_step = expected(launch_names(mae_launches(impl, embed), torch.float32))
     if ce != {k: v * F32_FUSED_N for k, v in per_step.items()} or cg != {
             k: v * 2 for k, v in per_step.items()}:
         fail(f"f32 fused: eager {nonzero(ce)}, one eager step and the capture {nonzero(cg)}")
@@ -3233,6 +3343,57 @@ def f32_training(cfg: dict, name: str):
         add(f32_fit(cfg))
         print("phase 23 (f): train_steps_fused at f32 vs eager steps", flush=True)
         add(f32_fused_equality(model_cfg))
+    return res, counts
+
+
+def f32_stack_routes(cfg: dict, name: str):
+    """Phase 24: f32 on attn_impl block and chain with the fused embed, TF32
+    off. Returns (the kernel lines' entries, the host launch counts of the
+    main-path runs)."""
+    model_cfg = cfg["model"]
+    jepa_cfg = {**cfg["jepa"], "batch_size": BATCH}
+    train_cfg = {**cfg["train"], "batch_size": BATCH}
+    f32 = torch.float32
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    with no_tf32():
+        print("phase 24 (a): the f32 whole block, chain and patch embed vs their plain "
+              "versions", flush=True)
+        res = check_stack("block", f32)
+        res.update(check_stack("chain", f32))
+        res.update(check_embed(f32))
+        print("phase 24 (b): MAE and JEPA on block and chain, the classifier's full "
+              "fine-tune on block, f32, B=768, SSRL_FUSED_EMBED=1", flush=True)
+        step_ms = {}
+        for impl in ("block", "chain"):
+            c, step_ms[f"mae_{impl}"] = mae_step(model_cfg, name, impl, fused=True, dtype=f32)
+            add(c)
+            c, step_ms[f"jepa_{impl}"] = jepa_step(model_cfg, jepa_cfg, name, fused=True,
+                                                   impl=impl, dtype=f32)
+            add(c)
+        with fused_embed(True):
+            c, cls_ms = classifier_steps(model_cfg, train_cfg, name, policies=("full",),
+                                         dtype=f32, impl="block")
+            add(c)
+            step_ms["classifier_full_block"] = cls_ms["full"]
+            print(json.dumps({"f32_step_ms": step_ms}), flush=True)
+            print("phase 24 (c): B=16 f32 steps on the same routes, kernels vs plain CPU path",
+                  flush=True)
+            for impl in ("block", "chain"):
+                cpu_agreement(model_cfg, impl, dtype=f32)
+                jepa_cpu_agreement(model_cfg, jepa_cfg, impl, dtype=f32)
+            classifier_cpu_agreement(model_cfg, train_cfg, policies=("full",), dtype=f32,
+                                     impl="block")
+            print("phase 24 (d): train_steps_fused at f32 on block with the fused embed vs "
+                  "eager steps", flush=True)
+            add(f32_fused_equality(model_cfg, "block"))
+    idle = [k for k in (bf.dtype_key(f32, k) for k in F32_STACK_SOURCES) if not counts[k]]
+    if idle:
+        fail(f"phase 24: the main-path runs never launched {idle}")
     return res, counts
 
 
@@ -3348,6 +3509,12 @@ def main() -> None:
         f32_res, counts = f32_training(cfg, name)
         res.update(f32_res)
         add(counts)
+    with timed_phase(times, "24", "f32 on block and chain with the fused embed: the f32 "
+                     "whole block, chain and patch embed, the MAE, JEPA and classifier steps, "
+                     "B=16 against the CPU, fused replays"):
+        f32_res, counts = f32_stack_routes(cfg, name)
+        res.update(f32_res)
+        add(counts)
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]
@@ -3367,6 +3534,9 @@ def main() -> None:
     rows += [(f"{entry}_{pas}_f32", "ssrl_vit_mae_jepa_torch/csrc/mha_f32.cu", replaces)
              for entry, (*_, r_fwd, r_bwd, _) in ATTENTION.items()
              for pas, replaces in (("fwd", r_fwd), ("bwd", r_bwd))]
+    rows += [(f"{k}_f32", f"ssrl_vit_mae_jepa_torch/csrc/{src}",
+              {**BLOCK_KERNELS, **CHAIN_KERNELS, **EMBED_KERNELS}[k])
+             for k, src in F32_STACK_SOURCES.items()]
     kernels = []
     for k, src, replaces in rows:
         r = res[k]

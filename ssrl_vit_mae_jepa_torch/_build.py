@@ -62,9 +62,9 @@ _SIGNATURES = {
     # layout, M, N, K / layout, epi, 11 pointers, M, N, K, stream
     "ssrl_gemm_workspace": (_LL, [_I] * 4),
     "ssrl_gemm": (_I, [_I] * 2 + [_P] * 11 + [_I] * 3 + [_P]),
-    # the f32 branches of csrc/branch_f32.cu and the f32 attention core of
-    # csrc/mha_f32.cu (same argument order as the bf16 ones); the fit takes
-    # L, d and whether the backward must fit too
+    # the f32 kernels (csrc/branch_f32.cu, mha_f32.cu, fused_block_f32.cu,
+    # block_chain_f32.cu, patch_embed_f32.cu) take the bf16 entries' arguments;
+    # the attention core's fit takes L, d and whether the backward must fit too
     "ssrl_attn_f32_fits": (_I, [_I] * 3),
     "ssrl_attn_branch_fwd_f32_workspace": (_LL, [_I] * 4),
     "ssrl_attn_branch_fwd_f32": (_I, [_P] * 10 + [_I] * 4 + [_F, _P]),
@@ -74,6 +74,17 @@ _SIGNATURES = {
     "ssrl_mlp_branch_fwd_f32": (_I, [_P] * 9 + [_I] * 3 + [_P]),
     "ssrl_mlp_branch_bwd_f32_workspace": (_LL, [_I] * 3),
     "ssrl_mlp_branch_bwd_f32": (_I, [_P] * 13 + [_I] * 3 + [_P]),
+    "ssrl_fused_block_fwd_f32_workspace": (_LL, [_I] * 4),
+    "ssrl_fused_block_fwd_f32": (_I, [_P, _PP, _P, _P] + [_I] * 5 + [_F, _P]),
+    "ssrl_fused_block_bwd_f32_workspace": (_LL, [_I] * 4),
+    "ssrl_fused_block_bwd_f32": (_I, [_P, _PP] + [_P] * 4 + [_I] * 5 + [_F, _P]),
+    "ssrl_block_chain_fwd_f32_workspace": (_LL, [_I] * 5),
+    "ssrl_block_chain_fwd_f32": (_I, [_P, _PP] + [_P] * 3 + [_I] * 6 + [_F, _P]),
+    "ssrl_block_chain_bwd_f32_workspace": (_LL, [_I] * 4),
+    "ssrl_block_chain_bwd_f32": (_I, [_P, _PP] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "ssrl_patch_embed_fwd_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "ssrl_patch_embed_bwd_f32_workspace": (_LL, [_I] * 6),
+    "ssrl_patch_embed_bwd_f32": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "ssrl_mha_f32_fwd": (_I, [_P] * 4 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_mha_f32_bwd": (_I, [_P] * 7 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),

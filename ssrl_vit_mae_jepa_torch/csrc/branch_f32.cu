@@ -49,6 +49,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "branch_f32.cuh"
 #include "mha.cuh"
 
 namespace {
@@ -390,12 +391,126 @@ size_t mlp_fwd_carve(Carver& c, int M, int D, int F, float** y2, float** h) {
 
 }  // namespace
 
+namespace ssrl {
+
+bool attn_f32_ok(int B, int L, int D, int H, bool bwd) { return attn_ok(B, L, D, H, bwd); }
+
+size_t attn_f32_fwd_workspace(int B, int L, int D, bool stash) {
+  Carver c{nullptr};
+  float *y1, *qkv, *as;
+  return attn_fwd_carve(c, (size_t)B * L, D, stash, &y1, &qkv, &as);
+}
+
+cudaError_t attn_f32_fwd(const float* x, const BranchParamsF32& p, float* out, float* a,
+                         void* ws, int B, int L, int D, int H, float scale, cudaStream_t st) {
+  if (!attn_ok(B, L, D, H, false)) return cudaErrorInvalidValue;
+  const int M = B * L;
+  Carver c{static_cast<char*>(ws)};
+  float *y1, *qkv, *a_scratch;
+  attn_fwd_carve(c, M, D, a != nullptr, &y1, &qkv, &a_scratch);
+  float* abuf = a ? a : a_scratch;
+  SSRL_TRY(ln_qkv(x, p.ln_s, p.ln_b, p.wa, p.ba, y1, qkv, M, D, st));
+  MhaArgsT<float> m = qkv_args(qkv, B, L, D, H, scale);
+  m.o = abuf;
+  SSRL_TRY(mha_f32_fwd(m, st));
+  return gemm_f32<GEMM_NT, F_BIAS_RESID>(abuf, p.wb, p.bb, x, out, nullptr, M, D, D, st);
+}
+
+size_t attn_f32_bwd_workspace(int B, int L, int D) {
+  Carver c{nullptr};
+  AttnBwdWs w;
+  return attn_bwd_carve(c, B, L, D, &w);
+}
+
+cudaError_t attn_f32_bwd(const float* x, const BranchParamsF32& p, const float* a,
+                         const float* g, float* dx, const BranchGrads& d, void* ws, int B,
+                         int L, int D, int H, float scale, cudaStream_t st) {
+  if (!attn_ok(B, L, D, H, true)) return cudaErrorInvalidValue;
+  const int M = B * L;
+  Carver c{static_cast<char*>(ws)};
+  AttnBwdWs w;
+  attn_bwd_carve(c, B, L, D, &w);
+  SSRL_TRY(ln_qkv(x, p.ln_s, p.ln_b, p.wa, p.ba, w.y1, w.qkv, M, D, st));
+  // dWp = g^T a; da = g Wp
+  SSRL_TRY(gemm_tn_f32(g, a, d.dwb, w.part, D, D, M, st));
+  SSRL_TRY(gemm_f32<GEMM_NN>(g, p.wb, nullptr, nullptr, w.da, nullptr, M, D, D, st));
+  // the attention backward into dqkv (q | k | v columns, qkv's layout)
+  MhaArgsT<float> m = qkv_args(w.qkv, B, L, D, H, scale);
+  m.dO = w.da;
+  m.dq = w.dqkv;
+  m.dk = w.dqkv + D;
+  m.dv = w.dqkv + 2 * D;
+  SSRL_TRY(mha_f32_bwd(m, st));
+  // dWqkv = dqkv^T y1; dbqkv = colsum(dqkv); dy1 = dqkv Wqkv
+  SSRL_TRY(gemm_tn_f32(w.dqkv, w.y1, d.dwa, w.part, 3 * D, D, M, st));
+  reduce_rows(w.dqkv, M, 3 * D, d.dba, w.tmp, st);
+  SSRL_TRY(cudaGetLastError());
+  SSRL_TRY(gemm_f32<GEMM_NN>(w.dqkv, p.wa, nullptr, nullptr, w.dy1, nullptr, M, D, 3 * D, st));
+  return launch_ln_bwd_f32(x, p.ln_s, w.dy1, g, dx, d.dln3, w.part, w.tmp, M, D, st);
+}
+
+bool mlp_f32_ok(int M, int D, int F) { return M >= 1 && D >= 1 && D <= 256 && F >= 1; }
+
+size_t mlp_f32_fwd_workspace(int M, int D, int F) {
+  Carver c{nullptr};
+  float *y2, *h;
+  return mlp_fwd_carve(c, M, D, F, &y2, &h);
+}
+
+cudaError_t mlp_f32_fwd(const float* x, const BranchParamsF32& p, float* out, void* ws, int M,
+                        int D, int F, cudaStream_t st) {
+  Carver c{static_cast<char*>(ws)};
+  float *y2, *h;
+  mlp_fwd_carve(c, M, D, F, &y2, &h);
+  launch_ln(x, p.ln_s, p.ln_b, y2, M, D, st);
+  SSRL_TRY((gemm_f32<GEMM_NT, F_BIAS_GELU>(y2, p.wa, p.ba, nullptr, h, nullptr, M, F, D, st)));
+  return gemm_f32<GEMM_NT, F_BIAS_RESID>(h, p.wb, p.bb, x, out, nullptr, M, D, F, st);
+}
+
+size_t mlp_f32_bwd_workspace(int M, int D, int F) {
+  Carver c{nullptr};
+  MlpBwdWs w;
+  return mlp_bwd_carve(c, M, D, F, &w);
+}
+
+cudaError_t mlp_f32_bwd(const float* x, const BranchParamsF32& p, const float* g, float* dx,
+                        const BranchGrads& d, void* ws, int M, int D, int F, cudaStream_t st) {
+  if (!mlp_f32_ok(M, D, F)) return cudaErrorInvalidValue;
+  Carver c{static_cast<char*>(ws)};
+  MlpBwdWs w;
+  mlp_bwd_carve(c, M, D, F, &w);
+  launch_ln(x, p.ln_s, p.ln_b, w.y2, M, D, st);
+  // z = y2 W1^T + b1, h = gelu(z)
+  SSRL_TRY((gemm_f32<GEMM_NT, F_BIAS_GELU_Z>(w.y2, p.wa, p.ba, nullptr, w.h, w.z, M, F, D,
+                                            st)));
+  // dW2 = g^T h; then dz = (g W2) o gelu'(z) over h's buffer
+  SSRL_TRY(gemm_tn_f32(g, w.h, d.dwb, w.part, D, F, M, st));
+  float* dz = w.h;
+  SSRL_TRY((gemm_f32<GEMM_NN, F_GELU_BWD>(g, p.wb, nullptr, w.z, dz, nullptr, M, F, D, st)));
+  // dW1 = dz^T y2; db1 = colsum(dz); dy2 = dz W1
+  SSRL_TRY(gemm_tn_f32(dz, w.y2, d.dwa, w.part, F, D, M, st));
+  reduce_rows(dz, M, F, d.dba, w.tmp, st);
+  SSRL_TRY(cudaGetLastError());
+  SSRL_TRY(gemm_f32<GEMM_NN>(dz, p.wa, nullptr, nullptr, w.dy2, nullptr, M, D, F, st));
+  return launch_ln_bwd_f32(x, p.ln_s, w.dy2, g, dx, d.dln3, w.part, w.tmp, M, D, st);
+}
+
+}  // namespace ssrl
+
+namespace {
+
+ssrl::BranchParamsF32 params6(const void* ln_s, const void* ln_b, const void* wa,
+                              const void* ba, const void* wb, const void* bb) {
+  const void* const p[6] = {ln_s, ln_b, wa, ba, wb, bb};
+  return ssrl::branch_params_f32(p);
+}
+
+}  // namespace
+
 extern "C" {
 
 long long ssrl_attn_branch_fwd_f32_workspace(int B, int L, int D, int stash) {
-  Carver c{nullptr};
-  float *y1, *qkv, *as;
-  return (long long)attn_fwd_carve(c, (size_t)B * L, D, stash != 0, &y1, &qkv, &as);
+  return (long long)ssrl::attn_f32_fwd_workspace(B, L, D, stash != 0);
 }
 
 // x, out, a: [B][L][D] f32; ln_s, ln_b: [D]; wqkv: [3D][D], bqkv: [3D], wp:
@@ -406,29 +521,14 @@ int ssrl_attn_branch_fwd_f32(const void* x, const void* ln_s, const void* ln_b,
                              const void* wqkv, const void* bqkv, const void* wp,
                              const void* bp, void* out, void* a, void* ws, int B, int L, int D,
                              int H, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!attn_ok(B, L, D, H, false)) return (int)cudaErrorInvalidValue;
-  const int M = B * L;
-  Carver c{static_cast<char*>(ws)};
-  float *y1, *qkv, *a_scratch;
-  attn_fwd_carve(c, M, D, a != nullptr, &y1, &qkv, &a_scratch);
-  float* abuf = a ? static_cast<float*>(a) : a_scratch;
-  const float* xf = static_cast<const float*>(x);
-  SSRL_TRY(ln_qkv(xf, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-                  static_cast<const float*>(wqkv), static_cast<const float*>(bqkv), y1, qkv,
-                  M, D, st));
-  ssrl::MhaArgsT<float> m = qkv_args(qkv, B, L, D, H, scale);
-  m.o = abuf;
-  SSRL_TRY(ssrl::mha_f32_fwd(m, st));
-  return (int)gemm_f32<ssrl::GEMM_NT, F_BIAS_RESID>(
-      abuf, static_cast<const float*>(wp), static_cast<const float*>(bp), xf,
-      static_cast<float*>(out), nullptr, M, D, D, st);
+  return (int)ssrl::attn_f32_fwd(static_cast<const float*>(x),
+                                 params6(ln_s, ln_b, wqkv, bqkv, wp, bp),
+                                 static_cast<float*>(out), static_cast<float*>(a), ws, B, L, D,
+                                 H, scale, static_cast<cudaStream_t>(stream));
 }
 
 long long ssrl_attn_branch_bwd_f32_workspace(int B, int L, int D) {
-  Carver c{nullptr};
-  AttnBwdWs w;
-  return (long long)attn_bwd_carve(c, B, L, D, &w);
+  return (long long)ssrl::attn_f32_bwd_workspace(B, L, D);
 }
 
 // From x, the stashed attention output a and the output gradient g (all
@@ -439,44 +539,17 @@ int ssrl_attn_branch_bwd_f32(const void* x, const void* ln_s, const void* ln_b,
                              const void* a, const void* g, void* dx, void* dln3, void* dwqkv,
                              void* dbqkv, void* dwp, void* ws, int B, int L, int D, int H,
                              float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!attn_ok(B, L, D, H, true)) return (int)cudaErrorInvalidValue;
-  const int M = B * L;
-  Carver c{static_cast<char*>(ws)};
-  AttnBwdWs w;
-  attn_bwd_carve(c, B, L, D, &w);
-  const float* xf = static_cast<const float*>(x);
-  const float* s = static_cast<const float*>(ln_s);
-  const float* wq = static_cast<const float*>(wqkv);
-  const float* gy = static_cast<const float*>(g);
-  SSRL_TRY(ln_qkv(xf, s, static_cast<const float*>(ln_b), wq,
-                  static_cast<const float*>(bqkv), w.y1, w.qkv, M, D, st));
-  // dWp = gy^T a; da = gy Wp
-  SSRL_TRY(gemm_tn_f32(gy, static_cast<const float*>(a), static_cast<float*>(dwp), w.part,
-                       D, D, M, st));
-  SSRL_TRY(gemm_f32<ssrl::GEMM_NN>(gy, static_cast<const float*>(wp), nullptr, nullptr, w.da,
-                                   nullptr, M, D, D, st));
-  // the attention backward into dqkv (q | k | v columns, qkv's layout)
-  ssrl::MhaArgsT<float> m = qkv_args(w.qkv, B, L, D, H, scale);
-  m.dO = w.da;
-  m.dq = w.dqkv;
-  m.dk = w.dqkv + D;
-  m.dv = w.dqkv + 2 * D;
-  SSRL_TRY(ssrl::mha_f32_bwd(m, st));
-  // dWqkv = dqkv^T y1; dbqkv = colsum(dqkv); dy1 = dqkv Wqkv
-  SSRL_TRY(gemm_tn_f32(w.dqkv, w.y1, static_cast<float*>(dwqkv), w.part, 3 * D, D, M, st));
-  reduce_rows(w.dqkv, M, 3 * D, static_cast<float*>(dbqkv), w.tmp, st);
-  SSRL_TRY(cudaGetLastError());
-  SSRL_TRY(gemm_f32<ssrl::GEMM_NN>(w.dqkv, wq, nullptr, nullptr, w.dy1, nullptr, M, D, 3 * D,
-                                   st));
-  return (int)launch_ln_bwd_f32(xf, s, w.dy1, gy, static_cast<float*>(dx),
-                                static_cast<float*>(dln3), w.part, w.tmp, M, D, st);
+  const ssrl::BranchGrads d{static_cast<float*>(dln3), static_cast<float*>(dwqkv),
+                            static_cast<float*>(dbqkv), static_cast<float*>(dwp)};
+  return (int)ssrl::attn_f32_bwd(static_cast<const float*>(x),
+                                 params6(ln_s, ln_b, wqkv, bqkv, wp, nullptr),
+                                 static_cast<const float*>(a), static_cast<const float*>(g),
+                                 static_cast<float*>(dx), d, ws, B, L, D, H, scale,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 long long ssrl_mlp_branch_fwd_f32_workspace(int M, int D, int F) {
-  Carver c{nullptr};
-  float *y2, *h;
-  return (long long)mlp_fwd_carve(c, M, D, F, &y2, &h);
+  return (long long)ssrl::mlp_f32_fwd_workspace(M, D, F);
 }
 
 // x, out: [M][D] f32; ln_s, ln_b: [D]; w1: [F][D], b1: [F], w2: [D][F], b2:
@@ -484,25 +557,13 @@ long long ssrl_mlp_branch_fwd_f32_workspace(int M, int D, int F) {
 int ssrl_mlp_branch_fwd_f32(const void* x, const void* ln_s, const void* ln_b,
                             const void* w1, const void* b1, const void* w2, const void* b2,
                             void* out, void* ws, int M, int D, int F, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Carver c{static_cast<char*>(ws)};
-  float *y2, *h;
-  mlp_fwd_carve(c, M, D, F, &y2, &h);
-  const float* xf = static_cast<const float*>(x);
-  launch_ln(xf, static_cast<const float*>(ln_s), static_cast<const float*>(ln_b), y2, M, D,
-            st);
-  SSRL_TRY((gemm_f32<ssrl::GEMM_NT, F_BIAS_GELU>(y2, static_cast<const float*>(w1),
-                                                static_cast<const float*>(b1), nullptr, h,
-                                                nullptr, M, F, D, st)));
-  return (int)gemm_f32<ssrl::GEMM_NT, F_BIAS_RESID>(
-      h, static_cast<const float*>(w2), static_cast<const float*>(b2), xf,
-      static_cast<float*>(out), nullptr, M, D, F, st);
+  return (int)ssrl::mlp_f32_fwd(static_cast<const float*>(x),
+                                params6(ln_s, ln_b, w1, b1, w2, b2), static_cast<float*>(out),
+                                ws, M, D, F, static_cast<cudaStream_t>(stream));
 }
 
 long long ssrl_mlp_branch_bwd_f32_workspace(int M, int D, int F) {
-  Carver c{nullptr};
-  MlpBwdWs w;
-  return (long long)mlp_bwd_carve(c, M, D, F, &w);
+  return (long long)ssrl::mlp_f32_bwd_workspace(M, D, F);
 }
 
 // From x and the output gradient g ([M][D] f32): dx [M][D]; dln3 [3][D] =
@@ -511,31 +572,12 @@ int ssrl_mlp_branch_bwd_f32(const void* x, const void* ln_s, const void* ln_b,
                             const void* w1, const void* b1, const void* w2, const void* g,
                             void* dx, void* dln3, void* dw1, void* db1, void* dw2, void* ws,
                             int M, int D, int F, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || D < 1 || D > 256 || F < 1) return (int)cudaErrorInvalidValue;
-  Carver c{static_cast<char*>(ws)};
-  MlpBwdWs w;
-  mlp_bwd_carve(c, M, D, F, &w);
-  const float* xf = static_cast<const float*>(x);
-  const float* s = static_cast<const float*>(ln_s);
-  const float* w1f = static_cast<const float*>(w1);
-  const float* gy = static_cast<const float*>(g);
-  launch_ln(xf, s, static_cast<const float*>(ln_b), w.y2, M, D, st);
-  // z = y2 W1^T + b1, h = gelu(z)
-  SSRL_TRY((gemm_f32<ssrl::GEMM_NT, F_BIAS_GELU_Z>(w.y2, w1f, static_cast<const float*>(b1),
-                                                  nullptr, w.h, w.z, M, F, D, st)));
-  // dW2 = gy^T h; then dz = (gy W2) o gelu'(z) over h's buffer
-  SSRL_TRY(gemm_tn_f32(gy, w.h, static_cast<float*>(dw2), w.part, D, F, M, st));
-  float* dz = w.h;
-  SSRL_TRY((gemm_f32<ssrl::GEMM_NN, F_GELU_BWD>(gy, static_cast<const float*>(w2), nullptr,
-                                               w.z, dz, nullptr, M, F, D, st)));
-  // dW1 = dz^T y2; db1 = colsum(dz); dy2 = dz W1
-  SSRL_TRY(gemm_tn_f32(dz, w.y2, static_cast<float*>(dw1), w.part, F, D, M, st));
-  reduce_rows(dz, M, F, static_cast<float*>(db1), w.tmp, st);
-  SSRL_TRY(cudaGetLastError());
-  SSRL_TRY(gemm_f32<ssrl::GEMM_NN>(dz, w1f, nullptr, nullptr, w.dy2, nullptr, M, D, F, st));
-  return (int)launch_ln_bwd_f32(xf, s, w.dy2, gy, static_cast<float*>(dx),
-                                static_cast<float*>(dln3), w.part, w.tmp, M, D, st);
+  const ssrl::BranchGrads d{static_cast<float*>(dln3), static_cast<float*>(dw1),
+                            static_cast<float*>(db1), static_cast<float*>(dw2)};
+  return (int)ssrl::mlp_f32_bwd(static_cast<const float*>(x),
+                                params6(ln_s, ln_b, w1, b1, w2, nullptr),
+                                static_cast<const float*>(g), static_cast<float*>(dx), d, ws, M,
+                                D, F, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,8 +12,10 @@ Port of ``ssrl_vit_mae_jepa_tpu/ops/block_chain.py::fused_block_chain``:
   the bias gradients of the branch outputs sum the f32 gradient.
 
 On a CUDA tensor :func:`fused_block_chain` launches ``csrc/block_chain.cu``
-through a ``torch.autograd.Function`` whose backward is a kernel too; on a
-CPU tensor it runs :func:`chain_ref`, the plain version with the same
+(bf16) or ``csrc/block_chain_f32.cu`` (f32, where every rounding point is a
+no-op and the stash has the same slots in f32) through a
+``torch.autograd.Function`` whose backward is a kernel too; on a CPU tensor
+it runs :func:`chain_ref`, the plain version with the same
 rounding points (and a backward of its own: autograd over a bf16 forward
 would round the gradient at every branch boundary). No fallback: a CUDA
 tensor the kernels do not take raises.
@@ -30,6 +32,7 @@ import torch
 from ssrl_vit_mae_jepa_torch import _build
 from ssrl_vit_mae_jepa_torch.ops.attention import validate_impl
 from ssrl_vit_mae_jepa_torch.ops.block_fused import (
+    _entry,
     _needs_grad,
     _route,
     _scale,
@@ -39,6 +42,7 @@ from ssrl_vit_mae_jepa_torch.ops.block_fused import (
     attn_fwd_plain,
     block_grad_floats,
     check_block,
+    dtype_key,
     grad_views,
     mlp_bwd_plain,
     mlp_fwd_plain,
@@ -48,7 +52,8 @@ from ssrl_vit_mae_jepa_torch.ops.block_fused import (
 )
 
 #: kernel launches by wrapper entry; a wrapper adds one where it launches
-LAUNCHES = {"chain_fwd": 0, "chain_fwd_nograd": 0, "chain_bwd": 0}
+LAUNCHES = {"chain_fwd": 0, "chain_fwd_nograd": 0, "chain_bwd": 0,
+            "chain_fwd_f32": 0, "chain_fwd_nograd_f32": 0, "chain_bwd_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -138,15 +143,16 @@ def _fwd_cuda(x, kp, num_heads: int, stash: bool):
     """(out, the (3N - 1, B, L, D) stash or None); ``kp`` flat, 12 per block."""
     B, L, D = x.shape
     N, F_ = len(kp) // 12, kp[8].shape[0]
-    lib = _build.load()
+    fn, ws_fn, _ = _entry(x, "block_chain_fwd")
     out = torch.empty_like(x)
     st = x.new_empty((3 * N - 1, B, L, D)) if stash else None
-    ws = _workspace(lib.ssrl_block_chain_fwd_workspace(B, L, D, F_, int(stash)), x)
-    LAUNCHES["chain_fwd" if stash else "chain_fwd_nograd"] += 1
-    _build.check(lib.ssrl_block_chain_fwd(
+    ws = _workspace(ws_fn(B, L, D, F_, int(stash)), x)
+    key = dtype_key(x.dtype, "chain_fwd" if stash else "chain_fwd_nograd")
+    LAUNCHES[key] += 1
+    _build.check(fn(
         x.data_ptr(), pointers(kp), out.data_ptr(), st.data_ptr() if stash else None,
         ws.data_ptr(), B, L, D, num_heads, F_, N, _scale(D, num_heads), _stream(x),
-    ), "chain_fwd")
+    ), key)
     return out, st
 
 
@@ -154,17 +160,18 @@ def _bwd_cuda(x, kp, st, g, num_heads: int):
     """(dx, per block its 12 f32 gradients)."""
     B, L, D = x.shape
     N, F_ = len(kp) // 12, kp[8].shape[0]
-    lib = _build.load()
+    fn, ws_fn, _ = _entry(x, "block_chain_bwd")
     dx = torch.empty_like(x)
     grads = torch.empty((N, block_grad_floats(D, F_)), dtype=torch.float32,
                         device=x.device)
-    ws = _workspace(lib.ssrl_block_chain_bwd_workspace(B, L, D, F_), x)
-    LAUNCHES["chain_bwd"] += 1
-    _build.check(lib.ssrl_block_chain_bwd(
+    ws = _workspace(ws_fn(B, L, D, F_), x)
+    key = dtype_key(x.dtype, "chain_bwd")
+    LAUNCHES[key] += 1
+    _build.check(fn(
         x.data_ptr(), pointers(kp), st.data_ptr(), g.data_ptr(), dx.data_ptr(),
         grads.data_ptr(), ws.data_ptr(), B, L, D, num_heads, F_, N,
         _scale(D, num_heads), _stream(x),
-    ), "chain_bwd")
+    ), key)
     return dx, [grad_views(row, D, F_) for row in grads]
 
 
@@ -188,16 +195,18 @@ class _Chain(torch.autograd.Function):
 
 def fused_block_chain(x, params_list, num_heads):
     """N pre-LN blocks (``block_chain.fused_block_chain``): the kernels of
-    ``csrc/block_chain.cu`` on CUDA, ``chain_ref`` on CPU. Without grad the
-    CUDA forward stashes nothing."""
+    ``csrc/block_chain.cu`` (bf16) or ``csrc/block_chain_f32.cu`` (f32) on
+    CUDA, ``chain_ref`` on CPU. Without grad the CUDA forward stashes
+    nothing."""
     params_list = [tuple(p) for p in params_list]
     if _route(x) == "cpu":
         return chain_ref(x, params_list, num_heads)
-    for p in params_list:
-        check_block(x, p, num_heads)
-    x = x.contiguous()
     flat = [t for p in params_list for t in p]
-    if _needs_grad(x, flat):
+    grad = _needs_grad(x, flat)
+    for p in params_list:
+        check_block(x, p, num_heads, grad)
+    x = x.contiguous()
+    if grad:
         return _Chain.apply(x, num_heads, *flat)
     kp = [t for p in params_list for t in prep12(p, x.dtype)]
     return _fwd_cuda(x, kp, num_heads, stash=False)[0]

@@ -11,19 +11,20 @@ Port of ``ssrl_vit_mae_jepa_tpu/ops/block_pallas.py``::
 and ``fused_block`` (the whole block, :389-474) are the wrappers the model
 calls. On a CUDA tensor they launch the hand-written kernels of
 ``csrc/attn_branch.cu``, ``csrc/mlp_branch.cu`` and ``csrc/fused_block.cu``
-through a ``torch.autograd.Function`` whose backward is a kernel too; on a
-CPU tensor they run the plain versions ``attn_branch_ref`` /
-``mlp_branch_ref`` / ``block_ref``, which compute the same function with the
+(at f32 ``csrc/branch_f32.cu`` and ``csrc/fused_block_f32.cu``) through a
+``torch.autograd.Function`` whose backward is a kernel too; on a CPU tensor
+they run the plain versions ``attn_branch_ref`` / ``mlp_branch_ref`` /
+``block_ref``, which compute the same function with the
 same rounding points in tensor ops. There is no fallback: a CUDA tensor the
 kernel does not take raises.
 
-The split branches also take f32 activations (the JAX kernels' f32
+Every kernel also takes f32 activations (the JAX kernels' f32
 instantiation: an f32 model's training step, and the feature and
-reconstruction entry points): ``csrc/branch_f32.cu``, forward with or
-without the stash and backward, f32 throughout with no rounding point, whose
-plain versions are ``attn_branch_ref`` / ``mlp_branch_ref`` and
-``attn_bwd_plain`` / ``mlp_bwd_plain`` at f32. The whole block and the chain
-take bf16 only and refuse f32 in words (``F32_TODO``, ROADMAP queue 2).
+reconstruction entry points): the split branches ``csrc/branch_f32.cu``,
+forward with or without the stash and backward, and the whole block
+``csrc/fused_block_f32.cu`` (and the chain of ``ops/block_chain.py``) built
+on the same f32 branch sequences (``csrc/branch_f32.cuh``); f32 throughout
+with no rounding point, so their plain versions are the bf16 ones at f32.
 
 Numerics (``block_pallas.py:28-32``): LN statistics and softmax in f32, LN
 eps 1e-6, products of rounded operands accumulated in f32, bf16 rounding of
@@ -47,6 +48,8 @@ from ssrl_vit_mae_jepa_torch.ops.attention import mha_xla
 from ssrl_vit_mae_jepa_torch.ops.attention_core import fits, heads_of, plain_bwd_f32
 
 LN_EPS = 1e-6
+#: the activation dtypes every kernel takes on the card
+_DTYPES = (torch.bfloat16, torch.float32)
 
 #: kernel launches by wrapper entry; a wrapper adds one where it launches
 LAUNCHES = {
@@ -64,6 +67,9 @@ LAUNCHES = {
     "attn_branch_bwd_f32": 0,
     "mlp_branch_fwd_f32": 0,  # with and without grad: the same kernel
     "mlp_branch_bwd_f32": 0,
+    "block_fwd_f32": 0,  # csrc/fused_block_f32.cu: the f32 whole block
+    "block_fwd_nograd_f32": 0,
+    "block_bwd_f32": 0,
 }
 
 
@@ -362,9 +368,9 @@ def _prep6(ln_s, ln_b, wa, ba, wb, bb, dt):
     return f32 + [t.detach().to(dt).contiguous() for t in (wa, ba, wb, bb)]
 
 
-def _check_x(x: torch.Tensor, D: int, dtypes=(torch.bfloat16,)) -> None:
-    if x.dtype not in dtypes:
-        raise TypeError(f"the kernels take {' or '.join(map(str, dtypes))} activations, "
+def _check_x(x: torch.Tensor, D: int) -> None:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the kernels take {' or '.join(map(str, _DTYPES))} activations, "
                         f"got {x.dtype}")
     if x.dim() != 3 or x.shape[-1] != D:
         raise ValueError(f"expected (B, L, {D}) activations, got {tuple(x.shape)}")
@@ -391,11 +397,17 @@ def _workspace(nbytes: int, x: torch.Tensor) -> torch.Tensor:
     return torch.empty(int(nbytes), dtype=torch.uint8, device=x.device)
 
 
+def dtype_key(dtype: torch.dtype, name: str) -> str:
+    """``name`` at bf16, ``<name>_f32`` at f32: the f32 kernels' C entries
+    and launch counters."""
+    return name + ("_f32" if dtype == torch.float32 else "")
+
+
 def _entry(x: torch.Tensor, name: str):
     """(the C entry ``ssrl_<name>`` of x's dtype, its workspace size, its
-    ``LAUNCHES`` key): the f32 kernels of ``csrc/branch_f32.cu`` take the
-    bf16 entries' arguments under ``<name>_f32``."""
-    key = name + ("_f32" if x.dtype == torch.float32 else "")
+    ``LAUNCHES`` key): the f32 kernels take the bf16 entries' arguments
+    under ``<name>_f32``."""
+    key = dtype_key(x.dtype, name)
     lib = _build.load()
     return getattr(lib, f"ssrl_{key}"), getattr(lib, f"ssrl_{key}_workspace"), key
 
@@ -511,16 +523,19 @@ def grad_views(buf: torch.Tensor, D: int, F_: int):
             dw2.view(D, F_), dln_m[2 * D:])
 
 
-def check_block(x, params, num_heads: int) -> int:
-    """Raise on what the block kernels do not take; return F."""
+def check_block(x, params, num_heads: int, bwd: bool) -> int:
+    """Raise on what the block kernels do not take (at f32 also a shape the
+    f32 attention core does not fit, its backward's with ``bwd``); return F."""
     B, L, D = x.shape if x.dim() == 3 else (0, 0, -1)
-    if x.dtype == torch.float32:
-        raise TypeError(F32_TODO)
     _check_x(x, D)
     F_ = params[8].shape[0]
     if not supported(B, L, D, num_heads, F_):
         raise ValueError(f"the block kernels do not take B={B} L={L} D={D} "
                          f"H={num_heads} F={F_}")
+    if x.dtype == torch.float32 and not _build.load().ssrl_attn_f32_fits(
+            L, D // num_heads, int(bwd)):
+        raise ValueError(f"the f32 block kernels do not take L={L} d={D // num_heads}"
+                         + (" with a backward" if bwd else ""))
     _check_params(params, block_shapes(D, F_))
     return F_
 
@@ -528,29 +543,31 @@ def check_block(x, params, num_heads: int) -> int:
 def _block_fwd_cuda(x, kp, num_heads: int, grad: bool):
     B, L, D = x.shape
     F_ = kp[8].shape[0]
-    lib = _build.load()
+    fn, ws_fn, _ = _entry(x, "fused_block_fwd")
     out = torch.empty_like(x)
-    ws = _workspace(lib.ssrl_fused_block_fwd_workspace(B, L, D, F_), x)
-    LAUNCHES["block_fwd" if grad else "block_fwd_nograd"] += 1
-    _build.check(lib.ssrl_fused_block_fwd(
+    ws = _workspace(ws_fn(B, L, D, F_), x)
+    key = dtype_key(x.dtype, "block_fwd" if grad else "block_fwd_nograd")
+    LAUNCHES[key] += 1
+    _build.check(fn(
         x.data_ptr(), pointers(kp), out.data_ptr(), ws.data_ptr(),
         B, L, D, num_heads, F_, _scale(D, num_heads), _stream(x),
-    ), "block_fwd")
+    ), key)
     return out
 
 
 def _block_bwd_cuda(x, kp, g, num_heads: int):
     B, L, D = x.shape
     F_ = kp[8].shape[0]
-    lib = _build.load()
+    fn, ws_fn, _ = _entry(x, "fused_block_bwd")
     dx = torch.empty_like(x)
     grads = torch.empty(block_grad_floats(D, F_), dtype=torch.float32, device=x.device)
-    ws = _workspace(lib.ssrl_fused_block_bwd_workspace(B, L, D, F_), x)
-    LAUNCHES["block_bwd"] += 1
-    _build.check(lib.ssrl_fused_block_bwd(
+    ws = _workspace(ws_fn(B, L, D, F_), x)
+    key = dtype_key(x.dtype, "block_bwd")
+    LAUNCHES[key] += 1
+    _build.check(fn(
         x.data_ptr(), pointers(kp), g.data_ptr(), dx.data_ptr(), grads.data_ptr(),
         ws.data_ptr(), B, L, D, num_heads, F_, _scale(D, num_heads), _stream(x),
-    ), "block_bwd")
+    ), key)
     return dx, grad_views(grads, D, F_)
 
 
@@ -604,12 +621,6 @@ class _MlpBranch(torch.autograd.Function):
         return (dx, *(d.to(t) for d, t in zip(dparams, ctx.param_dtypes)))
 
 
-#: the split branches' activation dtypes on the card
-_BRANCH_DTYPES = (torch.bfloat16, torch.float32)
-#: what is not ported at f32: the whole block, the chain and the fused embed
-F32_TODO = ("the f32 whole-block, chain and fused patch-embed kernels are not ported yet "
-            "(ROADMAP queue 2); at f32 use attn_impl auto, split, packed or pallas and "
-            "leave SSRL_FUSED_EMBED unset, or run in bf16")
 
 
 def _needs_grad(x, params) -> bool:
@@ -634,7 +645,7 @@ def fused_attn_branch(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads)
     if _route(x) == "cpu":
         return attn_branch_ref(x, *params, num_heads)
     D = x.shape[-1]
-    _check_x(x, D, _BRANCH_DTYPES)
+    _check_x(x, D)
     if D % num_heads:
         raise ValueError(f"D={D} is not a multiple of num_heads={num_heads}")
     _check_params(params, [(D,), (D,), (3 * D, D), (3 * D,), (D, D), (D,)])
@@ -652,7 +663,7 @@ def fused_mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2):
         return mlp_branch_ref(x, *params)
     D = x.shape[-1]
     F_ = w1.shape[0]
-    _check_x(x, D, _BRANCH_DTYPES)
+    _check_x(x, D)
     _check_params(params, [(D,), (D,), (F_, D), (F_,), (D, F_), (D,)])
     x = x.contiguous()
     if _needs_grad(x, params):
@@ -662,13 +673,15 @@ def fused_mlp_branch(x, ln_scale, ln_bias, w1, b1, w2, b2):
 
 def fused_block(x, params, num_heads):
     """The whole pre-LN block (``block_pallas.fused_block``): the kernels of
-    ``csrc/fused_block.cu`` on CUDA, ``block_ref`` on CPU. ``params``: the 12
-    tensors in ``_BLOCK_TREE`` order, weights in torch Linear layout."""
+    ``csrc/fused_block.cu`` (bf16) or ``csrc/fused_block_f32.cu`` (f32) on
+    CUDA, ``block_ref`` on CPU. ``params``: the 12 tensors in
+    ``_BLOCK_TREE`` order, weights in torch Linear layout."""
     params = tuple(params)
     if _route(x) == "cpu":
         return block_ref(x, params, num_heads)
-    check_block(x, params, num_heads)
+    grad = _needs_grad(x, params)
+    check_block(x, params, num_heads, grad)
     x = x.contiguous()
-    if _needs_grad(x, params):
+    if grad:
         return _Block.apply(x, num_heads, *params)
     return _block_fwd_cuda(x, prep12(params, x.dtype), num_heads, grad=False)

@@ -6,10 +6,11 @@ Port of ``ssrl_vit_mae_jepa_tpu/ops/embed_pallas.py``::
     out = ([cls + pos[0]; patches W^T + b + pos[1:]])[idx_keep]
 
 ``fused_patch_embed`` is the wrapper the ViT calls. On a CUDA tensor it
-launches the hand-written kernels of ``csrc/patch_embed.cu`` through a
-``torch.autograd.Function`` whose backward is a kernel too; on a CPU tensor
-it runs the plain version ``fused_patch_embed_ref``. There is no fallback: a
-CUDA tensor the kernel does not take raises.
+launches the hand-written kernels of ``csrc/patch_embed.cu`` (bf16 patches)
+or ``csrc/patch_embed_f32.cu`` (f32 patches, where every rounding point below
+is a no-op) through a ``torch.autograd.Function`` whose backward is a kernel
+too; on a CPU tensor it runs the plain version ``fused_patch_embed_ref``.
+There is no fallback: a CUDA tensor the kernels do not take raises.
 
 Rounding points (``embed_pallas.py:105-115, 178-182``): the CLS token is
 folded into row 0 of the position embedding in f32 and rounded once; the
@@ -33,13 +34,15 @@ from typing import Optional
 import torch
 
 from ssrl_vit_mae_jepa_torch import _build
+from ssrl_vit_mae_jepa_torch.ops.block_fused import dtype_key
 from ssrl_vit_mae_jepa_torch.ops.masking import get_at_index
 
 #: kernel launches by wrapper entry; a wrapper adds one where it launches
-LAUNCHES = {"patch_embed_fwd": 0, "patch_embed_bwd": 0}
+LAUNCHES = {"patch_embed_fwd": 0, "patch_embed_bwd": 0,
+            "patch_embed_fwd_f32": 0, "patch_embed_bwd_f32": 0}
 
-# the kernel's limits (csrc/patch_embed.cu: shape_ok); D and Pc bound the
-# weight the kernels keep in shared memory
+# the kernels' limits (csrc/patch_embed.cu and patch_embed_f32.cu: shape_ok);
+# D and Pc bound the weight the bf16 kernels keep in shared memory
 MAX_TOKENS, MAX_KEPT, MAX_WIDTH = 256, 1024, 256
 
 
@@ -87,9 +90,9 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _check(patches, w, b, cls, pos, idx_keep) -> None:
-    if patches.dtype != torch.bfloat16:
-        raise TypeError(f"the patch-embed kernel takes bfloat16 patches, got {patches.dtype}"
-                        " (the f32 kernel is not ported yet: ROADMAP queue 2)")
+    if patches.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the patch-embed kernels take bfloat16 or float32 patches, got "
+                        f"{patches.dtype}")
     if patches.dim() != 3:
         raise ValueError(f"expected (B, N, Pc) patches, got {tuple(patches.shape)}")
     B, N, Pc = patches.shape
@@ -114,11 +117,12 @@ def _check(patches, w, b, cls, pos, idx_keep) -> None:
                          f"{MAX_WIDTH}; got L={L}, K={K}, Pc={Pc}, D={D}")
 
 
-def _operands(w, b, cls, pos):
-    """Kernel operands: bf16 weight and bias, f32 CLS and position rows."""
+def _operands(w, b, cls, pos, dt):
+    """Kernel operands: weight and bias in the patches' dtype ``dt``, f32 CLS
+    and position rows."""
     D = w.shape[0]
-    return (w.detach().to(torch.bfloat16).contiguous(),
-            b.detach().to(torch.bfloat16).contiguous(),
+    return (w.detach().to(dt).contiguous(),
+            b.detach().to(dt).contiguous(),
             cls.detach().float().reshape(D).contiguous(),
             pos.detach().float().reshape(-1, D).contiguous())
 
@@ -132,11 +136,12 @@ def _fwd_cuda(patches, kw, kb, kcls, kpos, idx):
     D = kw.shape[0]
     K = N + 1 if idx is None else idx.shape[1]
     out = torch.empty((B, K, D), dtype=patches.dtype, device=patches.device)
-    LAUNCHES["patch_embed_fwd"] += 1
-    _build.check(_build.load().ssrl_patch_embed_fwd(
+    key = dtype_key(patches.dtype, "patch_embed_fwd")
+    LAUNCHES[key] += 1
+    _build.check(getattr(_build.load(), f"ssrl_{key}")(
         patches.data_ptr(), kw.data_ptr(), kb.data_ptr(), kcls.data_ptr(),
         kpos.data_ptr(), _ptr(idx), out.data_ptr(), B, N, Pc, D, K, _stream(patches),
-    ), "patch_embed_fwd")
+    ), key)
     return out
 
 
@@ -151,21 +156,22 @@ def _bwd_cuda(patches, kw, idx, g, want_dpatches: bool):
     dw = torch.empty((D, Pc), **f32)
     db = torch.empty((D,), **f32)
     dcp = torch.empty((L, D), **f32)
-    ws = torch.empty(int(lib.ssrl_patch_embed_bwd_workspace(B, N, Pc, D, K, int(idx is not None))),
-                     dtype=torch.uint8, device=patches.device)
-    LAUNCHES["patch_embed_bwd"] += 1
-    _build.check(lib.ssrl_patch_embed_bwd(
+    key = dtype_key(patches.dtype, "patch_embed_bwd")
+    ws_bytes = getattr(lib, f"ssrl_{key}_workspace")(B, N, Pc, D, K, int(idx is not None))
+    ws = torch.empty(int(ws_bytes), dtype=torch.uint8, device=patches.device)
+    LAUNCHES[key] += 1
+    _build.check(getattr(lib, f"ssrl_{key}")(
         patches.data_ptr(), kw.data_ptr(), _ptr(idx), g.data_ptr(), _ptr(dpatches),
         dw.data_ptr(), db.data_ptr(), dcp.data_ptr(), ws.data_ptr(),
         B, N, Pc, D, K, _stream(patches),
-    ), "patch_embed_bwd")
+    ), key)
     return dpatches, dw, db, dcp
 
 
 class _PatchEmbed(torch.autograd.Function):
     @staticmethod
     def forward(ctx, patches, w, b, cls, pos, idx_keep):
-        kw, kb, kcls, kpos = _operands(w, b, cls, pos)
+        kw, kb, kcls, kpos = _operands(w, b, cls, pos, patches.dtype)
         ctx.save_for_backward(patches, kw, idx_keep)
         ctx.param_meta = [(t.dtype, t.shape) for t in (w, b, cls, pos)]
         return _fwd_cuda(patches, kw, kb, kcls, kpos, idx_keep)
@@ -174,7 +180,7 @@ class _PatchEmbed(torch.autograd.Function):
     def backward(ctx, g):
         patches, kw, idx = ctx.saved_tensors
         dpatches, dw, db, dcp = _bwd_cuda(
-            patches, kw, idx, g.to(torch.bfloat16).contiguous(), ctx.needs_input_grad[0]
+            patches, kw, idx, g.to(patches.dtype).contiguous(), ctx.needs_input_grad[0]
         )
         # cls rides in row 0 of cls_pos, pos in every row
         grads = [dw, db, dcp[:1], dcp]
@@ -197,4 +203,4 @@ def fused_patch_embed(patches, w, b, cls, pos, idx_keep=None):
     params = (w, b, cls, pos)
     if torch.is_grad_enabled() and (patches.requires_grad or any(p.requires_grad for p in params)):
         return _PatchEmbed.apply(patches, w, b, cls, pos, idx)
-    return _fwd_cuda(patches, *_operands(*params), idx)
+    return _fwd_cuda(patches, *_operands(*params, patches.dtype), idx)

@@ -5,7 +5,9 @@ forwards held in f32 to 5e-5, the backwards to 1e-4 of each output's largest
 magnitude), the whole-block kernel of ``csrc/fused_block.cu``, the
 chained-block kernel of ``csrc/block_chain.cu``, the four attention entries
 of ``csrc/mha.cu`` (and at f32 of ``csrc/mha_f32.cu``), the fused patch embed
-of ``csrc/patch_embed.cu``, and f32 training steps against the CPU.
+of ``csrc/patch_embed.cu``, the f32 whole block, chain and patch embed
+(``csrc/fused_block_f32.cu``, ``block_chain_f32.cu``, ``patch_embed_f32.cu``,
+to the same f32 bounds), and f32 training steps against the CPU.
 
 Marked ``cuda`` and skipped without a GPU. The file imports no JAX, so it
 also runs where JAX is not installed; ``tests/conftest.py`` does import JAX,
@@ -108,21 +110,21 @@ def test_kernel_matches_plain(cuda, kind, B, L, D, H):
 
 
 @pytest.mark.cuda
-def test_cuda_rejects_float32(cuda):
-    """The branch kernels refuse any dtype but bf16 and f32; the whole block,
-    the chain and the fused patch embed, whose f32 kernels are not ported,
-    refuse f32 in words that name ROADMAP queue 2."""
+def test_cuda_rejects_float16(cuda):
+    """Every kernel takes bf16 and f32 and refuses any other dtype: the
+    branches, the whole block, the chain and the fused patch embed refuse
+    float16."""
     x, _, params = _inputs("mlp", 2, 5, 16, cuda)
     with pytest.raises(TypeError):
         bf.fused_mlp_branch(x.half(), *params)
     xb, _, bparams = _stack_inputs(2, 17, 48, 2, cuda)
-    with pytest.raises(TypeError, match="ROADMAP queue 2"):
-        bf.fused_block(xb.float(), bparams[0], 4)
-    with pytest.raises(TypeError, match="ROADMAP queue 2"):
-        bc.fused_block_chain(xb.float(), bparams, 4)
+    with pytest.raises(TypeError, match="bfloat16 or torch.float32"):
+        bf.fused_block(xb.half(), bparams[0], 4)
+    with pytest.raises(TypeError, match="bfloat16 or torch.float32"):
+        bc.fused_block_chain(xb.half(), bparams, 4)
     patches, eparams, idx, _ = _embed_inputs(2, 20, 48, 40, 7, cuda)
-    with pytest.raises(TypeError, match="ROADMAP queue 2"):
-        ef.fused_patch_embed(patches.float(), *eparams, idx)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ef.fused_patch_embed(patches.half(), *eparams, idx)
 
 
 # (B, L, D, H) of the f32 forwards: the feature extractor's encoder at its
@@ -309,7 +311,8 @@ def test_chain_kernel_matches_plain(cuda, B, L, D, H, N):
     with torch.no_grad():
         out_ng = bc.fused_block_chain(x, params, H)
     torch.cuda.synchronize()
-    assert bc.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert {k: v - before[k] for k, v in bc.LAUNCHES.items() if v != before[k]} == {
+        "chain_fwd": 1, "chain_fwd_nograd": 1, "chain_bwd": 1}
     assert torch.equal(out_ng, out_k)
     with torch.no_grad():  # the chain's forward is the split kernels' bit for bit
         y = x
@@ -338,13 +341,60 @@ def test_block_kernels_are_deterministic(cuda, kind):
         assert all(torch.equal(a, b) for a, b in zip(grads, first[1]))
 
 
+def _f32_close(out_k, grads_k, out_r, grads_r):
+    """f32 against the plain version: the forward within 5e-5, each gradient
+    within 1e-4 of its largest magnitude (+1e-6); f32 sums in another order
+    move them by ~1e-6 of that, a TF32 product or a layout fault by far more."""
+    assert out_k.dtype == torch.float32 and out_k.shape == out_r.shape
+    torch.testing.assert_close(out_k, out_r, atol=5e-5, rtol=0)
+    assert len(grads_k) == len(grads_r)
+    for a, b in zip(grads_k, grads_r):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(),
+                                   atol=1e-4 * b.float().abs().max().item() + 1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mono", "chain"])
+def test_f32_block_kernels_match_plain(cuda, kind):
+    """``csrc/fused_block_f32.cu`` at (2, 17, 48, H=4) and
+    ``csrc/block_chain_f32.cu`` with N=2 against ``block_ref`` /
+    ``chain_ref`` at f32: the forward and every backward output (dx and the
+    12 gradients a block), one launch each way under the f32 key and no
+    other kernel; the no-grad forward and a second call equal bit for bit."""
+    B, L, D, H = 2, 17, 48, 4
+    N = 2 if kind == "chain" else 1
+    x, dy, params = _stack_inputs(B, L, D, N, cuda)
+    x, dy = x.float(), dy.float()
+    if kind == "chain":
+        fn, ref = (lambda x, pl: bc.fused_block_chain(x, pl, H)), (
+            lambda x, pl: bc.chain_ref(x, pl, H))
+        fwd, nograd, bwd = "chain_fwd_f32", "chain_fwd_nograd_f32", "chain_bwd_f32"
+    else:
+        fn, ref = _mono(H), _mono_ref(H)
+        fwd, nograd, bwd = "block_fwd_f32", "block_fwd_nograd_f32", "block_bwd_f32"
+    _reset()
+    out_k, grads_k = _stack_run(fn, x, dy, params)
+    torch.cuda.synchronize()
+    assert _launched() == {fwd: 1, bwd: 1}
+    out_2, grads_2 = _stack_run(fn, x, dy, params)
+    assert torch.equal(out_2, out_k) and all(map(torch.equal, grads_2, grads_k))
+    _reset()
+    with torch.no_grad():
+        out_ng = fn(x, params)
+    torch.cuda.synchronize()
+    assert _launched() == {nograd: 1} and torch.equal(out_ng, out_k)
+    out_r, grads_r = _stack_run(ref, x, dy, params)
+    _f32_close(out_k, grads_k, out_r, grads_r)
+
+
 @pytest.mark.cuda
 def test_block_kernels_refuse_what_they_do_not_take(cuda):
     x, _, params = _stack_inputs(2, 17, 48, 2, cuda)
     with pytest.raises(TypeError):
-        bf.fused_block(x.float(), params[0], 4)
+        bf.fused_block(x.half(), params[0], 4)
     with pytest.raises(TypeError):
-        bc.fused_block_chain(x.float(), params, 4)
+        bc.fused_block_chain(x.half(), params, 4)
     with pytest.raises(ValueError):  # a CPU parameter with a CUDA activation
         bf.fused_block(x, [params[0][0].cpu()] + params[0][1:], 4)
     long, _, lparams = _stack_inputs(2, 257, 64, 2, cuda)  # d=32, L > 256
@@ -619,7 +669,8 @@ def test_embed_kernel_matches_plain(cuda, B, N, Pc, D, K, dup):
     patches, params, idx, dy = _embed_inputs(B, N, Pc, D, K, cuda, dup)
     before = dict(ef.LAUNCHES)
     out_k, grads_k = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
-    assert ef.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert {k: v - before[k] for k, v in ef.LAUNCHES.items() if v != before[k]} == {
+        "patch_embed_fwd": 1, "patch_embed_bwd": 1}
     out_r, grads_r = _embed_run(ef.fused_patch_embed_ref, patches, params, idx, dy)
     with torch.no_grad():
         out_ng = ef.fused_patch_embed(patches, *params, idx)
@@ -631,6 +682,29 @@ def test_embed_kernel_matches_plain(cuda, B, N, Pc, D, K, dup):
         assert a.dtype == b.dtype and a.shape == b.shape
         bound = 2e-2 * b.float().abs().max().item() + 1e-3
         torch.testing.assert_close(a.float(), b.float(), atol=bound, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,dup", [(7, False), (7, True), (None, False)],
+                         ids=["k7", "k7-repeats", "full"])
+def test_f32_embed_kernel_matches_plain(cuda, K, dup):
+    """``csrc/patch_embed_f32.cu`` at (2, 20, 48, 40) against the plain
+    version at f32: the forward and all five backward outputs; repeated
+    indices sum their gradients; one launch each way under the f32 keys and
+    no other kernel; the no-grad forward and a second call equal bit for
+    bit."""
+    patches, params, idx, dy = _embed_inputs(2, 20, 48, 40, K, cuda, dup)
+    patches, dy = patches.float(), dy.float()
+    _reset()
+    out_k, grads_k = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    torch.cuda.synchronize()
+    assert _launched() == {"patch_embed_fwd_f32": 1, "patch_embed_bwd_f32": 1}
+    out_2, grads_2 = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    assert torch.equal(out_2, out_k) and all(map(torch.equal, grads_2, grads_k))
+    with torch.no_grad():
+        assert torch.equal(ef.fused_patch_embed(patches, *params, idx), out_k)
+    out_r, grads_r = _embed_run(ef.fused_patch_embed_ref, patches, params, idx, dy)
+    _f32_close(out_k, grads_k, out_r, grads_r)
 
 
 @pytest.mark.cuda
@@ -686,7 +760,7 @@ def test_embed_skips_dpatches_when_not_asked(cuda):
 def test_embed_refuses_what_it_does_not_take(cuda):
     patches, params, idx, _ = _embed_inputs(3, 20, 48, 40, 7, cuda)
     with pytest.raises(TypeError):
-        ef.fused_patch_embed(patches.float(), *params, idx)
+        ef.fused_patch_embed(patches.half(), *params, idx)
     with pytest.raises(ValueError):
         ef.fused_patch_embed(patches, *params, idx.int())
     bad, bparams, _, _ = _embed_inputs(3, 20, 44, 40, None, cuda)  # Pc % 8 != 0
