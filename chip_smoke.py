@@ -183,7 +183,10 @@ Phases (any failure exits nonzero; nothing is caught):
      3 and two odd shapes, and the four attention entries at f32
      (``csrc/mha_f32.cu``) at their geometries and 33 ragged shapes, against
      their plain versions (forward within 5e-5, each gradient within 1e-4
-     of its largest magnitude), SDPA at f32 the library yardstick; (b) the
+     of its largest magnitude), a second forward and backward the same bits
+     at every shape (the fit's edges (256, 32) and (1, 8) among them), the
+     f32 core's blocks per SM, per-call and device times beside SDPA at f32,
+     the library yardstick; (b) the
      MAE, JEPA and classifier (full, probe, unfreeze 2, eval) steps at f32,
      B=768, auto, exact f32 launches, ms/step and device ms/step; (c) MAE
      on packed and pallas at f32; (d) B=16 at f32 against the CPU (loss
@@ -201,8 +204,10 @@ Phases (any failure exits nonzero; nothing is caught):
      backward to the first; the f32 fused embed (``csrc/patch_embed_f32.cu``)
      at K=37, K=45 and no index against its plain version, with a gather +
      ``torch.matmul`` at f32 as the yardstick; forward within 5e-5, each
-     backward output within 1e-4 of its largest magnitude; per-call times
-     and f32 bounds; (b) the MAE and JEPA steps on block and on chain and
+     backward output within 1e-4 of its largest magnitude, a second call the
+     same bits; per-call times and f32 bounds; then K=1, K=L with an index,
+     repeated indices and indices out of range (NaN rows, no gradient) the
+     same way; (b) the MAE and JEPA steps on block and on chain and
      the classifier's full fine-tune (and eval step) on block, f32, B=768,
      with the fused embed: finite losses, moved params, exact f32 launches
      per step, ms/step and device ms/step (an ``{"f32_step_ms": ...}``
@@ -211,9 +216,11 @@ Phases (any failure exits nonzero; nothing is caught):
      fused embed equal to 3 eager ones bit for bit.
 
 With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
-phase 20 (b), and ``--fused-replay OUT`` is phase 21 in a fresh process
-(the profiler of a process that ran phases 3-20 records some kernels in
-the wrong session), both started by the script itself; ``--dp-cards N`` on a host with
+phase 20 (b), ``--fused-replay OUT`` is phase 21 in a fresh process (the
+profiler of a process that ran phases 3-20 records some kernels in the
+wrong session, or loses them), and ``--f32-kernels 23|24 OUT`` phase 23 (a)
+or 24 (a) in a fresh process for the same reason, all started by the
+script itself; ``--dp-cards N`` on a host with
 N cards builds the kernels, runs phase 20 (b) with one process per card over
 ``nccl`` (then each rank's ms/step at B=768 a rank beside one card's) and
 (c) with N processes, and prints a ``{"dp_cards": ...}`` line before the
@@ -979,18 +986,22 @@ def sdpa_inputs(entry: str, leaves, do, H: int):
     return [t.detach().contiguous().clone().requires_grad_() for t in qkv], doh.contiguous()
 
 
-def mha_occupancy() -> None:
-    """Phase 3b: blocks per SM of the attention kernels at the decoder's
-    and the encoder's head geometry, from the CUDA occupancy calculator."""
+def mha_occupancy(f32: bool = False) -> None:
+    """Phases 3b and 23 (a): blocks per SM of the attention kernels (``f32``:
+    of ``csrc/mha_f32.cu``) at the decoder's and the encoder's head geometry
+    (at f32 also the predictor's and the target encoder's), from the CUDA
+    occupancy calculator."""
     lib = _build.load()
-    for L, d in ((145, 32), (37, 24)):
+    fn, name = ((lib.ssrl_mha_f32_occupancy, "mha_f32") if f32
+                else (lib.ssrl_mha_occupancy, "mha"))
+    geos = ((145, 32), (37, 24), (145, 16), (145, 24)) if f32 else ((145, 32), (37, 24))
+    for L, d in geos:
         for pas in ("fwd", "bwd"):
             vals = [ctypes.c_int() for _ in range(4)]
-            _build.check(lib.ssrl_mha_occupancy(L, d, int(pas == "bwd"),
-                                                *(ctypes.byref(v) for v in vals)),
-                         "mha_occupancy")
+            _build.check(fn(L, d, int(pas == "bwd"), *(ctypes.byref(v) for v in vals)),
+                         f"{name}_occupancy")
             blocks, warps, smem, regs = (v.value for v in vals)
-            print(f"  mha {pas} at L={L}, d={d}: {blocks} blocks of {warps} warps per SM "
+            print(f"  {name} {pas} at L={L}, d={d}: {blocks} blocks of {warps} warps per SM "
                   f"({blocks * warps} warps), {smem} bytes of shared memory a block, "
                   f"{regs} registers a thread", flush=True)
 
@@ -1141,6 +1152,12 @@ def check_embed(dtype=torch.bfloat16) -> dict:
             fail(f"embed@{geo}: the no-grad forward differs from the forward")
         if not all(torch.equal(a, b) for a, b in zip(grads_k, grads_kp[1:])):
             fail(f"embed@{geo}: the parameter gradients change when dpatches is computed")
+        if f32:
+            out_2 = ef.fused_patch_embed(pl, *leaves, idx)
+            grads_2 = torch.autograd.grad(out_2, [pl] + leaves, dy)
+            if not (torch.equal(out_2, out_kp) and all(map(torch.equal, grads_2, grads_kp))):
+                fail(f"embed@{geo} f32: a second forward and backward differ in their bits")
+            del out_2, grads_2
         fwd_err = (out_k.float() - out_r.float()).abs().max().item()
         atol = F32_ATOL if f32 else FWD_ATOL
         if not fwd_err <= atol:
@@ -1195,6 +1212,8 @@ def check_embed(dtype=torch.bfloat16) -> dict:
         print(f"    device fwd by kernel: {kernel_shares(fwd_shares)}")
         print(f"    device bwd by kernel: {kernel_shares(bwd_shares)}", flush=True)
         del out_k, out_kp, out_r, out_rn, grads_k, grads_kp, grads_r
+    if f32:
+        embed_f32_edges()
     res = {}
     for pas in ("fwd", "bwd"):
         r = summarize(per[pas], err[pas], EMBED_CALLS[pas])
@@ -1202,6 +1221,60 @@ def check_embed(dtype=torch.bfloat16) -> dict:
             r.update({f"{k}_{g}": x for k, x in v.items() if k.endswith("dpatches")})
         res[bf.dtype_key(dtype, f"patch_embed_{pas}")] = r
     return res
+
+
+def embed_f32_edges() -> None:
+    """Phase 24 (a): the f32 embed at B=768 and the flagship widths at the
+    edges of its index forms: K=1, K=L with an index (every token,
+    permuted), repeated indices and indices out of range (a NaN row and no
+    gradient: held to the plain version on the valid index with those dy
+    rows zeroed); every output within the f32 bounds, dpatches included,
+    and a second call the same bits."""
+    g = torch.Generator().manual_seed(11)
+    L = EMBED_N + 1
+    bad = torch.randint(1, L, (BATCH, 8), generator=g)
+    cases = {"k1": torch.randint(0, L, (BATCH, 1), generator=g),
+             "kL_index": torch.argsort(torch.rand(BATCH, L, generator=g), dim=-1),
+             "repeats": torch.randint(0, L, (BATCH, 45), generator=g),
+             "out_of_range": bad}
+    for name, idx in cases.items():
+        idx = idx.cuda()
+        patches, params, _, _ = embed_inputs(37, seed=13, dtype=torch.float32)
+        dy = torch.randn(BATCH, idx.shape[1], EMBED_D, generator=g).cuda()
+        kidx, ridx, rdy = idx, idx, dy
+        if name == "out_of_range":
+            kidx = idx.clone()
+            kidx[:, 3] = L
+            kidx[0, 5] = -1
+            rdy = dy.clone()
+            rdy[:, 3] = 0
+            rdy[0, 5] = 0
+        leaves = [patches.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+        runs = []
+        for _ in range(2):
+            out = ef.fused_patch_embed(*leaves, kidx)
+            runs.append((out, torch.autograd.grad(out, leaves, dy)))
+        (out_k, grads_k), (out_2, grads_2) = runs
+        out_r = ef.fused_patch_embed_ref(*leaves, ridx)
+        grads_r = torch.autograd.grad(out_r, leaves, rdy)
+        torch.cuda.synchronize()
+        what = f"embed f32 {name} (K={idx.shape[1]})"
+        bits = (out_2.view(torch.int32), out_k.view(torch.int32))  # NaN rows compare too
+        if not (torch.equal(*bits) and all(map(torch.equal, grads_2, grads_k))):
+            fail(f"{what}: a second call differs in its bits")
+        keep = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        if name == "out_of_range":
+            keep[:, 3] = False
+            keep[0, 5] = False
+            if not (torch.isnan(out_k[:, 3]).all() and torch.isnan(out_k[0, 5]).all()):
+                fail(f"{what}: an index out of range did not give a NaN row")
+        fwd_err = (out_k[keep] - out_r[keep]).abs().max().item()
+        if not fwd_err <= F32_ATOL:
+            fail(f"{what} forward: max abs err {fwd_err} > {F32_ATOL}")
+        bwd_err = check_close(what, ["dpatches", "dw", "db", "dcls", "dpos"], grads_k, grads_r,
+                              F32_BWD_REL)
+        print(f"  {what}: max abs err fwd {fwd_err:.3e}, bwd {bwd_err:.3e}; two calls the "
+              "same bits", flush=True)
 
 
 def launch_counts() -> dict:
@@ -3157,8 +3230,11 @@ def check_f32_attention() -> dict:
     against their plain versions, forward within F32_ATOL and each gradient
     within F32_BWD_REL, one launch each way under the entry's f32 key, at
     their geometries (B=768, timed per call, SDPA at f32 as the library
-    call) and F32_ATTN_ODD."""
+    call) and F32_ATTN_ODD. A second forward and backward give the same bits
+    at every shape (the MAE and JEPA geometries and the fit's edges, (L, d) =
+    (256, 32) and (1, 8), among them)."""
     sdpa_f32_kernels()
+    mha_occupancy(f32=True)
     res = {}
     for entry, (kern, ref, _, _, where) in ATTENTION.items():
         call = attention_call(entry)
@@ -3184,6 +3260,11 @@ def check_f32_attention() -> dict:
             what = f"{entry} f32 B={B} L={L} D={D} H={H}"
             if not torch.equal(out_ng, out_k):
                 fail(f"{what}: the no-grad forward differs from the forward")
+            out_2 = call(kern, xs, H)
+            grads_2 = torch.autograd.grad(out_2, xs, do)
+            if not (torch.equal(out_2, out_k) and all(map(torch.equal, grads_2, grads_k))):
+                fail(f"{what}: a second forward and backward differ in their bits")
+            del out_2, grads_2
             fwd_err = (out_k - out_r).abs().max().item()
             if not fwd_err <= F32_ATOL:
                 fail(f"{what} forward: max abs err {fwd_err} > {F32_ATOL}")
@@ -3207,14 +3288,24 @@ def check_f32_attention() -> dict:
                     "library_ms": cuda_ms(
                         lambda: torch.autograd.grad(out_s, qh, doh, retain_graph=True),
                         **F32_TIMING)}
+                with torch.no_grad():
+                    t_fwd["device_ms"] = device_ms(lambda: call(kern, leaves, H), iters=5)
+                    t_fwd["library_device_ms"] = device_ms(
+                        lambda: F.scaled_dot_product_attention(*qh), iters=5)
+                t_bwd["device_ms"] = device_ms(
+                    lambda: torch.autograd.grad(out_k, xs, do, retain_graph=True), iters=5)
+                t_bwd["library_device_ms"] = device_ms(
+                    lambda: torch.autograd.grad(out_s, qh, doh, retain_graph=True), iters=5)
                 (bf_ms, bf_by), (bb_ms, bb_by) = attention_bounds_f32(B, L, D)
                 per["fwd"][geo] = {**t_fwd, "bound_ms": bf_ms, "bound_by": bf_by}
                 per["bwd"][geo] = {**t_bwd, "bound_ms": bb_ms, "bound_by": bb_by}
                 print(f"  {what}: fwd {t_fwd['ms']:.3f} ms (plain {t_fwd['plain_ms']:.3f}, "
                       f"sdpa {t_fwd['library_ms']:.3f}, bound {bf_ms:.3f}), bwd "
                       f"{t_bwd['ms']:.3f} ms (plain {t_bwd['plain_ms']:.3f}, sdpa "
-                      f"{t_bwd['library_ms']:.3f}, bound {bb_ms:.3f}); max abs err fwd "
-                      f"{fwd_err:.3e}, bwd {bwd_err:.3e}", flush=True)
+                      f"{t_bwd['library_ms']:.3f}, bound {bb_ms:.3f}); device fwd "
+                      f"{t_fwd['device_ms']:.4f} (sdpa {t_fwd['library_device_ms']:.4f}), bwd "
+                      f"{t_bwd['device_ms']:.4f} (sdpa {t_bwd['library_device_ms']:.4f}); "
+                      f"max abs err fwd {fwd_err:.3e}, bwd {bwd_err:.3e}", flush=True)
                 del out_s, qh
             del out_k, out_r, grads_k, grads_r, xs
         print(f"  {entry} f32: {len(cases)} shapes, max abs err fwd {err['fwd']:.3e}, "
@@ -3310,6 +3401,50 @@ def f32_fused_equality(model_cfg: dict, impl: str = "auto") -> dict:
     return {k: ce[k] + cg[k] for k in ce}
 
 
+def f32_kernel_checks(phase: str) -> dict:
+    """Phase 23 (a) or 24 (a), TF32 off: the f32 kernels against their plain
+    versions, with their times; the kernel lines' entries."""
+    f32 = torch.float32
+    with no_tf32():
+        if phase == "23":
+            res = check_f32_branches()
+            res.update(check_f32_attention())
+        else:
+            res = check_stack("block", f32)
+            res.update(check_stack("chain", f32))
+            res.update(check_embed(f32))
+    return res
+
+
+def f32_kernels_process(phase: str) -> dict:
+    """Phase 23 (a) or 24 (a) in a process of its own (``chip_smoke.py
+    --f32-kernels``), as phase 21 runs: after the earlier phases' many
+    profiler sessions this process's profiler loses some calls' largest
+    kernels (SDPA's f32 backward read 0.58 of its 2.98 ms, the embed's f32
+    backward 0.01 of its 0.10, on an H100), so the device times of the f32
+    kernels and their yardsticks come from a fresh one. Its output goes to
+    ours; returns its kernel lines' entries."""
+    out = REPO / "build" / f"tmp_f32_{phase}_{os.getpid()}.json"
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--f32-kernels",
+                               phase, str(out)], cwd=REPO, timeout=600)
+        print(f"  phase {phase} (a)'s process: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if proc.returncode != 0:
+            fail(f"phase {phase} (a)'s process exited {proc.returncode}")
+        return json.loads(out.read_text())
+    finally:
+        out.unlink(missing_ok=True)
+
+
+def f32_kernels_main(phase: str, out: pathlib.Path) -> None:
+    """``--f32-kernels PHASE OUT``: phase 23 (a) or 24 (a) on the kernels
+    the parent built; the kernel lines' entries as JSON in OUT."""
+    _build.load()
+    out.write_text(json.dumps(f32_kernel_checks(phase)))
+
+
 def f32_training(cfg: dict, name: str):
     """Phase 23: f32 training on the card, TF32 off. Returns (the kernel
     lines' entries, the host launch counts of the main-path runs)."""
@@ -3323,10 +3458,9 @@ def f32_training(cfg: dict, name: str):
         for k, v in c.items():
             counts[k] += v
 
+    print("phase 23 (a): the f32 kernels vs their plain versions", flush=True)
+    res = f32_kernels_process("23")
     with no_tf32():
-        print("phase 23 (a): the f32 kernels vs their plain versions", flush=True)
-        res = check_f32_branches()
-        res.update(check_f32_attention())
         print("phase 23 (b): the MAE, JEPA and classifier steps at f32, B=768, auto", flush=True)
         add(mae_step(model_cfg, name, "auto", dtype=f32)[0])
         add(jepa_step(model_cfg, jepa_cfg, name, fused=False, dtype=f32)[0])
@@ -3360,12 +3494,10 @@ def f32_stack_routes(cfg: dict, name: str):
         for k, v in c.items():
             counts[k] += v
 
+    print("phase 24 (a): the f32 whole block, chain and patch embed vs their plain "
+          "versions", flush=True)
+    res = f32_kernels_process("24")
     with no_tf32():
-        print("phase 24 (a): the f32 whole block, chain and patch embed vs their plain "
-              "versions", flush=True)
-        res = check_stack("block", f32)
-        res.update(check_stack("chain", f32))
-        res.update(check_embed(f32))
         print("phase 24 (b): MAE and JEPA on block and chain, the classifier's full "
               "fine-tune on block, f32, B=768, SSRL_FUSED_EMBED=1", flush=True)
         step_ms = {}
@@ -3562,6 +3694,8 @@ if __name__ == "__main__":
         dp_worker(pathlib.Path(sys.argv[2]), sys.argv[3], sys.argv[4] == "timed")
     elif sys.argv[1:2] == ["--fused-replay"]:
         fused_replay_main(pathlib.Path(sys.argv[2]))
+    elif sys.argv[1:2] == ["--f32-kernels"]:
+        f32_kernels_main(sys.argv[2], pathlib.Path(sys.argv[3]))
     elif sys.argv[1:2] == ["--dp-cards"]:
         dp_cards(int(sys.argv[2]))
     else:

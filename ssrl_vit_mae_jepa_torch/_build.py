@@ -87,6 +87,7 @@ _SIGNATURES = {
     "ssrl_patch_embed_bwd_f32": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "ssrl_mha_f32_fwd": (_I, [_P] * 4 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_mha_f32_bwd": (_I, [_P] * 7 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
+    "ssrl_mha_f32_occupancy": (_I, [_I] * 3 + [_PI] * 4),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -25,8 +25,9 @@ then division); the backward runs in two phases, per 16-query strip (the
 row max and sum and rowsum(dP∘P), then dS and dq) and per 16-key strip (P
 recomputed from those statistics, dS, then dk and dv). Its fit is d ≤ 32
 and L ≤ 256 (:func:`fits`). The f32 kernel computes the same function with
-no rounding point, by a simpler design (one block per (image, head) for the
-backward, its strips' scores in shared memory), over the same fit.
+no rounding point on the same schedule, its products SIMT register tiles in
+f32 (a one-pass forward with the row max kept as it grows), over at least
+the same fit.
 
 :func:`attend` routes by device: a CPU tensor takes the plain version, a
 ``torch.autograd.Function`` whose forward and backward repeat the kernel's
@@ -64,7 +65,7 @@ def fits(L: int, d: int) -> bool:
     the head dim at most 32 (one or two 16-column tiles) and L ≤ 256 (the
     backward's shared memory then leaves two blocks per SM). The f32 kernel
     of ``csrc/mha_f32.cu`` takes the same shapes: its fit is its shared
-    memory (``ssrl_attn_f32_fits``), 172 KB at most within this one (L=256,
+    memory (``ssrl_attn_f32_fits``), 171 KB at most within this one (L=256,
     d=32), so at f32 too the entries refuse what the bf16 fit refuses."""
     return 1 <= L <= MAX_L and 1 <= d <= MAX_D
 

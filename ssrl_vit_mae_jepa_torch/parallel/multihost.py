@@ -12,7 +12,8 @@ its own card, so nothing assembles a global array (the JAX
   package's ``SSRL_COORDINATOR`` / ``SSRL_NUM_PROCESSES`` /
   ``SSRL_PROCESS_ID``, or from PyTorch's own ``MASTER_ADDR`` / ``RANK`` /
   ``WORLD_SIZE`` (what ``python -m torch.distributed.run`` sets); ``nccl``
-  on the card, ``gloo`` on the CPU;
+  on the card (the default: with no card it raises), ``gloo`` on the CPU
+  when the caller asks for it;
 - ``process_local_indices``: the contiguous per-process shard, padded by
   wrap-around, as the JAX function pads it;
 - the process's rank, the world size and its card, ``cuda:LOCAL_RANK``.
@@ -58,11 +59,13 @@ def maybe_initialize_distributed(device_type: Optional[str] = None,
     """Join the default process group when the environment configures one;
     returns whether a group is up.
 
-    ``device_type`` is where the process trains (``"cuda"`` or ``"cpu"``;
-    by default the card if there is one): on ``"cuda"`` the process takes
-    the card ``cuda:LOCAL_RANK`` and the group ``nccl``, on the CPU
-    ``gloo``. ``backend`` overrides that choice (two processes that share
-    one card need ``gloo``: ``nccl`` refuses two ranks on one device)."""
+    ``device_type`` is where the process trains (``"cuda"``, the default,
+    or ``"cpu"``): on ``"cuda"`` the process takes the card
+    ``cuda:LOCAL_RANK`` and the group ``nccl``, on the CPU ``gloo``. With
+    no card visible ``"cuda"`` raises before any group is created: a caller
+    that wants the CPU says so. ``backend`` overrides the choice of
+    backend (two processes that share one card need ``gloo``: ``nccl``
+    refuses two ranks on one device)."""
     if is_initialized():
         return True
     coord = os.environ.get("SSRL_COORDINATOR")
@@ -75,8 +78,11 @@ def maybe_initialize_distributed(device_type: Optional[str] = None,
         world, rank_ = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     else:
         return False
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    device_type = device_type or "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the process group would train on the card; pass "
+            "device_type='cpu' to join it on the CPU")
     if device_type == "cuda":
         torch.cuda.set_device(int(os.environ.get(
             "LOCAL_RANK", rank_ % max(1, torch.cuda.device_count()))))

@@ -232,20 +232,22 @@ def test_fits_the_kernels_shared_memory():
     assert not attention_core.fits(0, 8)
 
 
-def _two_phase_bwd(q, k, v, g, post):
-    """The backward's order of work in ``csrc/mha.cu``, in torch ops on
-    (B, H, L, d). Phase A, per 16-row query strip, in two passes over
-    16-key tiles: the row max m, the sum l of exp(s - m) and rowsum(dP∘P) as
-    sum(exp(s - m)·dP) / l (both sums rescaled as m grows); then P, dS and
-    dq. Phase B, per 16-key strip, one 16-query tile at a time: P recomputed
-    from those statistics, dS, dk and dv. Rounds to q's dtype where the
-    kernel does; returns f32 (dq, dk, dv) before their one rounding."""
+def _two_phase_bwd(q, k, v, g, post, tile=16):
+    """The backward's order of work in ``csrc/mha.cu`` (``tile`` 16) and
+    ``csrc/mha_f32.cu`` (``tile`` 32), in torch ops on (B, H, L, d). Phase A,
+    per 16-row query strip, in two passes over ``tile``-key tiles: the row
+    max m, the sum l of exp(s - m) and rowsum(dP∘P) as sum(exp(s - m)·dP) / l
+    (both sums rescaled as m grows); then P, dS and dq. Phase B, per 16-key
+    strip, one ``tile``-query tile at a time: P recomputed from those
+    statistics, dS, dk and dv. Rounds to q's dtype where the kernel does;
+    returns f32 (dq, dk, dv) before their one rounding."""
     dt, L, d = q.dtype, q.shape[-2], q.shape[-1]
     scale = attention_core._scale(d)
     mul = scale if post else 1.0
     qk = q if post else (q.float() * scale).to(dt)
     qf, kf, vf, gf = qk.float(), k.float(), v.float(), g.float()
     strips = [slice(i, min(i + 16, L)) for i in range(0, L, 16)]
+    tiles = [slice(i, min(i + tile, L)) for i in range(0, L, tile)]
     m = torch.full(q.shape[:-1], -torch.inf)
     l, D = torch.zeros(q.shape[:-1]), torch.zeros(q.shape[:-1])
     dq, dk, dv = (torch.zeros(q.shape) for _ in range(3))
@@ -255,7 +257,7 @@ def _two_phase_bwd(q, k, v, g, post):
 
     for r in strips:  # phase A
         u = torch.zeros_like(l[..., r])
-        for c in strips:
+        for c in tiles:
             s = qf[..., r, :] @ kf[..., c, :].mT * mul
             mn = torch.maximum(m[..., r], s.amax(-1))
             f, e = torch.exp(m[..., r] - mn), torch.exp(s - mn[..., None])
@@ -263,11 +265,11 @@ def _two_phase_bwd(q, k, v, g, post):
             u = u * f + (e * (gf[..., r, :] @ vf[..., c, :].mT)).sum(-1)
             m[..., r] = mn
         D[..., r] = u / l[..., r]
-        for c in strips:
+        for c in tiles:
             ds = probs(r, c) * (gf[..., r, :] @ vf[..., c, :].mT - D[..., r, None])
             dq[..., r, :] += ds.to(dt).float() @ kf[..., c, :]
     for c in strips:  # phase B
-        for r in strips:
+        for r in tiles:
             pt = probs(r, c).mT
             dst = pt * (vf[..., c, :] @ gf[..., r, :].mT - D[..., None, r])
             dv[..., c, :] += pt.to(dt).float() @ gf[..., r, :]
@@ -275,19 +277,28 @@ def _two_phase_bwd(q, k, v, g, post):
     return dq * scale, dk * mul, dv
 
 
+# (B, H, L, d, tile): the bf16 core's 16-key tiles (ids as before), then the
+# f32 core's 32-column tiles at the decoder's and the encoder's head shapes,
+# the predictor's d=16, a ragged L and the shortest
+TWO_PHASE = [pytest.param(*s, 16, id="-".join(map(str, s)))
+             for s in [(2, 3, 37, 24), (1, 2, 17, 8), (1, 2, 145, 32), (2, 1, 33, 16), (1, 1, 1, 8)]]
+TWO_PHASE += [pytest.param(*s, 32, id="f32tiles-" + "-".join(map(str, s)))
+              for s in [(1, 2, 145, 32), (2, 3, 37, 24), (1, 2, 145, 16), (2, 1, 33, 16),
+                        (1, 1, 1, 8)]]
+
+
 @pytest.mark.parametrize("post", [False, True], ids=["pre_scaled", "post_scaled"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("B,H,L,d", [(2, 3, 37, 24), (1, 2, 17, 8), (1, 2, 145, 32),
-                                     (2, 1, 33, 16), (1, 1, 1, 8)])
-def test_two_phase_backward_matches_plain(B, H, L, d, dtype, post):
-    """The kernel's two-phase backward schedule computes the plain backward:
+@pytest.mark.parametrize("B,H,L,d,tile", TWO_PHASE)
+def test_two_phase_backward_matches_plain(B, H, L, d, tile, dtype, post):
+    """The kernels' two-phase backward schedule computes the plain backward:
     f32 to 1e-5; bf16, rounded once like the kernel's outputs, to 2% of each
     gradient's largest magnitude (the card's tolerance, tests/test_torch_cuda.py)."""
     tdt = DTYPES[dtype][1]
     rng = np.random.default_rng(B * L + d)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(B, H, L, d)).astype(np.float32)).to(tdt)
                   for _ in range(4))
-    got = _two_phase_bwd(q, k, v, g, post)
+    got = _two_phase_bwd(q, k, v, g, post, tile)
     want = attention_core.plain_bwd_f32(q, k, v, g, post)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         if tdt == torch.float32:
@@ -296,6 +307,42 @@ def test_two_phase_backward_matches_plain(B, H, L, d, dtype, post):
             a, b = a.to(tdt).float(), b.to(tdt).float()
             bound = 2e-2 * b.abs().max().item()
             torch.testing.assert_close(a, b, atol=bound, rtol=0, msg=name)
+
+
+def _online_fwd(q, k, v, post):
+    """The f32 forward's order of work in ``csrc/mha_f32.cu``, in torch ops
+    on (B, H, L, d) f32: per 16-row query strip, one pass over 32-key tiles
+    keeping the row max m as it grows, the output and the row sum l
+    rescaled by exp(m_old - m_new), and o = acc / l at the end."""
+    L, d = q.shape[-2], q.shape[-1]
+    scale = attention_core._scale(d)
+    qs = q if post else q * scale
+    o = torch.empty_like(q)
+    for r in [slice(i, min(i + 16, L)) for i in range(0, L, 16)]:
+        m = torch.full(q.shape[:-2] + (r.stop - r.start,), -torch.inf)
+        l, acc = torch.zeros_like(m), torch.zeros_like(q[..., r, :])
+        for c in [slice(i, min(i + 32, L)) for i in range(0, L, 32)]:
+            s = qs[..., r, :] @ k[..., c, :].mT * (scale if post else 1.0)
+            mn = torch.maximum(m, s.amax(-1))
+            f, p = torch.exp(m - mn), torch.exp(s - mn[..., None])
+            l = l * f + p.sum(-1)
+            acc = acc * f[..., None] + p @ v[..., c, :]
+            m = mn
+        o[..., r, :] = acc / l[..., None]
+    return o
+
+
+@pytest.mark.parametrize("post", [False, True], ids=["pre_scaled", "post_scaled"])
+@pytest.mark.parametrize("B,H,L,d", [(1, 2, 145, 32), (2, 3, 37, 24), (1, 2, 145, 16),
+                                     (2, 1, 33, 16), (1, 1, 1, 8)])
+def test_f32_online_forward_matches_plain(B, H, L, d, post):
+    """The f32 kernel's one-pass forward schedule computes the plain forward
+    at f32 to 1e-5 (the exact softmax, summed in another order)."""
+    rng = np.random.default_rng(B * L + d + 1)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, H, L, d)).astype(np.float32))
+               for _ in range(3))
+    torch.testing.assert_close(_online_fwd(q, k, v, post), attention_core.plain_fwd(q, k, v, post),
+                               atol=1e-5, rtol=0)
 
 
 def test_dispatch_policies():

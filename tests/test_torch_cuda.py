@@ -595,6 +595,66 @@ def test_f32_attention_kernel_matches_plain(cuda, entry, B, L, D, H):
         torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item() + 1e-6, rtol=0)
 
 
+# (B, L, d, H) at the f32 core's tile edges: L around its 16-row strips and
+# 32-column tiles, head dims that are not a multiple of 4 (no 16-byte loads,
+# each column count a lane holds), and B * H not a multiple of the heads a
+# block takes at short L
+F32_ATTN_EDGES = [(2, L, d, 3) for L in (31, 32, 63, 64, 65) for d in (8, 16, 24, 32)]
+F32_ATTN_EDGES += [(2, 19, d, 2) for d in (1, 5, 13, 18, 30)] + [(7, 16, 8, 1), (5, 37, 24, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,d,H", F32_ATTN_EDGES)
+@pytest.mark.parametrize("entry", ["mha_packed", "mha_pallas"])
+def test_f32_attention_tile_edges(cuda, entry, B, L, d, H):
+    """``csrc/mha_f32.cu`` at the edges of its tiles, through a pre-scaled
+    and the post-scaled entry, against the plain f32 version; two calls give
+    the same bits."""
+    kern, ref = ATTENTION[entry]
+    leaves, do = _attention_inputs(entry, B, L, H * d, H, cuda, torch.float32)
+    xs = [t.clone().requires_grad_() for t in leaves]
+    runs = []
+    for _ in range(2):
+        out = _attention_call(entry, kern, xs, H)
+        runs.append((out, torch.autograd.grad(out, xs, do)))
+    (out, grads), (out2, grads2) = runs
+    assert torch.equal(out, out2) and all(map(torch.equal, grads, grads2))
+    out_r = _attention_call(entry, ref, xs, H)
+    _f32_close(out, grads, out_r, torch.autograd.grad(out_r, xs, do))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,d", [(50, 40), (100, 64), (9, 100)])
+@pytest.mark.parametrize("post", [False, True], ids=["pre", "post"])
+def test_f32_attention_core_beyond_32(cuda, L, d, post):
+    """Head dims above 32 (the f32 branch's core takes them; the entries
+    refuse them): the C entries on (B, H, L, d) tensors, the output and its
+    gradients in column chunks of 32, against the plain f32 version; two
+    calls give the same bits."""
+    lib = _build.load()
+    assert lib.ssrl_attn_f32_fits(L, d, 1)
+    B, H = 3, 2
+    g = torch.Generator().manual_seed(L + d)
+    q, k, v, do = (torch.randn(B, H, L, d, generator=g).to(cuda) for _ in range(4))
+    strides = (H * L * d, L * d, d)
+    st = torch.cuda.current_stream().cuda_stream
+    scale = 1.0 / d**0.5
+    outs = []
+    for _ in range(2):
+        o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+        _build.check(lib.ssrl_mha_f32_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                          *strides, *strides, B, H, L, d, scale, int(post), st),
+                     "mha_f32_fwd")
+        _build.check(lib.ssrl_mha_f32_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *strides, *strides, B, H, L, d, scale, int(post), st), "mha_f32_bwd")
+        outs.append((o, dq, dk, dv))
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, *outs))
+    want_o = core.plain_fwd(q, k, v, post)
+    _f32_close(outs[0][0], outs[0][1:], want_o, core.plain_bwd_f32(q, k, v, do, post))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", list(ATTENTION))
 def test_attention_rejects_float32(cuda, entry):
@@ -705,6 +765,58 @@ def test_f32_embed_kernel_matches_plain(cuda, K, dup):
         assert torch.equal(ef.fused_patch_embed(patches, *params, idx), out_k)
     out_r, grads_r = _embed_run(ef.fused_patch_embed_ref, patches, params, idx, dy)
     _f32_close(out_k, grads_k, out_r, grads_r)
+
+
+# (B, N, Pc, D, index): K=1, K=L with an index (every token, permuted),
+# repeated indices, and widths that take the forward's 8 row groups (D >
+# 144), the dW product's two column tiles (D/8 x Pc/8 > 512 threads) and the
+# token sums in device memory (an [L][D] accumulator beyond shared memory)
+F32_EMBED_EDGES = [(3, 20, 48, 40, "k1"), (3, 20, 48, 40, "kL"), (3, 20, 48, 40, "repeats"),
+                   (2, 63, 64, 160, "k7"), (2, 40, 256, 256, "k7"), (2, 255, 64, 256, "repeats")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,Pc,D,kind", F32_EMBED_EDGES)
+def test_f32_embed_edges(cuda, B, N, Pc, D, kind):
+    """``csrc/patch_embed_f32.cu`` at the edges of its index forms and tiles
+    against the plain f32 version, dpatches included; two calls give the same
+    bits."""
+    g = torch.Generator().manual_seed(B + N + D)
+    L = N + 1
+    idx = {"k1": lambda: torch.randint(0, L, (B, 1), generator=g),
+           "kL": lambda: torch.argsort(torch.rand(B, L, generator=g), dim=-1),
+           "repeats": lambda: torch.randint(0, L, (B, 30), generator=g),
+           "k7": lambda: torch.randint(0, L, (B, 7), generator=g)}[kind]().to(cuda)
+    patches = torch.rand(B, N, Pc, generator=g).to(cuda) * 2 - 1
+    params = [(torch.randn(D, Pc, generator=g) * Pc**-0.5).to(cuda),
+              (0.02 * torch.randn(D, generator=g)).to(cuda),
+              (0.02 * torch.randn(1, 1, D, generator=g)).to(cuda),
+              (0.02 * torch.randn(1, L, D, generator=g)).to(cuda)]
+    dy = torch.randn(B, idx.shape[1], D, generator=g).to(cuda)
+    out_k, grads_k = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    out_2, grads_2 = _embed_run(ef.fused_patch_embed, patches, params, idx, dy)
+    assert torch.equal(out_2, out_k) and all(map(torch.equal, grads_2, grads_k))
+    out_r, grads_r = _embed_run(ef.fused_patch_embed_ref, patches, params, idx, dy)
+    _f32_close(out_k, grads_k, out_r, grads_r)
+
+
+@pytest.mark.cuda
+def test_f32_embed_index_out_of_range(cuda):
+    """At f32 too an index outside [0, L) gives a NaN row and no gradient."""
+    B, N, Pc, D, K = 4, 20, 48, 40, 8
+    patches, params, idx, dy = _embed_inputs(B, N, Pc, D, K, cuda)
+    patches, dy = patches.float(), dy.float()
+    bad = idx.clone()
+    bad[:, 3] = N + 1
+    bad[0, 5] = -1
+    keep = [k for k in range(K) if k not in (3, 5)]
+    out_k, grads_k = _embed_run(ef.fused_patch_embed, patches, params, bad, dy)
+    assert torch.isnan(out_k[:, 3]).all() and torch.isnan(out_k[0, 5]).all()
+    dy_live = dy.clone()
+    dy_live[:, 3] = 0
+    dy_live[0, 5] = 0
+    out_r, grads_r = _embed_run(ef.fused_patch_embed_ref, patches, params, idx, dy_live)
+    _f32_close(out_k[:, keep], grads_k, out_r[:, keep], grads_r)
 
 
 @pytest.mark.cuda

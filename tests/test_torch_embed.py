@@ -110,6 +110,54 @@ def test_backward_matches_the_jax_kernel(B, N, Pc, D, K, dup):
         np.testing.assert_allclose(c, a, atol=5e-4, rtol=0, err_msg=name)
 
 
+def _split_order_bwd(patches, w, idx, g):
+    """The f32 kernel's backward order (``csrc/patch_embed_f32.cu``) in
+    torch ops: dW = dyᵀ X over the kept rows alone (X a row's patch row,
+    zero for CLS), in the kernel's row ranges summed in range order;
+    d(cls_pos) as token sums of dy rows, rows in order within a range and
+    ranges in order; db the sum of d(cls_pos) over tokens 1..L-1. Returns
+    (dw (D, Pc), db, dcp (L, D))."""
+    B, N, Pc = patches.shape
+    D, K = g.shape[-1], g.shape[1]
+    L, rows = N + 1, B * g.shape[1]
+    tok = (idx if idx is not None else torch.arange(L).expand(B, L)).reshape(-1)
+    dy = g.reshape(-1, D)
+    img = torch.arange(B).repeat_interleave(K)
+    has_patch = (tok >= 1) & (tok < L)
+    X = torch.zeros(rows, Pc)
+    X[has_patch] = patches[img[has_patch], tok[has_patch] - 1]
+    splits = min(-(-rows // 64), 128)
+    chunk = -(-(-(-rows // splits)) // 16) * 16
+    dw, dcp = torch.zeros(D, Pc), torch.zeros(L, D)
+    for r0 in range(0, rows, chunk):
+        part = torch.zeros(L, D)
+        for r in range(r0, min(r0 + chunk, rows)):
+            if 0 <= tok[r] < L:
+                part[tok[r]] += dy[r]
+        dw = dw + dy[r0:r0 + chunk].T @ X[r0:r0 + chunk]
+        dcp = dcp + part
+    return dw, dcp[1:].sum(0), dcp
+
+
+@pytest.mark.parametrize("B,N,Pc,D,K,dup", [
+    (*SHAPES[0], False), (*SHAPES[2], True), (*SHAPES[3], False)], ids=["k37", "dup", "full"])
+def test_f32_backward_order_matches_the_jax_kernel(B, N, Pc, D, K, dup):
+    """The f32 kernel's order of work for dW, d(cls_pos) and db against the
+    JAX kernel's VJP in interpret mode, at f32 with an index, with repeated
+    indices and without an index: each output within 5e-4 (this file's
+    backward tolerance; f32 sums in another order move them by ~1e-6)."""
+    ops = _operands(B, N, Pc, D, K, seed=2, dup=dup)
+    g = np.random.default_rng(12).standard_normal(
+        (B, K if K is not None else N + 1, D)).astype(np.float32)
+    _, want_dw, want_db, want_dcls, want_dpos = _jax_grads(ops, g)
+    patches, w, _, _, _, idx = _torch(ops)
+    dw, db, dcp = _split_order_bwd(patches, w, idx, torch.from_numpy(g))
+    for name, got, want in (("dw", dw.T, want_dw), ("db", db, want_db),
+                            ("dcls", dcp[0], want_dcls.reshape(D)),
+                            ("dpos", dcp, want_dpos.reshape(N + 1, D))):
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=0, err_msg=name)
+
+
 def test_bf16_forward_close():
     ops = _operands(8, 144, 192, 144, 37)
     with pltpu.force_tpu_interpret_mode():

@@ -80,6 +80,22 @@ def test_without_a_group_nothing_starts(monkeypatch):
     np.testing.assert_array_equal(t_mh.process_local_indices(np.arange(5)), np.arange(5))
 
 
+def test_no_card_refuses_the_default_group(monkeypatch):
+    """With a process group configured, no device named and no card, the
+    bootstrap raises in words and creates no group (it used to fall back to
+    the CPU and ``gloo`` without a word); the caller names the CPU to get
+    it."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without a CUDA device")
+    monkeypatch.delenv("SSRL_COORDINATOR", raising=False)
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": "1", "RANK": "0", "WORLD_SIZE": "1"}
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_mh.maybe_initialize_distributed()
+    assert not t_mh.is_initialized()
+
+
 def _np(tree):
     return jax.tree.map(lambda a: np.array(a, np.float32), tree)
 
