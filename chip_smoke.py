@@ -177,7 +177,14 @@ Phases (any failure exits nonzero; nothing is caught):
      equal, then one more epoch with exact launches of rows 1-5 and finite
      losses.
   23. f32 training on auto, packed and pallas, TF32 off (switched off,
-     printed, restored): (a) the f32 split branches of
+     printed, restored): (a) the f32 per-product table (every product of
+     rows 1-5 at f32 at the main paths' shapes through ``bf.gemm`` on f32
+     operands, the SIMT GEMM of ``csrc/gemm_f32_simt.cuh`` held to
+     ``gemm_ref`` at the f32 bounds and twice for the same bits; its device
+     time alone and with its reductions beside ``torch.matmul`` on the same
+     operands, and its bound; a ``{"gemm_f32_table": [...]}`` line and
+     the GEMM's device ms per f32 MAE, JEPA and classifier step), the f32
+     split branches of
      ``csrc/branch_f32.cu`` (the attention branch's stash forward and
      backward, the MLP branch's backward) at the block geometries of phase
      3 and two odd shapes, and the four attention entries at f32
@@ -3128,6 +3135,97 @@ def check_close(what: str, names, got, want, rel: float) -> float:
     return worst
 
 
+# the f32 per-product table (phase 23 (a)): the geometries timed (the JEPA
+# target encoder's forward products are the classifier's, "cls", at the
+# same shape) and the f32 GEMM's kernels by name
+F32_GEMM_GEOS = ("enc", "dec", "ctx", "pred", "cls")
+F32_GEMM_STEPS = {"mae": {"enc": 4, "dec": 2}, "jepa": {"ctx": 4, "pred": 2, "cls": 4},
+                  "classifier": {"cls": 4}}
+
+
+def gemm_f32_bound(layout: str, epi: str, M: int, N: int, K: int):
+    """Least time of one f32 product: A and B read once, C written once, the
+    epilogue's extra f32 tensor read (residual, pre-activation) or written
+    (pre-activation) once, all f32; 2MNK operations at the f32 CUDA-core
+    peak."""
+    extra = M * N if epi in ("bias_resid", "bias_gelu", "gelu_bwd") else 0
+    return bound_f32(4 * (M * K + K * N + M * N + extra), 2 * M * N * K)
+
+
+def gemm_f32_table() -> list:
+    """Phase 23 (a)'s f32 per-product table, TF32 off: every product of rows
+    1-5 at f32 (``gemm_products`` read at f32) at the main paths' shapes
+    through ``bf.gemm`` on f32 operands, held to ``gemm_ref`` at f32 (the
+    forward products within F32_ATOL on unit-scale operands, the gradient
+    products within F32_BWD_REL of the plain output's largest magnitude),
+    a second call the same bits; under one profiler session each, the
+    device time of the SIMT kernel alone, with its reductions (TN's fold of
+    the partials, the GELU backward's column sums), and of
+    ``torch.matmul`` on the same f32 operands (a yardstick the port never
+    calls) and its bound. Prints the f32 GEMM's device ms per f32
+    MAE, JEPA and classifier step (kernel and fold; the column sums are the
+    branch's db1)."""
+    rows = []
+    per_step = dict.fromkeys(F32_GEMM_STEPS, 0.0)
+    for geo in F32_GEMM_GEOS:
+        L, D, _ = GEOMETRIES[geo]
+        for name, (layout, epi, M, N, K, pas) in gemm_products(L, D).items():
+            g = torch.Generator(device="cuda").manual_seed(M + N + K)
+            rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+            a = rn(*((K, M) if layout == "tn" else (M, K)))
+            b = rn(*((N, K) if layout == "nt" else (K, N))) * K**-0.5
+            ex = {"bias": 0.1 * rn(N)}
+            if epi == "bias_resid":
+                ex["resid"] = rn(M, N)
+            if epi == "gelu_bwd":
+                ex["z"] = rn(M, N)
+            got = bf.gemm(a, b, layout, epi, **ex)
+            want = bf.gemm_ref(a, b, layout, epi, **ex)
+            again = bf.gemm(a, b, layout, epi, **ex)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"gemm f32 {name}@{geo}: a second call differs")
+            err, lim = 0.0, 0.0
+            for x, y in zip(got, want):
+                e = (x - y).abs().max().item()
+                bnd = F32_ATOL if layout == "nt" else F32_BWD_REL * y.abs().max().item() + 1e-6
+                if not e <= bnd:
+                    fail(f"gemm f32 {name}@{geo} ({layout} {epi}): max abs err {e} > {bnd}")
+                err, lim = max(err, e), max(lim, bnd)
+            del got, want, again
+            at, bt = (a.t() if layout == "tn" else a), (b.t() if layout == "nt" else b)
+            shares: dict = {}
+            device_ms(lambda: (bf.gemm(a, b, layout, epi, **ex), torch.matmul(at, bt)),
+                      iters=5, by_kernel=shares)
+            k_ms = sum(v for k, v in shares.items() if "gemm_f32_kernel" in k)
+            fold_ms = sum(v for k, v in shares.items() if "tn_fold" in k)
+            red_ms = fold_ms + sum(v for k, v in shares.items() if "colsum" in k)
+            m_ms = sum(shares.values()) - k_ms - red_ms
+            if not shares or k_ms <= 0 or m_ms <= 0:
+                k_ms, fold_ms, red_ms = cuda_ms(lambda: bf.gemm(a, b, layout, epi, **ex)), 0.0, 0.0
+                m_ms = cuda_ms(lambda: torch.matmul(at, bt))
+            b_ms, b_by = gemm_f32_bound(layout, epi, M, N, K)
+            calls = gemm_calls(name, True)
+            rows.append({"geo": geo, "product": name, "pass": pas, "layout": layout, "epi": epi,
+                         "M": M, "N": N, "K": K, "calls_per_block": calls, "max_abs_err": err,
+                         "kernel_ms": k_ms, "with_reductions_ms": k_ms + red_ms,
+                         "matmul_ms": m_ms, "bound_ms": b_ms, "bound_by": b_by})
+            print(f"  gemm f32 {geo} {name:5s} {layout} {epi:10s} M={M} N={N} K={K}: kernel "
+                  f"{k_ms:.4f} ms (with reductions {k_ms + red_ms:.4f}), matmul {m_ms:.4f}, "
+                  f"bound {b_ms:.4f} ({b_by}); kernel/matmul {k_ms / m_ms:.2f}, bound share "
+                  f"{b_ms / k_ms:.2f}; max abs err {err:.2e} (bound {lim:.1e})",
+                  flush=True)
+            for step, blocks in F32_GEMM_STEPS.items():
+                n_calls = calls if step != "jepa" or geo != "cls" else gemm_calls(name, False)
+                per_step[step] += blocks.get(geo, 0) * n_calls * (k_ms + fold_ms)
+            del a, b, ex, at, bt
+            torch.cuda.empty_cache()
+    print(f"  f32 GEMM device ms per f32 step (table sum, kernel + fold): MAE "
+          f"{per_step['mae']:.3f}, JEPA {per_step['jepa']:.3f}, classifier full fine-tune "
+          f"{per_step['classifier']:.3f}", flush=True)
+    return rows
+
+
 def check_f32_branches() -> dict:
     """Phase 23 (a): the f32 attention branch (stash forward, backward) and
     the f32 MLP branch's backward against autograd over their plain
@@ -3407,6 +3505,9 @@ def f32_kernel_checks(phase: str) -> dict:
     f32 = torch.float32
     with no_tf32():
         if phase == "23":
+            t0 = time.perf_counter()
+            print(json.dumps({"gemm_f32_table": gemm_f32_table()}), flush=True)
+            print(f"  the f32 per-product table: {time.perf_counter() - t0:.1f} s", flush=True)
             res = check_f32_branches()
             res.update(check_f32_attention())
         else:

@@ -88,6 +88,10 @@ _SIGNATURES = {
     "ssrl_mha_f32_fwd": (_I, [_P] * 4 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_mha_f32_bwd": (_I, [_P] * 7 + [_LL, _I, _I] * 2 + [_I] * 4 + [_F, _I, _P]),
     "ssrl_mha_f32_occupancy": (_I, [_I] * 3 + [_PI] * 4),
+    # the f32 branch GEMM alone: layout, M, N, K / layout, epi, 9 pointers,
+    # M, N, K, stream
+    "ssrl_gemm_f32_workspace": (_LL, [_I] * 4),
+    "ssrl_gemm_f32": (_I, [_I] * 2 + [_P] * 9 + [_I] * 3 + [_P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -29,43 +29,47 @@
 //         dz = (gy W2) o gelu'(z); dW1 = dz^T y2; db1 = colsum(dz);
 //         dy2 = dz W1; dx = gy + LN2'(dy2); d ln2 and db2 as above.
 // Weight gradients are TN products split over the B*L rows into f32
-// partials, then reduced column by column in one fixed order (common.cuh::
-// reduce_rows), as attn_branch.cu does; no atomics anywhere, so two calls
-// give the same bits and a CUDA-graph replay equals the eager step.
+// partials, then folded in one fixed order (gemm_f32_tn.cu); bias sums go
+// through common.cuh::reduce_rows; no atomics anywhere, so two calls give
+// the same bits and a CUDA-graph replay equals the eager step.
 //
 // What bounds it on the H100: the f32 products run on the CUDA cores (67
 // TFLOP/s, no tensor-core path without TF32). At B=768, L=145, D=192 a
 // branch forward does ~50-90 GFLOP and its backward ~2.5x that against
-// well under 1 GB of f32 activations, so it is bound by operations.
+// well under 1 GB of f32 activations, so it is bound by operations: the
+// products are ~90% of them, the attention core the rest.
 //
-// What this design does about it: little, on purpose -- it is the first,
-// simple version, right before fast. A warp-per-row LayerNorm pass (forward,
-// and a backward that also writes its column partials); one 64x64x16
-// shared-memory SIMT GEMM (256 threads, 4x4 outputs each, float4 reads from
-// shared memory) in three layouts, whose epilogue adds the bias and applies
-// the GELU, its derivative or the residual from registers; the attention
-// core of mha_f32.cu. Intermediates (y, qkv, a, z, h and their gradients) go
-// through device memory.
+// What this design does about it: every product is one register-tiled SIMT
+// GEMM (csrc/gemm_f32.cuh, the kernel and its design note in
+// csrc/gemm_f32_simt.cuh): 8 x 12 outputs a thread, so its shared-memory
+// reads stay under the FFMA rate; 16-byte cp.async copies two tiles ahead
+// of the FFMAs, k-contiguous tiles transposed in shared memory; 64- or
+// 128-row blocks by 48-192 columns chosen per product from timings, so the
+// port's widths (multiples of 48) pad little; the epilogue (bias, GELU, its
+// derivative, the residual) a template parameter, applied on the registers;
+// TN split over the B*L rows as far as fills the SMs once, its partials
+// folded in one fixed order. Around it: a warp-per-row LayerNorm pass
+// (forward, and a backward that also writes its column partials) and the
+// attention core of mha_f32.cu. Intermediates (y, qkv, a, z, h and their
+// gradients) go through device memory.
 #include <math.h>
 
 #include "common.cuh"
 #include "branch_f32.cuh"
+#include "gemm_f32.cuh"
 #include "mha.cuh"
 
 namespace {
 
-// the SIMT GEMM's epilogues (F_NONE writes the raw f32 sum: the TN
-// partials and the data gradients)
-enum F32Epi { F_NONE = 0, F_BIAS, F_BIAS_GELU, F_BIAS_RESID, F_BIAS_GELU_Z, F_GELU_BWD };
-
-__device__ __forceinline__ float gelu_erf(float z) {
-  return 0.5f * z * (1.f + erff(z * kInvSqrt2));
-}
-
-// d gelu / dz = Phi(z) + z * phi(z), with the exact erf
-__device__ __forceinline__ float gelu_erf_grad(float z) {
-  return 0.5f * (1.f + erff(z * kInvSqrt2)) + z * expf(-0.5f * z * z) * kInvSqrt2Pi;
-}
+using ssrl::F_BIAS;
+using ssrl::F_BIAS_GELU;
+using ssrl::F_BIAS_GELU_Z;
+using ssrl::F_BIAS_RESID;
+using ssrl::F_GELU_BWD;
+using ssrl::F_NONE;
+using ssrl::gemm_f32;
+using ssrl::gemm_tn_f32;
+using ssrl::gemm_tn_f32_part_floats;
 
 // ---------------------------------------------------------------------------
 // LayerNorm, one warp per row: the forward for any D, the backward for D <= 256
@@ -187,127 +191,6 @@ cudaError_t launch_ln_bwd_f32(const float* x, const float* s, const float* dy,
 }
 
 // ---------------------------------------------------------------------------
-// The SIMT GEMM, C[M][N] = sum_k A(m, k) B(k, n), in the layouts of gemm.cuh:
-//   NT: A[M][K], B[N][K] (x @ W^T, W in torch Linear layout)
-//   NN: A[M][K], B[K][N] (dY @ W)
-//   TN: A[K][M], B[K][N] (dY^T @ X over the B*L rows; gridDim.z splits K
-//       into chunks of k_chunk rows, each writing its partial C + z*M*N)
-// ---------------------------------------------------------------------------
-
-constexpr int GBM = 64, GBN = 64, GBK = 16, GTHREADS = 256;
-constexpr int TN_SPLITS = 64;  // at most: reduce_rows then takes one pass
-
-template <int LAYOUT, int EPI>
-__global__ void __launch_bounds__(GTHREADS)
-    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                    const float* __restrict__ bias, const float* __restrict__ R,
-                    float* __restrict__ C, float* __restrict__ Z, int M, int N, int K,
-                    int k_chunk) {
-  // +4 keeps each row 16-byte aligned for the float4 reads
-  __shared__ __align__(16) float As[GBK][GBM + 4];
-  __shared__ __align__(16) float Bs[GBK][GBN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int kb = LAYOUT == ssrl::GEMM_TN ? blockIdx.z * k_chunk : 0;
-  const int ke = LAYOUT == ssrl::GEMM_TN ? min(K, kb + k_chunk) : K;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kb; k0 < ke; k0 += GBK) {
-#pragma unroll
-    for (int i = 0; i < (GBM * GBK) / GTHREADS; ++i) {
-      const int idx = tid + GTHREADS * i;
-      if (LAYOUT == ssrl::GEMM_TN) {  // A[K][M]: neighbouring threads on m
-        const int kk = idx / GBM, r = idx % GBM;
-        const int gk = k0 + kk, gm = m0 + r;
-        As[kk][r] = (gm < M && gk < ke) ? A[(size_t)gk * M + gm] : 0.f;
-      } else {  // A[M][K]: neighbouring threads on k
-        const int r = idx / GBK, kk = idx % GBK;
-        const int gk = k0 + kk, gm = m0 + r;
-        As[kk][r] = (gm < M && gk < ke) ? A[(size_t)gm * K + gk] : 0.f;
-      }
-      if (LAYOUT == ssrl::GEMM_NT) {  // B[N][K]
-        const int r = idx / GBK, kk = idx % GBK;
-        const int gk = k0 + kk, gn = n0 + r;
-        Bs[kk][r] = (gn < N && gk < ke) ? B[(size_t)gn * K + gk] : 0.f;
-      } else {  // B[K][N]
-        const int kk = idx / GBN, r = idx % GBN;
-        const int gk = k0 + kk, gn = n0 + r;
-        Bs[kk][r] = (gn < N && gk < ke) ? B[(size_t)gk * N + gn] : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* Cz = LAYOUT == ssrl::GEMM_TN ? C + (size_t)blockIdx.z * M * N : C;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      const size_t o = (size_t)m * N + n;
-      float v = acc[i][j];
-      if (EPI == F_GELU_BWD) v *= gelu_erf_grad(R[o]);
-      if (EPI == F_BIAS || EPI == F_BIAS_GELU || EPI == F_BIAS_RESID || EPI == F_BIAS_GELU_Z)
-        v += bias[n];
-      if (EPI == F_BIAS_GELU_Z) Z[o] = v;
-      if (EPI == F_BIAS_GELU || EPI == F_BIAS_GELU_Z) v = gelu_erf(v);
-      if (EPI == F_BIAS_RESID) v = R[o] + v;
-      Cz[o] = v;
-    }
-  }
-}
-
-template <int LAYOUT, int EPI = F_NONE>
-cudaError_t gemm_f32(const float* A, const float* B, const float* bias, const float* R,
-                     float* C, float* Z, int M, int N, int K, cudaStream_t st) {
-  dim3 grid(cdiv(N, GBN), cdiv(M, GBM));
-  gemm_f32_kernel<LAYOUT, EPI><<<grid, GTHREADS, 0, st>>>(A, B, bias, R, C, Z, M, N, K, 0);
-  return cudaGetLastError();
-}
-
-// The row chunk of a TN product over K rows: a multiple of GBK, in at most
-// TN_SPLITS chunks.
-int tn_chunk(int K) { return cdiv(cdiv(K, TN_SPLITS), GBK) * GBK; }
-
-// out[M][N] = A^T B over the K rows: split-K partials into `part`
-// (tn_chunk's splits x M x N floats), then reduced in one fixed order.
-cudaError_t gemm_tn_f32(const float* A, const float* B, float* out, float* part, int M,
-                        int N, int K, cudaStream_t st) {
-  const int chunk = tn_chunk(K);
-  const int splits = cdiv(K, chunk);
-  dim3 grid(cdiv(N, GBN), cdiv(M, GBM), splits);
-  gemm_f32_kernel<ssrl::GEMM_TN, F_NONE>
-      <<<grid, GTHREADS, 0, st>>>(A, B, nullptr, nullptr, part, nullptr, M, N, K, chunk);
-  SSRL_TRY(cudaGetLastError());
-  reduce_rows(part, splits, M * N, out, nullptr, st);  // splits <= 64: one pass
-  return cudaGetLastError();
-}
-
-size_t tn_part_floats(int M, int N, int K) {
-  return (size_t)cdiv(K, tn_chunk(K)) * M * N;
-}
-
-// ---------------------------------------------------------------------------
 // The attention core's view of the fused (B*L, 3D) qkv buffer (q | k | v
 // along the features), the attention output `a` (B*L, D) and, backward, the
 // gradients: dqkv in qkv's layout, da in a's
@@ -343,8 +226,8 @@ size_t attn_fwd_carve(Carver& c, size_t M, int D, bool stash, float** y1, float*
 cudaError_t ln_qkv(const float* x, const float* s, const float* b, const float* wqkv,
                    const float* bqkv, float* y1, float* qkv, int M, int D, cudaStream_t st) {
   launch_ln(x, s, b, y1, M, D, st);
-  return gemm_f32<ssrl::GEMM_NT, F_BIAS>(y1, wqkv, bqkv, nullptr, qkv, nullptr, M, 3 * D, D,
-                                         st);
+  return gemm_f32(ssrl::GEMM_NT, F_BIAS, y1, wqkv, bqkv, nullptr, qkv, nullptr, M, 3 * D, D,
+                  st);
 }
 
 struct AttnBwdWs {
@@ -353,8 +236,9 @@ struct AttnBwdWs {
 
 size_t attn_bwd_carve(Carver& c, int B, int L, int D, AttnBwdWs* w) {
   const int M = B * L;
-  size_t part = tn_part_floats(D, D, M);
-  const size_t cands[2] = {tn_part_floats(3 * D, D, M), (size_t)ln_bwd_blocks(M) * 3 * D};
+  size_t part = gemm_tn_f32_part_floats(D, D, M);
+  const size_t cands[2] = {gemm_tn_f32_part_floats(3 * D, D, M),
+                           (size_t)ln_bwd_blocks(M) * 3 * D};
   for (size_t x : cands) part = x > part ? x : part;
   w->y1 = c.take<float>((size_t)M * D);
   w->qkv = c.take<float>((size_t)M * 3 * D);
@@ -371,9 +255,10 @@ struct MlpBwdWs {
 };
 
 size_t mlp_bwd_carve(Carver& c, int M, int D, int F, MlpBwdWs* w) {
-  size_t part = tn_part_floats(D, F, M);  // dW2 (D, F); dW1 (F, D) is as large
-  const size_t ln = (size_t)ln_bwd_blocks(M) * 3 * D;
-  part = ln > part ? ln : part;
+  size_t part = gemm_tn_f32_part_floats(D, F, M);  // dW2 (D, F), then dW1 (F, D)
+  const size_t cands[2] = {gemm_tn_f32_part_floats(F, D, M),
+                           (size_t)ln_bwd_blocks(M) * 3 * D};
+  for (size_t x : cands) part = x > part ? x : part;
   w->y2 = c.take<float>((size_t)M * D);
   w->z = c.take<float>((size_t)M * F);
   w->h = c.take<float>((size_t)M * F);  // h, then dz (h is dead after dW2)
@@ -413,7 +298,7 @@ cudaError_t attn_f32_fwd(const float* x, const BranchParamsF32& p, float* out, f
   MhaArgsT<float> m = qkv_args(qkv, B, L, D, H, scale);
   m.o = abuf;
   SSRL_TRY(mha_f32_fwd(m, st));
-  return gemm_f32<GEMM_NT, F_BIAS_RESID>(abuf, p.wb, p.bb, x, out, nullptr, M, D, D, st);
+  return gemm_f32(ssrl::GEMM_NT, F_BIAS_RESID, abuf, p.wb, p.bb, x, out, nullptr, M, D, D, st);
 }
 
 size_t attn_f32_bwd_workspace(int B, int L, int D) {
@@ -433,7 +318,8 @@ cudaError_t attn_f32_bwd(const float* x, const BranchParamsF32& p, const float* 
   SSRL_TRY(ln_qkv(x, p.ln_s, p.ln_b, p.wa, p.ba, w.y1, w.qkv, M, D, st));
   // dWp = g^T a; da = g Wp
   SSRL_TRY(gemm_tn_f32(g, a, d.dwb, w.part, D, D, M, st));
-  SSRL_TRY(gemm_f32<GEMM_NN>(g, p.wb, nullptr, nullptr, w.da, nullptr, M, D, D, st));
+  SSRL_TRY(gemm_f32(ssrl::GEMM_NN, F_NONE, g, p.wb, nullptr, nullptr, w.da, nullptr, M, D, D,
+                    st));
   // the attention backward into dqkv (q | k | v columns, qkv's layout)
   MhaArgsT<float> m = qkv_args(w.qkv, B, L, D, H, scale);
   m.dO = w.da;
@@ -445,7 +331,8 @@ cudaError_t attn_f32_bwd(const float* x, const BranchParamsF32& p, const float* 
   SSRL_TRY(gemm_tn_f32(w.dqkv, w.y1, d.dwa, w.part, 3 * D, D, M, st));
   reduce_rows(w.dqkv, M, 3 * D, d.dba, w.tmp, st);
   SSRL_TRY(cudaGetLastError());
-  SSRL_TRY(gemm_f32<GEMM_NN>(w.dqkv, p.wa, nullptr, nullptr, w.dy1, nullptr, M, D, 3 * D, st));
+  SSRL_TRY(gemm_f32(ssrl::GEMM_NN, F_NONE, w.dqkv, p.wa, nullptr, nullptr, w.dy1, nullptr, M,
+                    D, 3 * D, st));
   return launch_ln_bwd_f32(x, p.ln_s, w.dy1, g, dx, d.dln3, w.part, w.tmp, M, D, st);
 }
 
@@ -463,8 +350,9 @@ cudaError_t mlp_f32_fwd(const float* x, const BranchParamsF32& p, float* out, vo
   float *y2, *h;
   mlp_fwd_carve(c, M, D, F, &y2, &h);
   launch_ln(x, p.ln_s, p.ln_b, y2, M, D, st);
-  SSRL_TRY((gemm_f32<GEMM_NT, F_BIAS_GELU>(y2, p.wa, p.ba, nullptr, h, nullptr, M, F, D, st)));
-  return gemm_f32<GEMM_NT, F_BIAS_RESID>(h, p.wb, p.bb, x, out, nullptr, M, D, F, st);
+  SSRL_TRY(gemm_f32(ssrl::GEMM_NT, F_BIAS_GELU, y2, p.wa, p.ba, nullptr, h, nullptr, M, F, D,
+                    st));
+  return gemm_f32(ssrl::GEMM_NT, F_BIAS_RESID, h, p.wb, p.bb, x, out, nullptr, M, D, F, st);
 }
 
 size_t mlp_f32_bwd_workspace(int M, int D, int F) {
@@ -481,17 +369,19 @@ cudaError_t mlp_f32_bwd(const float* x, const BranchParamsF32& p, const float* g
   mlp_bwd_carve(c, M, D, F, &w);
   launch_ln(x, p.ln_s, p.ln_b, w.y2, M, D, st);
   // z = y2 W1^T + b1, h = gelu(z)
-  SSRL_TRY((gemm_f32<GEMM_NT, F_BIAS_GELU_Z>(w.y2, p.wa, p.ba, nullptr, w.h, w.z, M, F, D,
-                                            st)));
+  SSRL_TRY(gemm_f32(ssrl::GEMM_NT, F_BIAS_GELU_Z, w.y2, p.wa, p.ba, nullptr, w.h, w.z, M, F,
+                    D, st));
   // dW2 = g^T h; then dz = (g W2) o gelu'(z) over h's buffer
   SSRL_TRY(gemm_tn_f32(g, w.h, d.dwb, w.part, D, F, M, st));
   float* dz = w.h;
-  SSRL_TRY((gemm_f32<GEMM_NN, F_GELU_BWD>(g, p.wb, nullptr, w.z, dz, nullptr, M, F, D, st)));
+  SSRL_TRY(gemm_f32(ssrl::GEMM_NN, F_GELU_BWD, g, p.wb, nullptr, w.z, dz, nullptr, M, F, D,
+                    st));
   // dW1 = dz^T y2; db1 = colsum(dz); dy2 = dz W1
   SSRL_TRY(gemm_tn_f32(dz, w.y2, d.dwa, w.part, F, D, M, st));
   reduce_rows(dz, M, F, d.dba, w.tmp, st);
   SSRL_TRY(cudaGetLastError());
-  SSRL_TRY(gemm_f32<GEMM_NN>(dz, p.wa, nullptr, nullptr, w.dy2, nullptr, M, D, F, st));
+  SSRL_TRY(gemm_f32(ssrl::GEMM_NN, F_NONE, dz, p.wa, nullptr, nullptr, w.dy2, nullptr, M, D, F,
+                    st));
   return launch_ln_bwd_f32(x, p.ln_s, w.dy2, g, dx, d.dln3, w.part, w.tmp, M, D, st);
 }
 

@@ -62,6 +62,7 @@ LAUNCHES = {
     "block_fwd_nograd": 0,  # the same kernel for no-grad callers
     "block_bwd": 0,
     "gemm": 0,  # the GEMM alone (``gemm``), for its own checks; never on a step
+    "gemm_f32": 0,  # the f32 GEMM alone (``gemm`` at f32), likewise
     "attn_branch_fwd_f32": 0,  # csrc/branch_f32.cu: the f32 branches
     "attn_branch_fwd_nograd_f32": 0,
     "attn_branch_bwd_f32": 0,
@@ -216,19 +217,23 @@ def gemm_ref(a, b, layout: str, epi: str, bias=None, resid=None, z=None):
 
 
 def gemm(a, b, layout: str, epi: str, bias=None, resid=None, z=None):
-    """One product of the branch GEMM: the wgmma + TMA kernel of
-    ``csrc/gemm_sm90.cuh`` on CUDA tensors (through ``ssrl_gemm``, which
-    also sums the weight gradient's split-K partials and the GELU
-    backward's column sums), ``gemm_ref`` on CPU tensors; the same outputs
-    as ``gemm_ref``. The branch kernels run the same kernel from C++; this
-    entry is for checking it alone."""
+    """One product of the branch GEMM: on CUDA tensors the wgmma + TMA kernel
+    of ``csrc/gemm_sm90.cuh`` for bf16 operands (through ``ssrl_gemm``,
+    which also sums the weight gradient's split-K partials and the GELU
+    backward's column sums), the SIMT kernel of ``csrc/gemm_f32_simt.cuh``
+    for f32 ones (``gemm_f32``); ``gemm_ref`` on CPU tensors; the same
+    outputs as ``gemm_ref``. The branch kernels run the same kernels from
+    C++; this entry is for checking them alone."""
     if a.device.type == "cpu":
         return gemm_ref(a, b, layout, epi, bias, resid, z)
     M, N, K = _gemm_dims(a, b, layout)
     if epi not in GEMM_EPIS[layout]:
         raise ValueError(f"layout {layout!r} takes the epilogues {GEMM_EPIS[layout]}, not {epi!r}")
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return gemm_f32(a, b, layout, epi, bias, resid, z)
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"the GEMM takes bfloat16 operands, got {a.dtype}, {b.dtype}")
+        raise TypeError(f"the GEMM takes bfloat16 or float32 operands (both alike), got "
+                        f"{a.dtype}, {b.dtype}")
     if N % 8 or (layout != "tn" and K % 8) or (layout == "tn" and M % 8):
         raise ValueError(f"the GEMM takes N and the operands' row lengths in multiples of 8, "
                          f"got M={M} N={N} K={K} ({layout})")
@@ -261,6 +266,43 @@ def gemm(a, b, layout: str, epi: str, bias=None, resid=None, z=None):
         return c, zout
     if epi == "bias_gelu32":
         return c, zout32
+    if colsum is not None:
+        return c, colsum
+    return (c,)
+
+
+def gemm_f32(a, b, layout: str, epi: str, bias=None, resid=None, z=None):
+    """``gemm`` on f32 CUDA operands (C entry ``ssrl_gemm_f32``): every
+    epilogue of ``GEMM_EPIS`` read at f32, where its roundings are no-ops,
+    so the outputs are ``gemm_ref``'s at f32: (C,); (h, z) for bias_gelu
+    and bias_gelu32; (dz, its column sums) for gelu_bwd and gelu32_bwd.
+    Any M, N, K >= 1."""
+    M, N, K = _gemm_dims(a, b, layout)
+    if min(M, N, K) < 1:
+        raise ValueError(f"the f32 GEMM takes M, N, K >= 1, got M={M} N={N} K={K} ({layout})")
+    dev = a.device
+    a, b = a.contiguous(), b.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    c = torch.empty((M, N), **f32)
+    zout = colsum = zin = None
+    if epi in ("bias_gelu", "bias_gelu32"):
+        zout = torch.empty((M, N), **f32)
+    elif epi in ("gelu_bwd", "gelu32_bwd"):
+        zin, colsum = z.float().contiguous(), torch.empty((N,), **f32)
+    # only what the epilogue reads goes to the kernel
+    bias = bias.float().contiguous() if epi.startswith("bias") else None
+    resid = resid.float().contiguous() if epi == "bias_resid" else None
+    lib = _build.load()
+    ws = _workspace(lib.ssrl_gemm_f32_workspace(_LAYOUT_CODE[layout], M, N, K), a)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    LAUNCHES["gemm_f32"] += 1
+    _build.check(lib.ssrl_gemm_f32(
+        _LAYOUT_CODE[layout], _EPI_CODE[epi], a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        ptr(bias), ptr(resid), ptr(zin), ptr(zout), ptr(colsum), ws.data_ptr(), M, N, K,
+        _stream(a),
+    ), f"gemm_f32 {layout} {epi}")
+    if zout is not None:
+        return c, zout
     if colsum is not None:
         return c, colsum
     return (c,)

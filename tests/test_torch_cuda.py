@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-branch GEMM alone (every layout and epilogue against ``gemm_ref``), the
+branch GEMM alone (every layout and epilogue against ``gemm_ref``; at f32
+the SIMT GEMM of ``csrc/gemm_f32_simt.cuh`` at its tile edges), the
 two branch kernels and their f32 kernels (``csrc/branch_f32.cu``: the
 forwards held in f32 to 5e-5, the backwards to 1e-4 of each output's largest
 magnitude), the whole-block kernel of ``csrc/fused_block.cu``, the
@@ -462,12 +463,71 @@ def test_gemm_matches_plain(cuda, layout, epi, M, N, K):
 def test_gemm_refuses_what_it_does_not_take(cuda):
     a, b, ex = _gemm_operands("nt", 64, 16, 16, cuda)
     with pytest.raises(TypeError):
-        bf.gemm(a.float(), b.float(), "nt", "bias_bf16", bias=ex["bias"])
+        bf.gemm(a.half(), b.half(), "nt", "bias_bf16", bias=ex["bias"])
+    with pytest.raises(TypeError):
+        bf.gemm(a.float(), b, "nt", "bias_bf16", bias=ex["bias"])
+    with pytest.raises(ValueError, match="M, N, K >= 1"):
+        bf.gemm(a.float()[:, :0], b.float()[:, :0], "nt", "bias_bf16", bias=ex["bias"].float())
     with pytest.raises(ValueError, match="multiples of 8"):
         bf.gemm(a[:, :12].contiguous(), b[:, :12].contiguous(), "nt", "bias_bf16",
                 bias=ex["bias"])
     with pytest.raises(ValueError, match="epilogues"):
         bf.gemm(a, b, "nt", "f32")
+
+
+# ---------------------------------------------------------------------------
+# the f32 branch GEMM alone (csrc/gemm_f32_simt.cuh through ssrl_gemm_f32)
+# ---------------------------------------------------------------------------
+
+# the edges of its tiles: M around its 64- and 128-row blocks, N at the
+# block widths (48-192, and 432 = three 144-column blocks), K around its
+# 16-deep stages; each NT case with the GELU epilogue (h and z), each NN
+# case with the GELU backward (dz and its column sums)
+F32_EDGE_M = (1, 17, 127, 129)
+F32_EDGE_N = (48, 96, 144, 432)
+F32_EDGE_K = (48, 144, 768)
+F32_GEMM_CASES = (
+    [("nt", "bias_gelu", M, N, K) for M in F32_EDGE_M for N in F32_EDGE_N for K in F32_EDGE_K]
+    + [("nn", "gelu_bwd", M, N, K) for M in F32_EDGE_M for N in F32_EDGE_N for K in F32_EDGE_K]
+    # every other epilogue once
+    + [("nt", e, 129, 432, 144) for e in ("bias_bf16", "bias_resid", "bias_gelu32")]
+    + [("nn", e, 129, 432, 144) for e in ("f32", "bf16", "gelu32_bwd")]
+    # TN over a row count that no chunk divides, out as it is and
+    # transposed (the plan swaps A and B where that pads less), one row
+    + [("tn", "f32", M, N, K) for M, N, K in ((144, 576, 5003), (576, 144, 5003),
+                                              (432, 144, 28423), (96, 96, 111361),
+                                              (192, 768, 7777), (48, 48, 1))]
+    # rows that are not 16-byte aligned: 4-byte copies and scalar stores
+    + [("nt", "bias_resid", 77, 45, 45), ("nn", "gelu_bwd", 77, 45, 30),
+       ("tn", "f32", 17, 45, 333)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,epi,M,N,K", F32_GEMM_CASES)
+def test_gemm_f32_matches_plain(cuda, layout, epi, M, N, K):
+    """The f32 GEMM against ``gemm_ref`` at f32 (cuBLAS with TF32 off): the
+    forward products (NT) within 5e-5 on unit-scale operands, the gradient
+    products (NN, TN) within 1e-4 of the plain output's largest magnitude
+    (+1e-6): f32 sums in another order move them by ~1e-6, a tile or layout
+    fault by O(1); one launch; a second call the same bits."""
+    g = torch.Generator().manual_seed(M + N + K)
+    rn = lambda *s: torch.randn(*s, generator=g).to(cuda)  # noqa: E731
+    a = rn(K, M) if layout == "tn" else rn(M, K)
+    b = (rn(N, K) if layout == "nt" else rn(K, N)) * K**-0.5
+    ex = dict(bias=0.1 * rn(N), resid=rn(M, N), z=rn(M, N))
+    before = bf.LAUNCHES["gemm_f32"]
+    got = bf.gemm(a, b, layout, epi, **ex)
+    assert bf.LAUNCHES["gemm_f32"] == before + 1
+    want = bf.gemm_ref(a, b, layout, epi, **ex)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.float32 and x.shape == y.shape
+        lim = 5e-5 if layout == "nt" else 1e-4 * y.abs().max().item() + 1e-6
+        torch.testing.assert_close(x, y, atol=lim, rtol=0)
+    again = bf.gemm(a, b, layout, epi, **ex)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 # entry -> (kernel wrapper, plain version); each called as in _attention_run

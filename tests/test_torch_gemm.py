@@ -195,3 +195,94 @@ def test_gemm_refuses_what_it_does_not_take():
         bf.gemm_ref(a, b, "tt", "f32")
     with pytest.raises(ValueError, match="disagree"):
         bf.gemm_ref(a, b[:, :4], "nt", "bias_bf16", bias=ex["bias"])
+
+
+class _RecordingLib:
+    """A stand-in for the kernel library that records ``ssrl_gemm_f32``'s
+    arguments (the wrapper's marshalling, checked without a card)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ssrl_gemm_f32_workspace(self, layout, M, N, K):
+        return 256
+
+    def ssrl_gemm_f32(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_gemm_f32_dispatch_and_refusals(monkeypatch):
+    """At f32 every epilogue's rounding is a no-op: ``gemm_ref`` is the f32
+    product with its bias, GELU, GELU derivative or residual (held to an
+    f64 product), and ``gemm`` on CPU tensors is ``gemm_ref``. Off the CPU,
+    f32 operands go to ``ssrl_gemm_f32`` (meta tensors and a recording
+    library: the layout's and epilogue's codes, M, N, K, the buffers each
+    epilogue reads and writes, one launch counted) with ``gemm_ref``'s
+    outputs' shapes; the wrapper refuses float16, mixed dtypes, an
+    epilogue its layout does not take and an empty product, in words."""
+    M, N, K = 13, 24, 40
+    gelu = torch.nn.functional.gelu
+    rng = np.random.default_rng(3)
+    rn = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    for layout, epis in bf.GEMM_EPIS.items():
+        a = rn(K, M) if layout == "tn" else rn(M, K)
+        b = rn(N, K) if layout == "nt" else rn(K, N)
+        ex = {"bias": rn(N), "resid": rn(M, N), "z": rn(M, N)}
+        ad, bd = a.double(), b.double()
+        acc = ad @ bd.t() if layout == "nt" else (ad @ bd if layout == "nn" else ad.t() @ bd)
+        for epi in epis:
+            out = bf.gemm_ref(a, b, layout, epi, **ex)
+            pre = acc + ex["bias"].double()
+            zd = ex["z"].double()
+            dz = acc * (0.5 * (1 + torch.erf(zd / 2**0.5)) + zd * torch.exp(-zd * zd / 2)
+                        / (2 * np.pi) ** 0.5)
+            want = {"f32": (acc,), "bf16": (acc,), "bias_bf16": (pre,),
+                    "bias_resid": (ex["resid"].double() + pre,),
+                    "bias_gelu": (gelu(pre), pre), "bias_gelu32": (gelu(pre), pre),
+                    "gelu_bwd": (dz, dz.sum(0)), "gelu32_bwd": (dz, dz.sum(0))}[epi]
+            assert len(out) == len(want)
+            for got, w in zip(out, want):
+                assert got.dtype == torch.float32
+                torch.testing.assert_close(got.double(), w, rtol=1e-5, atol=1e-5)
+            for got, w in zip(bf.gemm(a, b, layout, epi, **ex), out):
+                assert torch.equal(got, w)
+
+    lib = _RecordingLib()
+    monkeypatch.setattr(bf._build, "load", lambda: lib)
+    monkeypatch.setattr(bf, "_stream", lambda x: 0)
+    meta = dict(dtype=torch.float32, device="meta")
+    codes = {"nt": 0, "nn": 1, "tn": 2}
+    for layout, epis in bf.GEMM_EPIS.items():
+        a = torch.empty((K, M) if layout == "tn" else (M, K), **meta)
+        b = torch.empty((N, K) if layout == "nt" else (K, N), **meta)
+        ex = {"bias": torch.empty(N, **meta), "resid": torch.empty(M, N, **meta),
+              "z": torch.empty(M, N, **meta)}
+        for epi in epis:
+            before = bf.LAUNCHES["gemm_f32"]
+            out = bf.gemm(a, b, layout, epi, **ex)
+            assert bf.LAUNCHES["gemm_f32"] == before + 1
+            args = lib.calls[-1]
+            assert args[:2] == (codes[layout], bf._EPI_CODE[epi]) and args[11:14] == (M, N, K)
+            # bias, R, Zin, Zout, colsum: given exactly where the epilogue uses them
+            present = tuple(p is not None for p in args[5:10])
+            gelu, gelu_bwd = epi.startswith("bias_gelu"), epi in ("gelu_bwd", "gelu32_bwd")
+            assert present == (epi.startswith("bias"), epi == "bias_resid", gelu_bwd, gelu,
+                               gelu_bwd), (layout, epi, present)
+            shapes = [tuple(t.shape) for t in out]
+            assert shapes == [(M, N)] + ([(M, N)] if gelu else [(N,)] if gelu_bwd else [])
+            assert all(t.dtype == torch.float32 for t in out)
+    a, b = torch.empty(M, K, **meta), torch.empty(N, K, **meta)
+    bias = torch.empty(N, **meta)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        bf.gemm(a.half(), b.half(), "nt", "bias_bf16", bias=bias)
+    with pytest.raises(TypeError, match="both alike"):
+        bf.gemm(a, b.bfloat16(), "nt", "bias_bf16", bias=bias)
+    with pytest.raises(ValueError, match="epilogues"):
+        bf.gemm(a, b, "nt", "f32")
+    with pytest.raises(ValueError, match="M, N, K >= 1"):
+        bf.gemm(a[:, :0], b[:, :0], "nt", "bias_bf16", bias=bias)
+    with pytest.raises(ValueError, match="disagree"):
+        bf.gemm(a, b[:, :4], "nt", "bias_bf16", bias=bias)
+    n_calls = len(lib.calls)
+    assert n_calls == sum(len(e) for e in bf.GEMM_EPIS.values())
