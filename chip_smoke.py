@@ -3,7 +3,8 @@
 pretraining steps, then the classifier stage and the engine under it, then
 the port's CLIs, then the lineage paths of the step and data parallelism,
 then the bench's steady-state mode (the step as a CUDA-graph replay), then
-checkpoint fidelity, then f32 training on every route.
+checkpoint fidelity, then f32 training on every route, then the
+tensor-parallel model axis.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -231,14 +232,20 @@ script itself; ``--dp-cards N`` on a host with
 N cards builds the kernels, runs phase 20 (b) with one process per card over
 ``nccl`` (then each rank's ms/step at B=768 a rank beside one card's) and
 (c) with N processes, and prints a ``{"dp_cards": ...}`` line before the
-last.
+last. ``--tp-worker DIR BACKEND MP check|timed`` is one rank of phase 25
+(b, c) in the (world / MP, MP) grid; ``--tp-cards N`` on a host with N
+cards builds the kernels and runs the flagship MAE, JEPA and full
+classifier steps (bf16, auto) at B=768 a data rank in the (N/2, 2) grid
+over ``nccl``, then in the (N, 1) grid, then on one card, and prints each
+rank's ms/step and device ms/step and the exact TP launches in a
+``{"tp_cards": ...}`` line before the last.
 
-Each main-path run (phases 4, 6-9, 11-15, 17-24) zeroes every launch count
+Each main-path run (phases 4, 6-9, 11-15, 17-25) zeroes every launch count
 just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
 
-The line before the last is ``{"kernels": [...]}`` (42 entries): per
+The line before the last is ``{"kernels": [...]}`` (56 entries): per
 kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
 ``step`` (the MAE step where it runs the kernel, else the JEPA step),
 ``*_jepa`` the same per JEPA step, ``*_classifier`` per full fine-tune
@@ -294,12 +301,21 @@ from ssrl_vit_mae_jepa_torch.data.loaders import (
 )
 from ssrl_vit_mae_jepa_torch.data.pipeline import HostLoader, device_prefetch
 from ssrl_vit_mae_jepa_torch.data.stl10 import write_synthetic_stl10
-from ssrl_vit_mae_jepa_torch.parallel.mesh import broadcast_from, get_data_axis
+from ssrl_vit_mae_jepa_torch.parallel.mesh import (
+    ShardSpec,
+    broadcast_from,
+    gather_params,
+    get_data_axis,
+    get_mesh,
+    shard_index,
+    shard_spec,
+)
 from ssrl_vit_mae_jepa_torch.parallel.multihost import maybe_initialize_distributed
 from ssrl_vit_mae_jepa_torch.runtime.native import native_available
 from ssrl_vit_mae_jepa_torch.training.jepa_task import JEPATask
 from ssrl_vit_mae_jepa_torch.training.tasks import ClassifierTask, MAETask
 from ssrl_vit_mae_jepa_torch.training.trainer import Trainer
+from ssrl_vit_mae_jepa_torch.utils.checkpoint import load_checkpoint, model_state, restore_state
 from ssrl_vit_mae_jepa_torch.utils.flops import task_flops_per_image
 from ssrl_vit_mae_jepa_torch.utils.load import (
     classifier_params_from_checkpoint,
@@ -3630,6 +3646,558 @@ def f32_stack_routes(cfg: dict, name: str):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the tensor-parallel model axis (Megatron-sharded blocks on the
+# branch kernels over a (data, model) grid), and --tp-cards
+# ---------------------------------------------------------------------------
+
+TP = 2  # the model axis of phase 25 and of --tp-cards
+# (a): each TP entry at the shard widths of model_parallel=2 (Da = 3 heads,
+# F/2), per call at these geometries; per rank and MAE step at the encoder
+# and decoder ("<geo>_mlp": the MLP branch's finish and LN backward), the
+# no-grad attention forward per JEPA step at the target encoder's
+TP_GEOS = ("enc", "dec", "pred", "tgt")
+TP_STEP_CALLS = {"mae": {"enc": 4, "dec": 2, "enc_mlp": 4, "dec_mlp": 2}}
+TP_NOGRAD_CALLS = {"jepa": {"tgt": 4}}
+# TP entry -> (bf16 source, the TPU kernel whose function it splits): the
+# finish is the bias-residual epilogue of _ab_fwd / _mb_fwd, the LN backward
+# the last stage of _ab_bwd / _mb_bwd
+TP_KERNELS = {
+    "attn_branch_part_fwd": ("attn_branch.cu", _TPU + "block_pallas.py:722"),
+    "attn_branch_part_fwd_nograd": ("attn_branch.cu", _TPU + "block_pallas.py:692"),
+    "attn_branch_part_bwd": ("attn_branch.cu", _TPU + "block_pallas.py:752"),
+    "mlp_branch_part_fwd": ("mlp_branch.cu", _TPU + "block_pallas.py:807"),
+    "mlp_branch_part_bwd": ("mlp_branch.cu", _TPU + "block_pallas.py:831"),
+    "branch_finish": ("attn_branch.cu", _TPU + "block_pallas.py:722"),
+    "branch_ln_bwd": ("attn_branch.cu", _TPU + "block_pallas.py:752"),
+}
+TP_TASKS = ("mae", "jepa", "cls_full", "cls_probe")
+TP_B = 16  # (b): the steps against the single process
+TP_TIMING = {"iters": 10, "warmup": 2}
+# (c): the fit's synthetic STL-10 (train, test, unlabeled) and its schedule:
+# two epochs over a mask ramp, 32 train and 8 val images at B=16
+TP_FIT_DATA = (10, 10, 40)
+TP_FIT_CFG = {**PRE_CFG, "batch_size": TP_B, "mask_ratio_start": 0.5, "mask_ratio_end": 0.75,
+              "mask_ramp_epochs": 2, "total_epochs": 2, "warmup_epochs": 1, "val_split": 0.2,
+              "num_workers": 0}
+
+
+def tp_launches(kind: str) -> dict:
+    """One rank's TP launches per step of ``kind``: per block with a
+    gradient the two partial forwards and backwards, two finishes and two
+    LN backwards; per no-grad block (the JEPA target, the frozen encoder)
+    the no-stash attention forward, the MLP forward and two finishes."""
+    grad, nograd = {"mae": (6, 0), "jepa": (6, 4), "cls_full": (4, 0),
+                    "cls_probe": (0, 4)}[kind]
+    out = {"attn_branch_part_fwd": grad, "attn_branch_part_fwd_nograd": nograd,
+           "attn_branch_part_bwd": grad, "mlp_branch_part_fwd": grad + nograd,
+           "mlp_branch_part_bwd": grad, "branch_finish": 2 * (grad + nograd),
+           "branch_ln_bwd": 2 * grad}
+    return {k: v for k, v in out.items() if v}
+
+
+def tp_operands(kind: str, params, m: int, mp: int = TP):
+    """Model rank m's five partial-kernel operands of a branch's full
+    params (ln_s, ln_b, wa, ba, wb, bb): parallel/mesh.py's layout."""
+    D = params[0].shape[0]
+    dev = params[0].device
+    if kind == "attn":
+        rows = shard_index(ShardSpec(0, 3), 3 * D, mp, m).to(dev)
+        cols = shard_index(ShardSpec(1), D, mp, m).to(dev)
+        return (params[0], params[1], params[2][rows], params[3][rows], params[4][:, cols])
+    fs = shard_index(ShardSpec(0), params[2].shape[0], mp, m).to(dev)
+    return (params[0], params[1], params[2][fs], params[3][fs], params[4][:, fs])
+
+
+def tp_bounds(kind: str, L: int, D: int, w: int, dtype, stash: bool = True) -> dict:
+    """Per-call bounds of one shard's TP entries at (BATCH, L, D), ``w`` the
+    shard's attention width Da or hidden slice F/mp: inputs read once,
+    outputs written once (the partial sums and dy in f32), weights once
+    (their f32 gradients written once), and the products the function
+    needs (the backward recomputes the first product from x); at f32 the
+    operations at the f32 CUDA-core rate."""
+    M, e = BATCH * L, (4 if dtype == torch.float32 else 2)
+    bnd = bound_f32 if dtype == torch.float32 else bound
+    act, f32 = M * D * e, M * D * 4
+    if kind == "attn":
+        wts, att = 4 * w * D, BATCH * L * L * w
+        fwd = bnd(act + f32 + (M * w * e if stash else 0) + wts * e, 8 * M * D * w + 4 * att)
+        bwd = bnd(2 * act + M * w * e + f32 + wts * (e + 4), 22 * M * D * w + 10 * att)
+    else:
+        wts = 2 * w * D
+        fwd = bnd(act + f32 + wts * e, 4 * M * D * w)
+        bwd = bnd(2 * act + f32 + wts * (e + 4), 10 * M * D * w)
+    return {"fwd": fwd, "bwd": bwd, "finish": bnd(2 * act + f32, 2 * M * D),
+            "ln_bwd": bnd(3 * act + f32, 12 * M * D)}
+
+
+def tp_entry(per: dict, errs: dict, key: str, geo: str, times: tuple, bnd: tuple,
+             err: float) -> None:
+    per.setdefault(key, {})[geo] = {"ms": times[0], "plain_ms": times[1], "bound_ms": bnd[0],
+                                    "bound_by": bnd[1]}
+    errs[key] = max(errs.get(key, 0.0), err)
+
+
+def tp_close(what: str, got, want, rel: float) -> float:
+    """max |got - want| within ``rel`` of want's largest magnitude."""
+    err = (got.float() - want.float()).abs().max().item()
+    lim = rel * want.float().abs().max().item() + 1e-6
+    if not err <= lim:
+        fail(f"{what}: max abs err {err:.3e} > {lim:.3e}")
+    return err
+
+
+def check_tp_kernels(dtype) -> dict:
+    """Phase 25 (a) at ``dtype``: at each geometry of TP_GEOS both shards of
+    each branch through the partial kernels against their plain versions
+    (forward within FWD_ATOL / F32_ATOL, the no-stash forward the same
+    bits; each backward output within BWD_REL / F32_BWD_REL of its largest
+    magnitude, fed the kernel's own stash), the finish and the LN backward
+    on the shards' sums against theirs, and the whole: the finished sum
+    against the unsplit branch kernel's forward, the LN backward's dx
+    against its backward. Times per call of rank 0's shard."""
+    f32 = dtype == torch.float32
+    fwd_tol, bwd_rel = (F32_ATOL, F32_BWD_REL) if f32 else (FWD_ATOL, BWD_REL)
+    per, errs = {}, {}
+    t = TP_TIMING
+    for geo in TP_GEOS:
+        L, D, H = GEOMETRIES[geo]
+        grad = geo != "tgt"
+        for kind in ("attn", "mlp"):
+            x, dy, params = branch_inputs(kind, L, D, seed=L + D + 1, dtype=dtype)
+            hl = H // TP
+            w = (D if kind == "attn" else 4 * D) // TP
+            key = f"{geo}" if kind == "attn" else f"{geo}_mlp"
+            what = f"{kind}@{geo} {DT_NAME[dtype]} shard"
+            bnds = tp_bounds(kind, L, D, w, dtype, stash=grad)
+            s = dys = 0
+            for m in range(TP):
+                p = tp_operands(kind, params, m)
+                if kind == "attn":
+                    part, a = bf.attn_branch_partial(x, p, hl, stash=True)
+                    part_ns, _ = bf.attn_branch_partial(x, p, hl, stash=False)
+                    ref, _ = bf.attn_part_plain(x, p, hl)
+                    if not torch.equal(part_ns, part):
+                        fail(f"{what} {m}: the no-stash forward differs from the stash one")
+                else:
+                    part = bf.mlp_branch_partial(x, p)
+                    ref = bf.mlp_part_plain(x, p)
+                ferr = (part - ref).abs().max().item()
+                if not ferr <= fwd_tol:
+                    fail(f"{what} {m} partial forward: max abs err {ferr} > {fwd_tol}")
+                s = s + part
+                if grad:
+                    if kind == "attn":
+                        dy1, gk = bf.attn_branch_partial_bwd(x, p, a, dy, hl)
+                        dy1_r, gr = bf.attn_part_bwd_plain(x, p, a, dy, hl)
+                    else:
+                        dy1, gk = bf.mlp_branch_partial_bwd(x, p, dy)
+                        dy1_r, gr = bf.mlp_part_bwd_plain(x, p, dy)
+                    berr = max(tp_close(f"{what} {m} backward {n}", k, r, bwd_rel)
+                               for n, k, r in zip(("dy", "dw_a", "db_a", "dw_b"),
+                                                  (dy1, *gk), (dy1_r, *gr)))
+                    dys = dys + dy1
+                if m:
+                    continue
+                if kind == "attn":  # rank 0's shard: times per call
+                    with torch.no_grad():
+                        tp_entry(per, errs, f"attn_branch_part_fwd{'' if grad else '_nograd'}",
+                                 geo, (cuda_ms(lambda: bf.attn_branch_partial(x, p, hl, grad),
+                                               **t),
+                                       cuda_ms(lambda: bf.attn_part_plain(x, p, hl), **t)),
+                                 bnds["fwd"], ferr)
+                    if grad:
+                        tp_entry(per, errs, "attn_branch_part_bwd", geo, (
+                            cuda_ms(lambda: bf.attn_branch_partial_bwd(x, p, a, dy, hl), **t),
+                            cuda_ms(lambda: bf.attn_part_bwd_plain(x, p, a, dy, hl), **t)),
+                            bnds["bwd"], berr)
+                else:
+                    tp_entry(per, errs, "mlp_branch_part_fwd", key, (
+                        cuda_ms(lambda: bf.mlp_branch_partial(x, p), **t),
+                        cuda_ms(lambda: bf.mlp_part_plain(x, p), **t)), bnds["fwd"], ferr)
+                    if grad:
+                        tp_entry(per, errs, "mlp_branch_part_bwd", key, (
+                            cuda_ms(lambda: bf.mlp_branch_partial_bwd(x, p, dy), **t),
+                            cuda_ms(lambda: bf.mlp_part_bwd_plain(x, p, dy), **t)),
+                            bnds["bwd"], berr)
+            bias = params[5]
+            out = bf.branch_finish(x, s, bias)
+            out_r = bf.branch_finish_plain(x, s, bias)
+            err = (out.float() - out_r.float()).abs().max().item()
+            if not err <= fwd_tol:
+                fail(f"{what}: finish max abs err {err} > {fwd_tol}")
+            tp_entry(per, errs, "branch_finish", key, (
+                cuda_ms(lambda: bf.branch_finish(x, s, bias), **t),
+                cuda_ms(lambda: bf.branch_finish_plain(x, s, bias), **t)), bnds["finish"], err)
+            full_fn = bf.fused_attn_branch if kind == "attn" else bf.fused_mlp_branch
+            extra = (H,) if kind == "attn" else ()
+            leaves = [x.clone().requires_grad_(grad)] + [q.clone().requires_grad_(grad)
+                                                       for q in params]
+            whole = full_fn(*leaves, *extra)
+            werr = (whole.float() - out.float()).abs().max().item()
+            if not werr <= fwd_tol:
+                fail(f"{what}: the finished shards vs the whole branch: {werr} > {fwd_tol}")
+            line = (f"  {kind}@{geo} {DT_NAME[dtype]} L={L} D={D} shard width {w}: partial "
+                    f"forward err {ferr:.3e}, finish err {err:.3e}, the whole branch within "
+                    f"{werr:.3e}")
+            if grad:
+                dx, dln = bf.branch_ln_bwd(x, params[0], dys, dy)
+                dx_r, dln_r = bf.ln_bwd_plain(x, params[0], dys, dy)
+                lerr = max(tp_close(f"{what} LN backward {n}", k, r, bwd_rel)
+                           for n, k, r in zip(("dx", "d_ln_s", "d_ln_b", "d_bias"),
+                                              (dx, *dln), (dx_r, *dln_r)))
+                tp_entry(per, errs, "branch_ln_bwd", key, (
+                    cuda_ms(lambda: bf.branch_ln_bwd(x, params[0], dys, dy), **t),
+                    cuda_ms(lambda: bf.ln_bwd_plain(x, params[0], dys, dy), **t)),
+                    bnds["ln_bwd"], lerr)
+                gw = torch.autograd.grad(whole, leaves, dy)
+                wbe = tp_close(f"{what}: dx of the shards vs the whole branch", dx, gw[0],
+                               bwd_rel)
+                for n, k, r in (("d_ln_s", dln[0], gw[1]), ("d_ln_b", dln[1], gw[2]),
+                                ("d_bias", dln[2], gw[6])):
+                    wbe = max(wbe, tp_close(f"{what}: {n} of the shards vs the whole branch",
+                                            k, r, bwd_rel))
+                line += f"; backward err {berr:.3e}, LN backward {lerr:.3e}, whole {wbe:.3e}"
+            print(line, flush=True)
+            del x, dy, params, leaves, whole
+    out = {}
+    for k, v in per.items():
+        calls = TP_NOGRAD_CALLS if k == "attn_branch_part_fwd_nograd" else TP_STEP_CALLS
+        out[bf.dtype_key(dtype, k)] = summarize(v, errs[k], calls)
+        line = ", ".join(f"{g} {d['ms']:.3f} ms (plain {d['plain_ms']:.3f}, bound "
+                         f"{d['bound_ms']:.4f})" for g, d in v.items())
+        print(f"  {bf.dtype_key(dtype, k)} per call: {line}", flush=True)
+    return out
+
+
+def tp_task(kind: str, cfg: dict, dtype, batch: int):
+    """The flagship MAE, JEPA or classifier task (auto) at ``batch`` rows."""
+    model = cfg["model"]
+    if kind == "mae":
+        return MAETask(model, {**PRE_CFG, "batch_size": batch}, dtype=dtype, device="cuda")
+    if kind == "jepa":
+        return JEPATask(model, {**cfg["jepa"], "batch_size": batch}, dtype=dtype,
+                        device="cuda")
+    policy = "full" if kind == "cls_full" else "probe"
+    return classifier_task(model, {**cfg["train"], "batch_size": batch}, policy, "cuda",
+                           dtype=dtype)
+
+
+def tp_check_worker(grid, out_dir: pathlib.Path, cfg: dict) -> dict:
+    """Phase 25 (b) on this rank: its data rank's rows of a B=TP_B step of
+    each task at bf16 and f32 on its shards; the gradients gathered, the
+    launches of the gradients and of a whole train step, and its copies of
+    the replicated params after it; then (c) the fit."""
+    out = {}
+    b = TP_B // grid.data.size
+    full = flagship_images(n=TP_B)
+    rows = slice(grid.data.rank * b, (grid.data.rank + 1) * b)
+    batch = {k: v[rows] for k, v in full.items()}
+    for dtype in (torch.bfloat16, torch.float32):
+        for kind in TP_TASKS:
+            task = tp_task(kind, cfg, dtype, TP_B)
+            task.configure_sharding(grid)
+            state = task.init_state(0)
+            ctx = task.epoch_context(0)
+            reset_counts()
+            names, grads, sums = task.gradients(state, batch, ctx)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            state, _ = task.train_step(state, batch, 0, ctx)
+            torch.cuda.synchronize()
+            full_grads = gather_params(dict(zip(names, grads)), grid.model)
+            out[(kind, DT_NAME[dtype])] = {
+                "names": names, "grads": {k: v.float().cpu() for k, v in full_grads.items()},
+                "sums": {k: float(v) for k, v in sums.items()}, "launches": launches,
+                "launches_with_step": launch_counts(),
+                "replicated": {k: v.detach().cpu() for k, v in state.params.items()
+                               if shard_spec(k) is None}}
+            del task, state
+    out["fit"] = tp_fit(grid, out_dir)
+    return out
+
+
+def tp_fit(grid, out_dir: pathlib.Path) -> dict:
+    """Phase 25 (c) on this rank: the flagship MAE over the grid, one epoch
+    then a resume to the second, beside two epochs straight, over an active
+    mask ramp on a synthetic STL-10; the gathered state at the checkpoint
+    the resume starts from, and at the end of both runs."""
+    cfg = {"seed": 73, "pretrain": TP_FIT_CFG}
+    model = load_config(REPO / "configs" / "mae.yaml")["model"]
+    train, val = get_pretrain_dataloaders(cfg, out_dir / "data")
+    reset_counts()
+
+    def run(epochs, name, **kw):
+        task = MAETask(model, TP_FIT_CFG, dtype=torch.bfloat16, device="cuda")
+        tr = Trainer(task, epochs, out_dir / name, mesh=grid)
+        metrics = tr.fit(train, val, **kw)
+        return tr, metrics
+
+    a, _ = run(1, "run_a")
+    names = a.task.tx.trainable(a.state.params)
+    opt = a.state.opt_state
+    first = {k: {n: v.detach().cpu() for n, v in gather_params(d, grid.model).items()}
+             for k, d in (("params", a.state.params), ("mu", dict(zip(names, opt.mu))),
+                          ("nu", dict(zip(names, opt.nu))))}
+    b, _ = run(2, "run_b", resume_from=out_dir / "run_a" / "checkpoints" / "last.ckpt")
+    c, metrics = run(2, "run_c")
+    torch.cuda.synchronize()
+    return {"first": first, "launches": launch_counts(), "steps": len(train),
+            "resumed": {k: v.detach().cpu() for k, v in
+                        gather_params(b.state.params, grid.model).items()},
+            "straight": {k: v.detach().cpu() for k, v in
+                         gather_params(c.state.params, grid.model).items()},
+            "metrics": metrics, "mask_ratios": [a.task.host_epoch_metrics(e)["mask_ratio"]
+                                                for e in range(2)]}
+
+
+def tp_timed_worker(grid, cfg: dict) -> dict:
+    """One rank of ``--tp-cards``: the flagship MAE, JEPA and full classifier
+    steps at BATCH rows a data rank (bf16, auto) on this rank's card:
+    CUDA-event ms/step over STEPS steps after WARMUP, the launches of those
+    steps, and the device ms/step of 3 more under torch.profiler (one
+    session on every rank, so the ranks stay in step; None where it
+    recorded no device time)."""
+    out = {}
+    batch = flagship_images()
+    for kind in ("mae", "jepa", "cls_full"):
+        task = tp_task(kind, cfg, torch.bfloat16, BATCH * grid.shape["data"])
+        task.configure_sharding(grid)
+        state = task.init_state(0)
+        ctx = task.epoch_context(0)
+        for _ in range(WARMUP):
+            state, sums = task.train_step(state, batch, 0, ctx)
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(STEPS):
+            state, sums = task.train_step(state, batch, 0, ctx)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / STEPS
+        launches = launch_counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                state, sums = task.train_step(state, batch, 0, ctx)
+            torch.cuda.synchronize()
+        dev = sum(device_us(e) for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 3e3
+        out[kind] = {"ms": ms, "device_ms": dev or None, "launches": launches,
+                     "loss": float(sums["loss_sum"]) / float(sums["weight_sum"])}
+        del task, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(out_dir: pathlib.Path, backend: str, mp: int, mode: str) -> None:
+    """One rank of phase 25 (b, c) (``mode`` "check", two ranks sharing the
+    card over ``gloo``) or of ``--tp-cards`` ("timed", one rank a card over
+    ``nccl``; ``mp`` 1 is the data-parallel comparison), a process of its
+    own in the (world / mp, mp) grid of ``parallel/mesh.py::get_mesh``."""
+    if not maybe_initialize_distributed("cuda", backend=backend):
+        fail("tp worker: no process group in the environment")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    grid = get_mesh(model_parallel=mp)
+    cfg = load_config(REPO / "configs" / "mae.yaml")
+    if mode == "check":
+        old = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        out = tp_check_worker(grid, out_dir, cfg)
+        torch.use_deterministic_algorithms(old)
+    else:
+        out = tp_timed_worker(grid, cfg)
+    out["grid"] = (grid.shape["data"], grid.shape["model"])
+    torch.save(out, out_dir / f"rank{torch.distributed.get_rank()}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def tp_spawn(tmp: pathlib.Path, ranks: int, backend: str, mp: int, mode: str,
+             shared_card: bool) -> list:
+    """The ranks of ``tp_worker``, run to their end; their results."""
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--tp-worker", str(tmp), backend,
+         str(mp), mode], cwd=REPO,
+        env={**os.environ, "RANK": str(r), "WORLD_SIZE": str(ranks),
+             "LOCAL_RANK": "0" if shared_card else str(r),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(ranks)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"tp rank {r} exited {p.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+    print(f"  {ranks} {backend} ranks in a ({ranks // mp}, {mp}) grid: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(ranks)]
+
+
+def tp_steps(cfg: dict) -> dict:
+    """Phase 25 (b) and (c): two ranks sharing the card over ``gloo`` in a
+    (1, 2) grid (``--tp-worker``). (b) each task's B=TP_B step at bf16 and
+    f32 against this process's single step from the same seed: the loss
+    within the phase-20 bounds (LOSS_RTOL, F32_LOSS_RTOL), every gathered
+    gradient within STEP_GRAD_REL / F32_BWD_REL of the single one's largest
+    magnitude, exact TP launches per step on each rank, and the replicated
+    params the same bits on both ranks after the step; (c) the fit's
+    checkpoint holds the gathered params and Adam moments, loads in this
+    process and takes a step there, and the resume equals two epochs
+    straight bit for bit. Returns the ranks' launches."""
+    import tempfile
+
+    launches = dict.fromkeys(launch_counts(), 0)
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = pathlib.Path(tmp)
+        write_synthetic_stl10(tmp / "data", *TP_FIT_DATA, seed=0)
+        ranks = tp_spawn(tmp, TP, "gloo", TP, "check", shared_card=True)
+        for (kind, dt), _ in [kv for kv in ranks[0].items() if isinstance(kv[0], tuple)]:
+            dtype = torch.float32 if dt == "f32" else torch.bfloat16
+            loss_rtol, grad_rel = step_tolerances(dtype)
+            task = tp_task(kind, cfg, dtype, TP_B)
+            state = task.init_state(0)
+            names, grads, sums = task.gradients(state, flagship_images(n=TP_B),
+                                                task.epoch_context(0))
+            want = launch_names(tp_launches(kind), dtype)
+            for r, rk in enumerate(x[(kind, dt)] for x in ranks):
+                what = f"{kind} {dt} model rank {r} of {TP}"
+                if (rk["launches"] != expected(want)
+                        or rk["launches_with_step"] != expected(want, 2)):
+                    fail(f"{what}: launches {nonzero(rk['launches'])} (then "
+                         f"{nonzero(rk['launches_with_step'])}), expected {want} per step")
+                for k, v in rk["launches_with_step"].items():
+                    launches[k] += v
+                if rk["names"] != names:
+                    fail(f"{what}: trains {rk['names'][:4]}..., the single step {names[:4]}...")
+                loss, want_loss = rk["sums"]["loss_sum"], float(sums["loss_sum"])
+                if not abs(loss - want_loss) <= loss_rtol * abs(want_loss):
+                    fail(f"{what}: loss sum {loss} vs {want_loss} (rtol {loss_rtol})")
+                worst = max(tp_close(f"{what} gradient {k}", rk["grads"][k], g.float().cpu(),
+                                     grad_rel) / (grad_rel * g.float().abs().max().item() + 1e-6)
+                            for k, g in zip(names, grads))
+                print(f"  {what}: loss sum {loss:.6f} (single {want_loss:.6f}); {len(names)} "
+                      f"gradients, the worst at {worst:.3f} of its bound", flush=True)
+            rep = [k for k, v in ranks[0][(kind, dt)]["replicated"].items()
+                   if not torch.equal(v, ranks[1][(kind, dt)]["replicated"][k])]
+            if rep:
+                fail(f"{kind} {dt}: replicated params differ between the model ranks: {rep[:4]}")
+            del task, state
+        fits = [x["fit"] for x in ranks]
+        for r, f in enumerate(fits):
+            diff = [k for k, v in f["straight"].items() if not torch.equal(f["resumed"][k], v)]
+            if diff:
+                fail(f"fit model rank {r}: the resume differs from two epochs straight in "
+                     f"{diff[:4]}")
+            for k, v in f["launches"].items():
+                launches[k] += v
+        first = fits[0]["first"]
+        ckpt = load_checkpoint(tmp / "run_a" / "checkpoints" / "last.ckpt")
+        st = model_state(ckpt)
+        diff = [k for k, v in first["params"].items() if not torch.equal(st[k], v)]
+        diff += [f"{m}:{k}" for m in ("mu", "nu") for k, v in first[m].items()
+                 if not torch.equal(ckpt["optimizer"][m][k], v)]
+        if diff:
+            fail(f"the (1, {TP}) checkpoint differs from the gathered state in {diff[:4]}")
+        task = MAETask(cfg["model"], TP_FIT_CFG, dtype=torch.bfloat16, device="cuda")
+        state = restore_state(ckpt, task.init_state(0), task.model, task.tx)
+        diff = [k for k, v in first["params"].items()
+                if not torch.equal(state.params[k].detach().cpu(), v)]
+        if diff:
+            fail(f"the (1, {TP}) checkpoint loaded in one process differs in {diff[:4]}")
+        batch = flagship_images(n=TP_B)
+        state, sums = task.train_step(state, batch, 1, task.epoch_context(1))
+        loss = float(sums["loss_sum"]) / TP_B
+        print(f"  fit: {fits[0]['steps']} steps an epoch, mask ratio "
+              f"{fits[0]['mask_ratios']}, val loss {fits[0]['metrics']['val_loss']:.5f}; the "
+              f"resume equals two epochs straight on both ranks; the checkpoint holds "
+              f"{len(first['params'])} full params and {len(first['mu'])} + {len(first['nu'])} "
+              f"moments, the gathered ones, and loads in one process (a step there: loss "
+              f"{loss:.5f})", flush=True)
+        if not math.isfinite(loss):
+            fail(f"a step from the (1, {TP}) checkpoint in one process: loss {loss}")
+    return launches
+
+
+def tensor_parallel(cfg: dict):
+    """Phase 25: (a) at bf16 and f32, then (b) and (c); returns the kernel
+    results and the launches."""
+    res = check_tp_kernels(torch.bfloat16)
+    res.update(check_tp_kernels(torch.float32))
+    return res, tp_steps(cfg)
+
+
+def tp_cards(n: int) -> None:
+    """``python3 chip_smoke.py --tp-cards N`` on a host with N cards: the
+    build, then the flagship MAE, JEPA and full classifier steps (bf16,
+    auto) at BATCH rows a data rank in the (N/2, 2) grid over ``nccl``, one
+    process a card; beside them the same over N data ranks (``--dp-cards``'
+    grid) and one card: each rank's ms/step and device ms/step, and exact
+    TP launches per step; a ``{"tp_cards": ...}`` line before the last."""
+    import tempfile
+
+    if torch.cuda.device_count() < n or n % TP:
+        fail(f"--tp-cards {n}: {torch.cuda.device_count()} cards, model axis {TP}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"cards: {card()} x {torch.cuda.device_count()}", flush=True)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = load_config(REPO / "configs" / "mae.yaml")
+    scratch = REPO / "build"
+    scratch.mkdir(exist_ok=True)
+    result = {}
+    for name, mp in (("tp", TP), ("dp", 1)):
+        with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+            ranks = tp_spawn(pathlib.Path(tmp), n, "nccl", mp, "timed", shared_card=False)
+        result[name] = {"grid": ranks[0]["grid"]}
+        for kind in ("mae", "jepa", "cls_full"):
+            rk = [x[kind] for x in ranks]
+            if mp > 1:
+                want = expected(tp_launches(kind), STEPS)
+                bad = [r for r, x in enumerate(rk) if x["launches"] != want]
+                if bad:
+                    fail(f"--tp-cards {kind}: ranks {bad} launched "
+                         f"{nonzero(rk[bad[0]]['launches'])}, expected {tp_launches(kind)} "
+                         f"a step")
+            result[name][kind] = {"ms_per_rank": [x["ms"] for x in rk],
+                                  "device_ms_per_rank": [x["device_ms"] for x in rk],
+                                  "loss": rk[0]["loss"]}
+    result["one_card"] = {}
+    for kind in ("mae", "jepa", "cls_full"):
+        task = tp_task(kind, cfg, torch.bfloat16, BATCH)
+        state = task.init_state(0)
+        batch, ctx = flagship_images(), task.epoch_context(0)
+        ms = single_ms(task)
+        dev = device_ms(lambda: task.train_step(state, batch, 0, ctx), iters=3)
+        result["one_card"][kind] = {"ms": ms, "device_ms": dev}
+        del task, state
+        torch.cuda.empty_cache()
+    for kind in ("mae", "jepa", "cls_full"):
+        tp_, dp_, one = (result[g][kind] for g in ("tp", "dp", "one_card"))
+        print(f"  {kind} at B={BATCH} a data rank: ({n // TP}, {TP}) grid "
+              f"{max(tp_['ms_per_rank']):.3f} ms/step (slowest rank; device "
+              f"{tp_['device_ms_per_rank']}), ({n}, 1) grid {max(dp_['ms_per_rank']):.3f} "
+              f"(device {dp_['device_ms_per_rank']}), one card {one['ms']:.3f} (device "
+              f"{one['device_ms']:.3f})", flush=True)
+    print(json.dumps({"tp_cards": result, "card": card()}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 @contextlib.contextmanager
 def timed_phase(times: dict, key: str, title: str):
     """Print the phase's title, run it, then print its wall time and keep it
@@ -3748,6 +4316,12 @@ def main() -> None:
         f32_res, counts = f32_stack_routes(cfg, name)
         res.update(f32_res)
         add(counts)
+    with timed_phase(times, "25", "the tensor-parallel model axis: the TP entries at the shard "
+                     "widths, two ranks in a (1, 2) grid against one process, a fit with a "
+                     "checkpoint and a resume"):
+        tp_res, counts = tensor_parallel(cfg)
+        res.update(tp_res)
+        add(counts)
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]
@@ -3770,6 +4344,10 @@ def main() -> None:
     rows += [(f"{k}_f32", f"ssrl_vit_mae_jepa_torch/csrc/{src}",
               {**BLOCK_KERNELS, **CHAIN_KERNELS, **EMBED_KERNELS}[k])
              for k, src in F32_STACK_SOURCES.items()]
+    rows += [(bf.dtype_key(dt, k), "ssrl_vit_mae_jepa_torch/csrc/"
+              + (src if dt == torch.bfloat16 else "branch_f32.cu"), replaces)
+             for dt in (torch.bfloat16, torch.float32)
+             for k, (src, replaces) in TP_KERNELS.items()]
     kernels = []
     for k, src, replaces in rows:
         r = res[k]
@@ -3799,5 +4377,9 @@ if __name__ == "__main__":
         f32_kernels_main(sys.argv[2], pathlib.Path(sys.argv[3]))
     elif sys.argv[1:2] == ["--dp-cards"]:
         dp_cards(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(pathlib.Path(sys.argv[2]), sys.argv[3], int(sys.argv[4]), sys.argv[5])
+    elif sys.argv[1:2] == ["--tp-cards"]:
+        tp_cards(int(sys.argv[2]))
     else:
         main()

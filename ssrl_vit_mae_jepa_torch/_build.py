@@ -40,6 +40,20 @@ _SIGNATURES = {
     "ssrl_mlp_branch_fwd": (_I, [_P] * 9 + [_I] * 3 + [_P]),
     "ssrl_mlp_branch_bwd_workspace": (_LL, [_I] * 3),
     "ssrl_mlp_branch_bwd": (_I, [_P] * 13 + [_I] * 3 + [_P]),
+    # the branches split over a model axis (csrc/attn_branch.cu,
+    # csrc/mlp_branch.cu, csrc/branch_f32.cu): B, L, D, Da[, stash] / M, D, F
+    "ssrl_attn_branch_part_fwd_workspace": (_LL, [_I] * 5),
+    "ssrl_attn_branch_part_fwd": (_I, [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "ssrl_attn_branch_part_bwd_workspace": (_LL, [_I] * 4),
+    "ssrl_attn_branch_part_bwd": (_I, [_P] * 13 + [_I] * 5 + [_F, _P]),
+    "ssrl_mlp_branch_part_fwd_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_branch_part_fwd": (_I, [_P] * 8 + [_I] * 3 + [_P]),
+    "ssrl_mlp_branch_part_bwd_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_branch_part_bwd": (_I, [_P] * 12 + [_I] * 3 + [_P]),
+    # x, s, b, out, M, D, stream / x, ln_s, dy, gy, dx, dln3, ws, M, D, stream
+    "ssrl_branch_finish": (_I, [_P] * 4 + [_I] * 2 + [_P]),
+    "ssrl_branch_ln_bwd_workspace": (_LL, [_I] * 2),
+    "ssrl_branch_ln_bwd": (_I, [_P] * 7 + [_I] * 2 + [_P]),
     "ssrl_mha_fits": (_I, [_I] * 2),
     # L, d, bwd -> blocks per SM, warps a block, shared bytes, registers
     "ssrl_mha_occupancy": (_I, [_I] * 3 + [_PI] * 4),
@@ -92,6 +106,17 @@ _SIGNATURES = {
     # M, N, K, stream
     "ssrl_gemm_f32_workspace": (_LL, [_I] * 4),
     "ssrl_gemm_f32": (_I, [_I] * 2 + [_P] * 9 + [_I] * 3 + [_P]),
+    "ssrl_attn_branch_part_fwd_f32_workspace": (_LL, [_I] * 5),
+    "ssrl_attn_branch_part_fwd_f32": (_I, [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "ssrl_attn_branch_part_bwd_f32_workspace": (_LL, [_I] * 4),
+    "ssrl_attn_branch_part_bwd_f32": (_I, [_P] * 13 + [_I] * 5 + [_F, _P]),
+    "ssrl_mlp_branch_part_fwd_f32_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_branch_part_fwd_f32": (_I, [_P] * 8 + [_I] * 3 + [_P]),
+    "ssrl_mlp_branch_part_bwd_f32_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_branch_part_bwd_f32": (_I, [_P] * 12 + [_I] * 3 + [_P]),
+    "ssrl_branch_finish_f32": (_I, [_P] * 4 + [_I] * 2 + [_P]),
+    "ssrl_branch_ln_bwd_f32_workspace": (_LL, [_I] * 2),
+    "ssrl_branch_ln_bwd_f32": (_I, [_P] * 7 + [_I] * 2 + [_P]),
     "ssrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -105,7 +105,7 @@ def make_batch(B: int, rank: int, ranks: int, device: str) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    from ssrl_vit_mae_jepa_torch.parallel.mesh import get_data_axis
+    from ssrl_vit_mae_jepa_torch.parallel.mesh import get_mesh
     from ssrl_vit_mae_jepa_torch.scripts.utils import device, init_distributed
     from ssrl_vit_mae_jepa_torch.utils.flops import peak_flops_per_chip, task_flops_per_image
     from ssrl_vit_mae_jepa_torch.utils.profiling import device_step_ms, op_table, trace
@@ -113,10 +113,11 @@ def main(argv=None) -> dict:
     init_distributed()
     dev = device()
     on_card = dev.startswith("cuda")
-    axis = get_data_axis()
+    grid = get_mesh()
+    axis = grid.data  # the batch splits over the data ranks
     rank, ranks = (axis.rank, axis.size) if axis is not None else (0, 1)
     task = make_task(args, dev)
-    task.configure_sharding(axis)
+    task.configure_sharding(grid)
     state = task.init_state(0)
     batch = make_batch(args.batch_size, rank, ranks, dev)
     ctx = task.epoch_context(0)

@@ -91,7 +91,7 @@ inline int gemm_splitk(int M, int N, int K, int* splits) {
 // partials at C + split * c_split. Any other pairing, or a shape the kernel
 // does not take (ldX or N not a multiple of 8, unaligned pointers), returns
 // cudaErrorInvalidValue.
-//   NT: EPI_BIAS_BF16, EPI_BIAS_RESID, EPI_BIAS_GELU, EPI_BIAS_GELU32
+//   NT: EPI_F32, EPI_BIAS_BF16, EPI_BIAS_RESID, EPI_BIAS_GELU, EPI_BIAS_GELU32
 //   NN: EPI_BF16, EPI_F32, EPI_GELU_BWD, EPI_GELU32_BWD
 cudaError_t gemm_nt(int epi, const GemmArgs& p, cudaStream_t st);
 cudaError_t gemm_nn(int epi, const GemmArgs& p, cudaStream_t st);

@@ -28,6 +28,15 @@
 // dW1 uses the bf16-rounded dz; every weight and bias gradient is f32. The
 // whole-block kernel keeps z in f32 (z_f32, the EPI_*GELU32* epilogues), and
 // it and the chain pass an f32 incoming gradient (csrc/branch.cuh).
+//
+// Split over a model axis (Megatron; _TP_RULES of
+// ssrl_vit_mae_jepa_tpu/parallel/mesh.py:61-65 on _mb_fwd and _mb_bwd): a
+// rank holds an F/mp slice of fc1's rows and fc2's columns, so the branch
+// runs as above at F/mp, except that fc2 ends in its f32 sum h W2^T without
+// bias or residual (ssrl_mlp_branch_part_fwd), and the backward stops at
+// the f32 dy2 = dz W1 of the slice (ssrl_mlp_branch_part_bwd); the caller
+// all-reduces each over the model group and finishes with
+// ssrl_branch_finish / ssrl_branch_ln_bwd (csrc/attn_branch.cu).
 #include "common.cuh"
 #include "branch.cuh"
 
@@ -91,23 +100,11 @@ cudaError_t fc1_gelu(const bf16* x, const ssrl::BranchParams& p, bf16* y2, bf16*
   return ssrl::gemm(ssrl::GEMM_NT, z_f32 ? EPI_BIAS_GELU32 : EPI_BIAS_GELU, g, st);
 }
 
-}  // namespace
-
-namespace ssrl {
-
-bool mlp_shape_ok(int M, int D, int F) {
-  return M >= 1 && D >= 8 && D <= 256 && F >= 8 && D % 8 == 0 && F % 8 == 0;
-}
-
-size_t mlp_fwd_workspace(int M, int D, int F) {
-  Carver c{nullptr};
-  bf16 *y2, *h;
-  return fwd_carve(c, M, D, F, &y2, &h);
-}
-
-cudaError_t mlp_fwd(const bf16* x, const BranchParams& p, bf16* out, void* ws, int M,
-                    int D, int F, bool z_f32, cudaStream_t st) {
-  if (!mlp_shape_ok(M, D, F)) return cudaErrorInvalidValue;
+// The forward: out = x + bf16(h W2^T + b2); or, with `part` set (a
+// model-axis shard, F its slice), only the f32 partial sum part = h W2^T.
+cudaError_t mlp_fwd_seq(const bf16* x, const ssrl::BranchParams& p, bf16* out, float* part,
+                        void* ws, int M, int D, int F, bool z_f32, cudaStream_t st) {
+  if (!ssrl::mlp_shape_ok(M, D, F)) return cudaErrorInvalidValue;
   Carver c{static_cast<char*>(ws)};
   bf16 *y2, *h;
   fwd_carve(c, M, D, F, &y2, &h);
@@ -116,29 +113,32 @@ cudaError_t mlp_fwd(const bf16* x, const BranchParams& p, bf16* out, void* ws, i
   g.A = h; g.lda = F;
   g.B = p.wb; g.ldb = F;
   g.M = M; g.N = D; g.K = F;
-  g.C = out; g.ldc = D;
-  g.bias = p.bb;
-  g.R = x;
-  SSRL_TRY(ssrl::gemm(ssrl::GEMM_NT, EPI_BIAS_RESID, g, st));
+  g.ldc = D;
+  if (part) {
+    g.C = part;
+    SSRL_TRY(ssrl::gemm(ssrl::GEMM_NT, EPI_F32, g, st));
+  } else {
+    g.C = out;
+    g.bias = p.bb;
+    g.R = x;
+    SSRL_TRY(ssrl::gemm(ssrl::GEMM_NT, EPI_BIAS_RESID, g, st));
+  }
   return cudaGetLastError();
 }
 
-size_t mlp_bwd_workspace(int M, int D, int F, bool z_f32) {
-  Carver c{nullptr};
-  bf16 *y2, *z, *h, *dz;
-  float *z32, *dy2, *part, *tmp;
-  return bwd_carve(c, M, D, F, z_f32, &y2, &z, &z32, &h, &dz, &dy2, &part, &tmp);
-}
-
-cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
-                    const BranchGrads& d, void* ws, int M, int D, int F, bool z_f32,
-                    cudaStream_t st) {
-  if (!mlp_shape_ok(M, D, F)) return cudaErrorInvalidValue;
+// The backward; with `dy2_out` set (a model-axis shard) it stops at the f32
+// dy2 = dz W1 of the slice, written there, and leaves dx and d.dln3 to
+// ssrl_branch_ln_bwd after the model-group all-reduce.
+cudaError_t mlp_bwd_seq(const bf16* x, const ssrl::BranchParams& p, ssrl::GradIn gy,
+                        ssrl::GradOut dx, const ssrl::BranchGrads& d, float* dy2_out, void* ws,
+                        int M, int D, int F, bool z_f32, cudaStream_t st) {
+  if (!ssrl::mlp_shape_ok(M, D, F)) return cudaErrorInvalidValue;
   const BwdPlan plan = bwd_plan(M, D, F);
   Carver c{static_cast<char*>(ws)};
   bf16 *y2, *z, *h, *dz;
   float *z32, *dy2, *part, *tmp;
   bwd_carve(c, M, D, F, z_f32, &y2, &z, &z32, &h, &dz, &dy2, &part, &tmp);
+  if (dy2_out) dy2 = dy2_out;
 
   SSRL_TRY(fc1_gelu(x, p, y2, h, z, z32, M, D, F, z_f32, st));
 
@@ -181,10 +181,43 @@ cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
   y.M = M; y.N = D; y.K = F;
   y.C = dy2; y.ldc = D;
   SSRL_TRY(ssrl::gemm(ssrl::GEMM_NN, EPI_F32, y, st));
+  if (dy2_out) return cudaGetLastError();
 
   launch_ln_bwd(x, p.ln_s, dy2, gy.op, gy.f32, dx.bf, dx.f32, d.dln3, part, tmp, M, D,
                 st);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace ssrl {
+
+bool mlp_shape_ok(int M, int D, int F) {
+  return M >= 1 && D >= 8 && D <= 256 && F >= 8 && D % 8 == 0 && F % 8 == 0;
+}
+
+size_t mlp_fwd_workspace(int M, int D, int F) {
+  Carver c{nullptr};
+  bf16 *y2, *h;
+  return fwd_carve(c, M, D, F, &y2, &h);
+}
+
+cudaError_t mlp_fwd(const bf16* x, const BranchParams& p, bf16* out, void* ws, int M,
+                    int D, int F, bool z_f32, cudaStream_t st) {
+  return mlp_fwd_seq(x, p, out, nullptr, ws, M, D, F, z_f32, st);
+}
+
+size_t mlp_bwd_workspace(int M, int D, int F, bool z_f32) {
+  Carver c{nullptr};
+  bf16 *y2, *z, *h, *dz;
+  float *z32, *dy2, *part, *tmp;
+  return bwd_carve(c, M, D, F, z_f32, &y2, &z, &z32, &h, &dz, &dy2, &part, &tmp);
+}
+
+cudaError_t mlp_bwd(const bf16* x, const BranchParams& p, GradIn gy, GradOut dx,
+                    const BranchGrads& d, void* ws, int M, int D, int F, bool z_f32,
+                    cudaStream_t st) {
+  return mlp_bwd_seq(x, p, gy, dx, d, nullptr, ws, M, D, F, z_f32, st);
 }
 
 }  // namespace ssrl
@@ -225,6 +258,42 @@ int ssrl_mlp_branch_bwd(const void* x, const void* ln_s, const void* ln_b,
                             {static_cast<const bf16*>(gy), nullptr},
                             {static_cast<bf16*>(dx), nullptr}, d, ws, M, D, F, false,
                             static_cast<cudaStream_t>(stream));
+}
+
+// ---- split over a model axis: F the shard's slice of the hidden width ----
+
+long long ssrl_mlp_branch_part_fwd_workspace(int M, int D, int F) {
+  return (long long)ssrl::mlp_fwd_workspace(M, D, F);
+}
+
+// x [M][D] bf16; ln_s, ln_b [D] f32; w1 [F][D], b1 [F], w2 [D][F] bf16 (the
+// shard's rows of fc1, columns of fc2). Writes part [M][D] f32 = h W2^T.
+int ssrl_mlp_branch_part_fwd(const void* x, const void* ln_s, const void* ln_b,
+                             const void* w1, const void* b1, const void* w2, void* part,
+                             void* ws, int M, int D, int F, void* stream) {
+  const void* p[6] = {ln_s, ln_b, w1, b1, w2, nullptr};
+  return (int)mlp_fwd_seq(static_cast<const bf16*>(x), ssrl::branch_params(p), nullptr,
+                          static_cast<float*>(part), ws, M, D, F, false,
+                          static_cast<cudaStream_t>(stream));
+}
+
+long long ssrl_mlp_branch_part_bwd_workspace(int M, int D, int F) {
+  return (long long)ssrl::mlp_bwd_workspace(M, D, F, false);
+}
+
+// From x and the bf16 output gradient gy [M][D]: dy2 [M][D] f32 (this
+// shard's part of LN2's output gradient), dw1 [F][D], db1 [F], dw2 [D][F].
+int ssrl_mlp_branch_part_bwd(const void* x, const void* ln_s, const void* ln_b,
+                             const void* w1, const void* b1, const void* w2, const void* gy,
+                             void* dy2, void* dw1, void* db1, void* dw2, void* ws, int M,
+                             int D, int F, void* stream) {
+  const void* p[6] = {ln_s, ln_b, w1, b1, w2, nullptr};
+  const ssrl::BranchGrads d{nullptr, static_cast<float*>(dw1), static_cast<float*>(db1),
+                            static_cast<float*>(dw2)};
+  return (int)mlp_bwd_seq(static_cast<const bf16*>(x), ssrl::branch_params(p),
+                          {static_cast<const bf16*>(gy), nullptr}, {nullptr, nullptr}, d,
+                          static_cast<float*>(dy2), ws, M, D, F, false,
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* ssrl_error_string(int code) {

@@ -8,7 +8,9 @@ per-class RNG reset; see ``data/stl10.py``). The loaders move uint8 pixels
 only; augmentation runs on the device in the task. The batch size in the
 config is the global batch: under a process group each rank's loader
 holds its own contiguous shard of the indices at ``batch_size // world``
-rows (``_shard_for_process``); one process takes them all.
+rows (``_shard_for_process``), ``world`` counting data ranks (under a
+model axis the processes of one model row read the same rows); one process
+takes them all.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ssrl_vit_mae_jepa_torch.data.stl10 import (
     pretrain_split_indices,
     stratified_split_indices,
 )
-from ssrl_vit_mae_jepa_torch.parallel.multihost import process_local_indices, world_size
+from ssrl_vit_mae_jepa_torch.parallel.multihost import data_world_size, process_local_indices
 
 ROOT_DIR = Path(__file__).resolve().parents[2]
 
@@ -40,9 +42,10 @@ def _shard_for_process(indices: np.ndarray, batch_size: int) -> Tuple[np.ndarray
     """This rank's index shard and batch size (``loaders.py:33-57`` of the
     JAX package): a disjoint contiguous shard (wrap-around padded, so every
     rank takes as many batches) at ``batch_size // world`` rows, so that
-    the ranks together feed the global batch; one process is the
-    identity."""
-    pc = world_size()
+    the ranks together feed the global batch; ``world`` and the shard are
+    the data axis's (``multihost.data_world_size``), so the model ranks of
+    one data rank hold the same shard; one process is the identity."""
+    pc = data_world_size()
     if pc == 1:
         return indices, batch_size
     if batch_size % pc:

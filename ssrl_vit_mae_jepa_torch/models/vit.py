@@ -29,6 +29,16 @@ Under ``attn_impl="chain"`` a stack of blocks (``run_block_stack``) runs as
 one chain, ``ops/block_chain.py``, reading each block's 12 tensors from its
 modules (so ``torch.func.functional_call`` still substitutes them). Each
 kernel runs on a CUDA tensor and its plain version on a CPU tensor.
+
+Over a model axis (``shard_blocks_``, the JAX package's tensor-parallel
+``model`` axis) every block holds its shard of ``parallel/mesh.py``'s
+Megatron layout in its own parameters (the q, k, v rows and proj columns of
+H/mp heads, an F/mp slice of fc1 and fc2) and runs the branch route through
+``fused_attn_branch_tp`` / ``fused_mlp_branch_tp``, or the ``xla`` sub-layer
+route through ``parallel/tensor.py``'s operators. The whole-block, chain and
+attention-kernel routes raise there, as the JAX package refuses them (a
+Mosaic kernel cannot be partitioned automatically,
+``training/tasks.py:86-99`` there).
 """
 
 from __future__ import annotations
@@ -51,13 +61,17 @@ from ssrl_vit_mae_jepa_torch.ops.block_chain import chain_impl, fused_block_chai
 from ssrl_vit_mae_jepa_torch.ops.block_fused import (
     LN_EPS,
     fused_attn_branch,
+    fused_attn_branch_tp,
     fused_block,
     fused_mlp_branch,
+    fused_mlp_branch_tp,
     layer_norm,
 )
 from ssrl_vit_mae_jepa_torch.ops.embed_fused import fused_patch_embed, use_fused_embed
 from ssrl_vit_mae_jepa_torch.ops.masking import get_at_index
 from ssrl_vit_mae_jepa_torch.ops.patches import patchify
+from ssrl_vit_mae_jepa_torch.parallel.mesh import ModelAxis, shard_spec, shard_tensor
+from ssrl_vit_mae_jepa_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
@@ -67,6 +81,14 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
 
 def norm(x: torch.Tensor, ln: nn.LayerNorm, dtype) -> torch.Tensor:
     return layer_norm(x, ln.weight, ln.bias).to(dtype)
+
+
+def row_parallel(x: torch.Tensor, lin: nn.Linear, tp: ModelAxis, dtype) -> torch.Tensor:
+    """A row-parallel ``dense`` of a shard: its f32 partial product, summed
+    over the model group (``reduce_from_model``), then the full bias, rounded
+    once to ``dtype``."""
+    part = x.to(dtype).float() @ lin.weight.to(dtype).float().t()
+    return (reduce_from_model(part, tp) + lin.bias.to(dtype).float()).to(dtype)
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
@@ -91,10 +113,16 @@ class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
+        self.hidden = hidden
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        #: the model axis this layer's F/mp slice is of (``Block.shard_``)
+        self.tp: Optional[ModelAxis] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:  # column-parallel fc1, row-parallel fc2
+            h = F.gelu(dense(copy_to_model(x, self.tp), self.fc1, self.dtype))
+            return row_parallel(h, self.fc2, self.tp, self.dtype)
         return dense(F.gelu(dense(x, self.fc1, self.dtype)), self.fc2, self.dtype)
 
 
@@ -112,10 +140,24 @@ class Attention(nn.Module):
         self.attn_impl = validate_impl(attn_impl)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        #: the model axis this layer's heads are split over (``Block.shard_``)
+        self.tp: Optional[ModelAxis] = None
+
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank holds: H, or H/mp over a model axis."""
+        return self.num_heads // (1 if self.tp is None else self.tp.size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, D = x.shape
         h, impl = self.num_heads, self.attn_impl
+        if self.tp is not None:  # the xla route over a model axis: local heads
+            h = self.local_heads
+            qkv = dense(copy_to_model(x, self.tp), self.qkv, self.dtype)
+            Da = qkv.shape[-1] // 3
+            q, k, v = qkv.reshape(B, L, 3, h, Da // h).permute(2, 0, 3, 1, 4)
+            out = multi_head_attention(q, k, v, "xla").transpose(1, 2).reshape(B, L, Da)
+            return row_parallel(out, self.proj, self.tp, self.dtype)
         qkv = dense(x, self.qkv, self.dtype)
         if use_packed(B, L, D, h, qkv.dtype, impl, qkv.device):
             out = mha_natural_qkv(qkv, h)
@@ -125,6 +167,29 @@ class Attention(nn.Module):
             q, k, v = qkv.reshape(B, L, 3, h, D // h).permute(2, 0, 3, 1, 4)
             out = multi_head_attention(q, k, v, impl).transpose(1, 2).reshape(B, L, D)
         return dense(out, self.proj, self.dtype)
+
+
+#: attn_impl -> why it cannot run over a model axis (the JAX package's
+#: Mosaic kernels cannot be partitioned automatically either)
+_TP_REFUSED = {
+    "block": "the whole-block kernel",
+    "chain": "the block-chain kernel",
+    "packed": "the fused-qkv attention kernel",
+    "pallas": "the per-head attention kernel",
+    "stacked": "the head-stacked attention kernel",
+}
+
+
+def check_tp_route(impl: str) -> None:
+    """Raise where ``attn_impl`` names a route that cannot be split over a
+    model axis; the branch route (auto, split, split_pad) and the ``xla``
+    sub-layer route can."""
+    validate_impl(impl)
+    if impl in _TP_REFUSED:
+        raise ValueError(
+            f"attn_impl={impl!r} ({_TP_REFUSED[impl]}) cannot run under "
+            f"model_parallel > 1: a kernel over a whole layer is not partitioned "
+            f"(the JAX package refuses it too); use auto, split, split_pad or xla")
 
 
 def block_impl(impl: str) -> Optional[str]:
@@ -150,6 +215,38 @@ class Block(nn.Module):
         self.attn = Attention(dim, num_heads, dtype, attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        #: the model axis of this block's shard (``shard_``); None: whole
+        self.tp: Optional[ModelAxis] = None
+
+    def check_tp(self, mp: int) -> None:
+        """Raise unless this block splits over ``mp`` model ranks: its route
+        (``check_tp_route``), its heads and its hidden units."""
+        check_tp_route(self.attn.attn_impl)
+        H, F_ = self.attn.num_heads, self.mlp.hidden
+        if H % mp or F_ % mp:
+            raise ValueError(f"a block of {H} heads and {F_} hidden units does not split "
+                             f"over model_parallel={mp}")
+
+    def shard_(self, axis: ModelAxis) -> None:
+        """Keep only ``axis.rank``'s shard of the full weights, in place (the
+        Parameter objects stay, their data shrinks)."""
+        self.check_tp(axis.size)
+        for name, p in self.named_parameters():
+            p.data = shard_tensor(p.data, shard_spec(name), axis)
+        self.tp = self.attn.tp = self.mlp.tp = axis
+
+    def unshard_(self) -> None:
+        """Full-size zero weights again and no model axis (for a new init:
+        the values are not kept)."""
+        if self.tp is None:
+            return
+        for name, p in self.named_parameters():
+            spec = shard_spec(name)
+            if spec is not None:
+                shape = list(p.shape)
+                shape[spec.dim] *= self.tp.size
+                p.data = torch.zeros(shape, dtype=p.dtype, device=p.device)
+        self.tp = self.attn.tp = self.mlp.tp = None
 
     def block_params(self):
         """The 12 tensors in the JAX package's ``_BLOCK_TREE`` order
@@ -162,6 +259,15 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         a, m = self.attn, self.mlp
+        if self.tp is not None and self.route == "split":
+            x = fused_attn_branch_tp(
+                x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
+                a.proj.weight, a.proj.bias, a.local_heads, self.tp,
+            )
+            return fused_mlp_branch_tp(
+                x, self.norm2.weight, self.norm2.bias,
+                m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias, self.tp,
+            )
         if self.route == "mono":
             return fused_block(x, self.block_params(), a.num_heads)
         if self.route is None:
@@ -179,7 +285,8 @@ class Block(nn.Module):
 
 def run_block_stack(x: torch.Tensor, blocks, attn_impl: str = "auto") -> torch.Tensor:
     """The blocks in turn, or one chain where ``chain_impl`` says so
-    (``attn_impl="chain"``, ``models/vit.py:234-301`` of the JAX package)."""
+    (``attn_impl="chain"``, ``models/vit.py:234-301`` of the JAX package);
+    a block split over a model axis never chains (``Block.check_tp``)."""
     if len(blocks):
         b0 = blocks[0]
         B, L, D = x.shape
@@ -189,6 +296,34 @@ def run_block_stack(x: torch.Tensor, blocks, attn_impl: str = "auto") -> torch.T
     for blk in blocks:
         x = blk(x)
     return x
+
+
+def shard_blocks_(module: nn.Module, axis: Optional[ModelAxis]) -> None:
+    """Split every ``Block`` under ``module`` over the model ``axis`` (the
+    MAE encoder and decoder, the JEPA context encoder and predictor, the
+    classifier's encoder), in place; a trivial axis does nothing. Every
+    block is checked before any is cut."""
+    if axis is None or axis.size == 1:
+        return
+    check_tp_blocks(module, axis.size)
+    for m in module.modules():
+        if isinstance(m, Block):
+            m.shard_(axis)
+
+
+def unshard_blocks_(module: nn.Module) -> None:
+    """Every ``Block`` under ``module`` back to full-size (zero) weights."""
+    for m in module.modules():
+        if isinstance(m, Block):
+            m.unshard_()
+
+
+def check_tp_blocks(module: nn.Module, mp: int) -> None:
+    """Raise unless every ``Block`` under ``module`` splits over ``mp``."""
+    if mp > 1:
+        for m in module.modules():
+            if isinstance(m, Block):
+                m.check_tp(mp)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -34,6 +34,20 @@ block rounds elsewhere (``block_pallas.py:256-317``): z stays f32 into the
 GELU, and its backward keeps the gradient between the branches in f32,
 rounded only as a GEMM operand, so ``block_ref`` has a backward of its own
 (autograd over a bf16 forward would round it at the branch boundary).
+
+Split over a model axis (``parallel/mesh.py``'s Megatron layout: a rank
+holds the qkv rows and proj columns of H/mp heads and an F/mp slice of fc1
+and fc2), ``fused_attn_branch_tp`` / ``fused_mlp_branch_tp`` run a branch as
+three steps: the partial kernel (LN at D, the rest at the shard's widths,
+proj or fc2 ending in its f32 sum without bias or residual), the all-reduce
+of that sum over the model group, and the finish kernel (``x + round(sum +
+b)``, the bias-residual epilogue's rounding points). Their backward runs
+the partial backward (the shard's weight gradients and its f32 part of the
+LN output's gradient), the all-reduce of that part, and the LN backward,
+whose dx and LN and bias gradients come out equal on every model rank. So
+a split block equals the whole one up to f32 summation order. On the CPU
+the plain versions ``attn_branch_tp_ref`` / ``mlp_branch_tp_ref`` run the
+same function with ``parallel/tensor.py``'s operators.
 """
 
 from __future__ import annotations
@@ -43,9 +57,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
 from ssrl_vit_mae_jepa_torch import _build
 from ssrl_vit_mae_jepa_torch.ops.attention import mha_xla
 from ssrl_vit_mae_jepa_torch.ops.attention_core import fits, heads_of, plain_bwd_f32
+from ssrl_vit_mae_jepa_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-6
 #: the activation dtypes every kernel takes on the card
@@ -71,6 +88,21 @@ LAUNCHES = {
     "block_fwd_f32": 0,  # csrc/fused_block_f32.cu: the f32 whole block
     "block_fwd_nograd_f32": 0,
     "block_bwd_f32": 0,
+    # split over a model axis: the partial kernels, the finish, the LN backward
+    "attn_branch_part_fwd": 0,
+    "attn_branch_part_fwd_nograd": 0,
+    "attn_branch_part_bwd": 0,
+    "mlp_branch_part_fwd": 0,  # with and without grad: the same kernel
+    "mlp_branch_part_bwd": 0,
+    "branch_finish": 0,
+    "branch_ln_bwd": 0,
+    "attn_branch_part_fwd_f32": 0,
+    "attn_branch_part_fwd_nograd_f32": 0,
+    "attn_branch_part_bwd_f32": 0,
+    "mlp_branch_part_fwd_f32": 0,
+    "mlp_branch_part_bwd_f32": 0,
+    "branch_finish_f32": 0,
+    "branch_ln_bwd_f32": 0,
 }
 
 
@@ -661,6 +693,375 @@ class _MlpBranch(torch.autograd.Function):
         x, *kp = ctx.saved_tensors
         dx, dparams = _mlp_bwd_cuda(x, kp, g.to(x.dtype).contiguous())
         return (dx, *(d.to(t) for d, t in zip(dparams, ctx.param_dtypes)))
+
+
+# ---------------------------------------------------------------------------
+# The branches split over a model axis: partial, all-reduce, finish
+# ---------------------------------------------------------------------------
+
+
+def tp_scale(wqkv, num_heads: int) -> float:
+    """The softmax scale of a shard, from its own head dim: ``wqkv`` holds
+    3·Da rows for ``num_heads`` local heads. ``_scale`` divides D by H; a
+    shard's Da = (H/mp)·d over its H/mp heads gives the same d, so the
+    same scale."""
+    return 1.0 / (wqkv.shape[0] // 3 // num_heads) ** 0.5
+
+
+def _attn_part_from_y(y1, wqkv, bqkv, wproj, num_heads):
+    """A shard's attention after LN1: (a Wp^T in f32, no bias; a)."""
+    dt = y1.dtype
+    B, L, _ = y1.shape
+    Da = wqkv.shape[0] // 3
+    d = Da // num_heads
+    qkv = _dense(y1, wqkv, bqkv).to(dt)
+    q, k, v = qkv.reshape(B, L, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    q = (q.float() * tp_scale(wqkv, num_heads)).to(dt)
+    a = mha_xla(q, k, v, scale=1.0).transpose(1, 2).reshape(B, L, Da)
+    return a.float() @ wproj.to(dt).float().t(), a
+
+
+def _mlp_part_from_y(y2, w1, b1, w2):
+    """A shard's MLP after LN2: h W2^T in f32, no bias."""
+    dt = y2.dtype
+    h = F.gelu(_dense(y2, w1, b1).to(dt).float()).to(dt)
+    return h.float() @ w2.to(dt).float().t()
+
+
+def attn_part_plain(x, p, num_heads):
+    """The partial forward of a shard ``p`` = (ln_s, ln_b, wqkv (3Da, D),
+    bqkv (3Da,), wproj (D, Da)): (the f32 sum a Wp^T, the attention output
+    ``a`` (B, L, Da))."""
+    ln_scale, ln_bias, wqkv, bqkv, wproj = p
+    return _attn_part_from_y(layer_norm(x, ln_scale, ln_bias).to(x.dtype), wqkv, bqkv, wproj,
+                             num_heads)
+
+
+def mlp_part_plain(x, p):
+    """The partial forward of a shard ``p`` = (ln_s, ln_b, w1 (Fs, D), b1,
+    w2 (D, Fs)): the f32 sum h W2^T."""
+    ln_scale, ln_bias, w1, b1, w2 = p
+    return _mlp_part_from_y(layer_norm(x, ln_scale, ln_bias).to(x.dtype), w1, b1, w2)
+
+
+def branch_finish_plain(x, s, b):
+    """x + round(s + b) from the all-reduced f32 sum ``s``: the bias-residual
+    epilogue's rounding points."""
+    dt = x.dtype
+    return x + (s.float() + b.to(dt).float()).to(dt)
+
+
+def attn_part_bwd_plain(x, p, a, gy, num_heads):
+    """A shard's partial backward, ``attn_bwd_plain``'s rounding points:
+    (the f32 part dqkv Wqkv of LN1's output gradient, (dwqkv, dbqkv, dwp))."""
+    dt = x.dtype
+    ln_scale, ln_bias, wqkv, bqkv, wproj = p
+    B, L, _ = x.shape
+    Da = wqkv.shape[0] // 3
+    y1 = layer_norm(x, ln_scale, ln_bias).to(dt)
+    qkv = _dense(y1, wqkv, bqkv).to(dt)
+    dp = gy.to(dt).float()
+    da = (dp @ wproj.to(dt).float()).to(dt)
+    q, k, v = (heads_of(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    parts = plain_bwd_f32(q, k, v, heads_of(da, num_heads), post=False)
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B, L, Da) for t in parts], dim=-1)
+    dqkvc = dqkv.to(dt).float()
+    return dqkvc @ wqkv.to(dt).float(), (_tn(dqkvc, y1), _rows(dqkv).sum(0), _tn(dp, a))
+
+
+def mlp_part_bwd_plain(x, p, gy):
+    """A shard's partial backward, ``mlp_bwd_plain``'s rounding points (z
+    rounded): (the f32 part dz W1 of LN2's output gradient, (dw1, db1, dw2))."""
+    dt = x.dtype
+    ln_scale, ln_bias, w1, b1, w2 = p
+    y2 = layer_norm(x, ln_scale, ln_bias).to(dt)
+    z = _dense(y2, w1, b1).to(dt).float()
+    h = F.gelu(z).to(dt)
+    gc = gy.to(dt).float()
+    dz = (gc @ w2.to(dt).float()) * _gelu_grad(z)
+    dzc = dz.to(dt).float()
+    return dzc @ w1.to(dt).float(), (_tn(dzc, y2), _rows(dz).sum(0), _tn(gc, h))
+
+
+def ln_bwd_plain(x, ln_scale, dy, gy):
+    """(dx = gy + LN'(dy) in x's dtype, (d ln_s, d ln_b, sum gy)) from the
+    all-reduced f32 ``dy`` and the branch output gradient ``gy`` as x's
+    dtype holds it."""
+    dx, ds, db = _ln_bwd(dy.float(), x, ln_scale)
+    g = gy.to(x.dtype).float()
+    return (g + dx).to(x.dtype), (ds, db, _rows(g).sum(0))
+
+
+def _model_sum(t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` (a fresh buffer) summed over the model group in place."""
+    if axis is not None and axis.size > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=axis.group)
+    return t
+
+
+def attn_branch_tp_ref(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, axis):
+    """Plain attention branch of a shard over the model ``axis``: LN1,
+    ``copy_to_model``, the shard's heads, ``reduce_from_model`` of proj's
+    f32 sum, then bias and residual. Autograd's backward all-reduces LN1's
+    output gradient, so the LN and bias gradients are the full ones."""
+    y1 = copy_to_model(layer_norm(x, ln_scale, ln_bias).to(x.dtype), axis)
+    part, _ = _attn_part_from_y(y1, wqkv, bqkv, wproj, num_heads)
+    return branch_finish_plain(x, reduce_from_model(part, axis), bproj)
+
+
+def mlp_branch_tp_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, axis):
+    """Plain MLP branch of a shard over the model ``axis`` (see
+    ``attn_branch_tp_ref``)."""
+    y2 = copy_to_model(layer_norm(x, ln_scale, ln_bias).to(x.dtype), axis)
+    part = _mlp_part_from_y(y2, w1, b1, w2)
+    return branch_finish_plain(x, reduce_from_model(part, axis), b2)
+
+
+def _attn_part_fwd_cuda(x, kp, num_heads: int, stash: bool):
+    B, L, D = x.shape
+    Da = kp[2].shape[0] // 3
+    if x.dtype == torch.float32 and not _build.load().ssrl_attn_f32_fits(
+            L, Da // num_heads, int(stash)):
+        raise ValueError(f"the f32 attention core does not take L={L} d={Da // num_heads}"
+                         + (" with a backward" if stash else ""))
+    fn, ws_fn, key = _entry(x, "attn_branch_part_fwd")
+    part = torch.empty((B, L, D), dtype=torch.float32, device=x.device)
+    a = torch.empty((B, L, Da), dtype=x.dtype, device=x.device) if stash else None
+    ws = _workspace(ws_fn(B, L, D, Da, int(stash)), x)
+    if not stash:
+        key = key.replace("_fwd", "_fwd_nograd")
+    LAUNCHES[key] += 1
+    _build.check(fn(
+        x.data_ptr(), *(t.data_ptr() for t in kp[:5]), part.data_ptr(),
+        a.data_ptr() if stash else None, ws.data_ptr(),
+        B, L, D, Da, num_heads, tp_scale(kp[2], num_heads), _stream(x),
+    ), key)
+    return part, a
+
+
+def _attn_part_bwd_cuda(x, kp, a, g, num_heads: int):
+    B, L, D = x.shape
+    Da = kp[2].shape[0] // 3
+    fn, ws_fn, key = _entry(x, "attn_branch_part_bwd")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dy1 = torch.empty((B, L, D), **f32)
+    dwqkv = torch.empty((3 * Da, D), **f32)
+    dbqkv = torch.empty((3 * Da,), **f32)
+    dwp = torch.empty((D, Da), **f32)
+    ws = _workspace(ws_fn(B, L, D, Da), x)
+    LAUNCHES[key] += 1
+    _build.check(fn(
+        x.data_ptr(), *(t.data_ptr() for t in kp[:5]), a.data_ptr(), g.data_ptr(),
+        dy1.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dwp.data_ptr(), ws.data_ptr(),
+        B, L, D, Da, num_heads, tp_scale(kp[2], num_heads), _stream(x),
+    ), key)
+    return dy1, (dwqkv, dbqkv, dwp)
+
+
+def _mlp_part_fwd_cuda(x, kp):
+    B, L, D = x.shape
+    F_ = kp[2].shape[0]
+    fn, ws_fn, key = _entry(x, "mlp_branch_part_fwd")
+    part = torch.empty((B, L, D), dtype=torch.float32, device=x.device)
+    ws = _workspace(ws_fn(B * L, D, F_), x)
+    LAUNCHES[key] += 1
+    _build.check(fn(
+        x.data_ptr(), *(t.data_ptr() for t in kp[:5]), part.data_ptr(), ws.data_ptr(),
+        B * L, D, F_, _stream(x),
+    ), key)
+    return part
+
+
+def _mlp_part_bwd_cuda(x, kp, g):
+    B, L, D = x.shape
+    F_ = kp[2].shape[0]
+    fn, ws_fn, key = _entry(x, "mlp_branch_part_bwd")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dy2 = torch.empty((B, L, D), **f32)
+    dw1 = torch.empty((F_, D), **f32)
+    db1 = torch.empty((F_,), **f32)
+    dw2 = torch.empty((D, F_), **f32)
+    ws = _workspace(ws_fn(B * L, D, F_), x)
+    LAUNCHES[key] += 1
+    _build.check(fn(
+        x.data_ptr(), *(t.data_ptr() for t in kp[:5]), g.data_ptr(), dy2.data_ptr(),
+        dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), ws.data_ptr(),
+        B * L, D, F_, _stream(x),
+    ), key)
+    return dy2, (dw1, db1, dw2)
+
+
+def _finish_cuda(x, s, b):
+    D = x.shape[-1]
+    key = dtype_key(x.dtype, "branch_finish")
+    out = torch.empty_like(x)
+    LAUNCHES[key] += 1
+    _build.check(getattr(_build.load(), f"ssrl_{key}")(
+        x.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel() // D, D,
+        _stream(x),
+    ), key)
+    return out
+
+
+def _ln_bwd_cuda(x, ln_s, dy, g):
+    D = x.shape[-1]
+    M = x.numel() // D
+    fn, ws_fn, key = _entry(x, "branch_ln_bwd")
+    dx = torch.empty_like(x)
+    dln3 = torch.empty((3, D), dtype=torch.float32, device=x.device)
+    ws = _workspace(ws_fn(M, D), x)
+    LAUNCHES[key] += 1
+    _build.check(fn(
+        x.data_ptr(), ln_s.data_ptr(), dy.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dln3.data_ptr(), ws.data_ptr(), M, D, _stream(x),
+    ), key)
+    return dx, (dln3[0], dln3[1], dln3[2])
+
+
+def _check_tp(x, params, shapes) -> None:
+    _check_x(x, x.shape[-1] if x.dim() == 3 else -1)
+    _check_params(params, shapes)
+
+
+def attn_tp_shapes(D: int, Da: int):
+    """A shard's six attention-branch shapes: LN at D, qkv rows and proj
+    columns at Da, proj bias at D."""
+    return [(D,), (D,), (3 * Da, D), (3 * Da,), (D, Da), (D,)]
+
+
+def mlp_tp_shapes(D: int, Fs: int):
+    return [(D,), (D,), (Fs, D), (Fs,), (D, Fs), (D,)]
+
+
+class _AttnBranchTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wp, bp, num_heads, axis):
+        kp = _prep6(ln_s, ln_b, wqkv, bqkv, wp, bp, x.dtype)
+        part, a = _attn_part_fwd_cuda(x, kp, num_heads, stash=True)
+        out = _finish_cuda(x, _model_sum(part, axis), kp[5])
+        ctx.save_for_backward(x, a, *kp)
+        ctx.num_heads, ctx.axis = num_heads, axis
+        ctx.param_dtypes = [t.dtype for t in (ln_s, ln_b, wqkv, bqkv, wp, bp)]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, *kp = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dy1, (dwqkv, dbqkv, dwp) = _attn_part_bwd_cuda(x, kp, a, g, ctx.num_heads)
+        dx, (ds, db, dbp) = _ln_bwd_cuda(x, kp[0], _model_sum(dy1, ctx.axis), g)
+        grads = (ds, db, dwqkv, dbqkv, dwp, dbp)
+        return (dx, *(d.to(t) for d, t in zip(grads, ctx.param_dtypes)), None, None)
+
+
+class _MlpBranchTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, w1, b1, w2, b2, axis):
+        kp = _prep6(ln_s, ln_b, w1, b1, w2, b2, x.dtype)
+        out = _finish_cuda(x, _model_sum(_mlp_part_fwd_cuda(x, kp), axis), kp[5])
+        ctx.save_for_backward(x, *kp)
+        ctx.axis = axis
+        ctx.param_dtypes = [t.dtype for t in (ln_s, ln_b, w1, b1, w2, b2)]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *kp = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dy2, (dw1, db1, dw2) = _mlp_part_bwd_cuda(x, kp, g)
+        dx, (ds, db, db2) = _ln_bwd_cuda(x, kp[0], _model_sum(dy2, ctx.axis), g)
+        grads = (ds, db, dw1, db1, dw2, db2)
+        return (dx, *(d.to(t) for d, t in zip(grads, ctx.param_dtypes)), None)
+
+
+def fused_attn_branch_tp(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads, axis):
+    """The attention branch of a shard over the model ``axis`` (a
+    ``parallel.mesh.ModelAxis``; None: no all-reduce): ``wqkv`` (3Da, D)
+    and ``bqkv`` hold the q, k and v rows of the shard's ``num_heads``
+    heads, ``wproj`` (D, Da) their columns of proj; the LN parameters and
+    ``bproj`` are the full ones. On CUDA the partial kernel, the all-reduce
+    of its f32 sum and the finish kernel (``csrc/attn_branch.cu``, at f32
+    ``csrc/branch_f32.cu``); ``attn_branch_tp_ref`` on the CPU."""
+    params = (ln_scale, ln_bias, wqkv, bqkv, wproj, bproj)
+    if _route(x) == "cpu":
+        return attn_branch_tp_ref(x, *params, num_heads, axis)
+    D, Da = x.shape[-1], wqkv.shape[0] // 3
+    if Da % num_heads:
+        raise ValueError(f"Da={Da} is not a multiple of num_heads={num_heads}")
+    _check_tp(x, params, attn_tp_shapes(D, Da))
+    x = x.contiguous()
+    if _needs_grad(x, params):
+        return _AttnBranchTP.apply(x, *params, num_heads, axis)
+    kp = _prep6(*params, x.dtype)
+    part, _ = _attn_part_fwd_cuda(x, kp, num_heads, stash=False)
+    return _finish_cuda(x, _model_sum(part, axis), kp[5])
+
+
+def fused_mlp_branch_tp(x, ln_scale, ln_bias, w1, b1, w2, b2, axis):
+    """The MLP branch of a shard over the model ``axis``: ``w1`` (Fs, D),
+    ``b1`` and ``w2`` (D, Fs) its slice of the hidden units, the LN
+    parameters and ``b2`` full (see ``fused_attn_branch_tp``)."""
+    params = (ln_scale, ln_bias, w1, b1, w2, b2)
+    if _route(x) == "cpu":
+        return mlp_branch_tp_ref(x, *params, axis)
+    _check_tp(x, params, mlp_tp_shapes(x.shape[-1], w1.shape[0]))
+    x = x.contiguous()
+    if _needs_grad(x, params):
+        return _MlpBranchTP.apply(x, *params, axis)
+    kp = _prep6(*params, x.dtype)
+    return _finish_cuda(x, _model_sum(_mlp_part_fwd_cuda(x, kp), axis), kp[5])
+
+
+# The TP kernels one at a time (chip_smoke.py and the card's tests hold each
+# to its plain version): a CUDA tensor launches the kernel, a CPU one runs
+# the plain version.
+
+
+def _prep_part(p, dt):
+    """A partial kernel's five operands (``_prep6`` without the output bias)."""
+    return ([t.detach().float().contiguous() for t in p[:2]]
+            + [t.detach().to(dt).contiguous() for t in p[2:]])
+
+
+def attn_branch_partial(x, p, num_heads, stash: bool = True):
+    """(f32 sum, a or None) of a shard ``p`` = (ln_s, ln_b, wqkv, bqkv, wproj)."""
+    if _route(x) == "cpu":
+        part, a = attn_part_plain(x, p, num_heads)
+        return part, a if stash else None
+    return _attn_part_fwd_cuda(x.contiguous(), _prep_part(p, x.dtype), num_heads, stash)
+
+
+def attn_branch_partial_bwd(x, p, a, gy, num_heads):
+    if _route(x) == "cpu":
+        return attn_part_bwd_plain(x, p, a, gy, num_heads)
+    return _attn_part_bwd_cuda(x.contiguous(), _prep_part(p, x.dtype), a.contiguous(),
+                               gy.to(x.dtype).contiguous(), num_heads)
+
+
+def mlp_branch_partial(x, p):
+    if _route(x) == "cpu":
+        return mlp_part_plain(x, p)
+    return _mlp_part_fwd_cuda(x.contiguous(), _prep_part(p, x.dtype))
+
+
+def mlp_branch_partial_bwd(x, p, gy):
+    if _route(x) == "cpu":
+        return mlp_part_bwd_plain(x, p, gy)
+    return _mlp_part_bwd_cuda(x.contiguous(), _prep_part(p, x.dtype),
+                              gy.to(x.dtype).contiguous())
+
+
+def branch_finish(x, s, b):
+    if _route(x) == "cpu":
+        return branch_finish_plain(x, s, b)
+    return _finish_cuda(x.contiguous(), s.float().contiguous(), b.to(x.dtype).contiguous())
+
+
+def branch_ln_bwd(x, ln_scale, dy, gy):
+    if _route(x) == "cpu":
+        return ln_bwd_plain(x, ln_scale, dy, gy)
+    return _ln_bwd_cuda(x.contiguous(), ln_scale.float().contiguous(), dy.float().contiguous(),
+                        gy.to(x.dtype).contiguous())
 
 
 

@@ -14,8 +14,10 @@ its own card, so nothing assembles a global array (the JAX
   ``WORLD_SIZE`` (what ``python -m torch.distributed.run`` sets); ``nccl``
   on the card (the default: with no card it raises), ``gloo`` on the CPU
   when the caller asks for it;
-- ``process_local_indices``: the contiguous per-process shard, padded by
-  wrap-around, as the JAX function pads it;
+- ``process_local_indices``: the contiguous shard of this process's data
+  rank, padded by wrap-around, as the JAX function pads it; under a model
+  axis (``mesh.get_mesh(model_parallel=mp)``) the ``mp`` processes of one
+  model row share a data rank and so read the same rows;
 - the process's rank, the world size and its card, ``cuda:LOCAL_RANK``.
 """
 
@@ -39,6 +41,27 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if is_initialized() else 0
+
+
+#: the model axis of the grid ``mesh.get_mesh`` made last (1: none)
+_MODEL_PARALLEL = 1
+
+
+def set_model_parallel(mp: int) -> None:
+    """Record the grid's model axis, so that the data shards follow the data
+    rank (called by ``mesh.get_mesh``)."""
+    global _MODEL_PARALLEL
+    _MODEL_PARALLEL = int(mp)
+
+
+def data_world_size() -> int:
+    """The ranks the data is split over: the world over the model axis."""
+    return world_size() // _MODEL_PARALLEL
+
+
+def data_rank() -> int:
+    """This process's data rank: ``rank // mp`` (rank ``d·mp + m``)."""
+    return rank() // _MODEL_PARALLEL
 
 
 def is_main_process() -> bool:
@@ -93,10 +116,11 @@ def maybe_initialize_distributed(device_type: Optional[str] = None,
 
 def process_local_indices(indices: np.ndarray, process_index: Optional[int] = None,
                           process_count: Optional[int] = None) -> np.ndarray:
-    """Contiguous per-process shard of an index array, padded to equal size
-    by wrap-around so that every process sees the same number of batches."""
-    pc = process_count if process_count is not None else world_size()
-    pi = process_index if process_index is not None else rank()
+    """Contiguous per-data-rank shard of an index array, padded to equal
+    size by wrap-around so that every process sees the same number of
+    batches; by default this process's data rank of ``data_world_size``."""
+    pc = process_count if process_count is not None else data_world_size()
+    pi = process_index if process_index is not None else data_rank()
     if pc == 1:
         return indices
     per = -(-len(indices) // pc)

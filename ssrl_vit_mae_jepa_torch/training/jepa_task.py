@@ -21,7 +21,10 @@ annealed per step once the trainer gives the epoch length
 the optimizer's step count. Under data parallelism the
 collapse metrics' moments are summed over the ranks before the std is
 taken (``_gsum`` of the JAX task), and the EMA, computed from the
-all-reduced update, stays the same on every rank.
+all-reduced update, stays the same on every rank. Over a model axis the
+EMA runs on each rank's shards, the moments are summed over the data group
+only, and the drift's norms over the model group as the clip's are
+(``optim.global_sq_sum``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from ssrl_vit_mae_jepa_torch.models.jepa import jepa_from_config
 from ssrl_vit_mae_jepa_torch.ops.jepa_masking import sample_jepa_masks
 from ssrl_vit_mae_jepa_torch.ops.masking import token_occupancy
-from ssrl_vit_mae_jepa_torch.parallel.mesh import all_reduce_sum
+from ssrl_vit_mae_jepa_torch.training.optim import global_sq_sum
 from ssrl_vit_mae_jepa_torch.training.schedules import (
     effective_pretrain_lr,
     ema_momentum_at_step,
@@ -151,7 +154,7 @@ class JEPATask(Task):
             s1 = torch.sum(x * rows_w[:, None], dim=0)
             s2 = torch.sum(x * x * rows_w[:, None], dim=0)
             if self.axis is not None:
-                tot, s1, s2 = all_reduce_sum([tot, s1, s2])
+                tot, s1, s2 = self._data_sum([tot, s1, s2])
             tot = torch.clamp_min(tot, 1e-9)
             mu = s1 / tot
             var = s2 / tot - mu * mu
@@ -178,8 +181,13 @@ class JEPATask(Task):
         """Relative L2 distance between the context encoder and its EMA."""
         params, ema = self._pairs(state)
         diff = torch._foreach_sub([p.float() for p in params], [t.float() for t in ema])
-        diff_sq = torch.stack(torch._foreach_norm(diff)).square().sum()
-        ref_sq = torch.stack(torch._foreach_norm(ema)).square().sum()
+        if self.model_axis is None:
+            diff_sq = torch.stack(torch._foreach_norm(diff)).square().sum()
+            ref_sq = torch.stack(torch._foreach_norm(ema)).square().sum()
+        else:
+            names = list(state.extra)
+            diff_sq = global_sq_sum(names, diff, self.model_axis)
+            ref_sq = global_sq_sum(names, ema, self.model_axis)
         return torch.sqrt(diff_sq / torch.clamp_min(ref_sq, 1e-12))
 
     def loss_and_metric_sums_in_step(self, state: TrainState, images, batch, task_draws, ctx):

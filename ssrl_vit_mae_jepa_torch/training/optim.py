@@ -31,14 +31,22 @@ comes out of a step bit-identical.
 Parameters and moments are updated in place (``torch._foreach_*``), which
 the JAX package's pure updates do not need to do; it saves a copy of every
 parameter per step.
+
+Over a model axis (``model_axis``, set by the task) a rank holds shards of
+the split tensors (``parallel/mesh.py``), so the clip's norm is
+``global_sq_sum``'s: the squared norms of the split gradients summed over
+the model group, the replicated ones (equal on every model rank) counted
+once. AdamW and the weight decay are elementwise and run on the shards.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from ssrl_vit_mae_jepa_torch.parallel.mesh import ModelAxis, all_reduce_sum, param_shardings
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -53,14 +61,32 @@ class AdamWState:
     nu: List[torch.Tensor]
 
 
+def global_sq_sum(names: Sequence[str], tensors: Sequence[torch.Tensor],
+                  model_axis: ModelAxis) -> torch.Tensor:
+    """The sum of squares of the full tensors of which this rank holds
+    ``tensors`` (by ``names``) over ``model_axis``: the split tensors'
+    squared norms summed over the model group, the replicated ones counted
+    once. It reads no host number, so a CUDA graph captures it."""
+    norms = torch._foreach_norm(list(tensors))
+    zero = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    split = [spec is not None for spec in param_shardings(names, model_axis.size).values()]
+    rep = sum((n.float().square() for n, s in zip(norms, split) if not s), zero)
+    shd = sum((n.float().square() for n, s in zip(norms, split) if s), zero)
+    (shd,) = all_reduce_sum([shd.reshape(1)], model_axis.group)
+    return rep + shd[0]
+
+
 class AdamW:
     def __init__(self, learning_rate: float, weight_decay: float,
                  grad_clip: Optional[float] = 1.0,
-                 trainable_mask: Optional[Dict[str, bool]] = None):
+                 trainable_mask: Optional[Dict[str, bool]] = None,
+                 model_axis: Optional[ModelAxis] = None):
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.trainable_mask = trainable_mask
+        #: the model axis the split parameters are sharded over (None: none)
+        self.model_axis = model_axis
 
     def trainable(self, params: Dict[str, torch.Tensor]) -> List[str]:
         """The names the optimizer updates, in ``params``' order."""
@@ -86,7 +112,10 @@ class AdamW:
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
         if self.grad_clip is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            if self.model_axis is None:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            else:  # the full gradient's norm, from this rank's shards
+                norm = torch.sqrt(global_sq_sum(names, g, self.model_axis))
             factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
             g = torch._foreach_mul(g, factor)
         state.count.add_(1)
@@ -107,10 +136,12 @@ class AdamW:
 
 def make_optimizer(learning_rate: float, weight_decay: float,
                    grad_clip: Optional[float] = 1.0,
-                   trainable_mask: Optional[Dict[str, bool]] = None) -> AdamW:
+                   trainable_mask: Optional[Dict[str, bool]] = None,
+                   model_axis: Optional[ModelAxis] = None) -> AdamW:
     """AdamW (β 0.9/0.999, eps 1e-8) behind an optional global-norm clip,
-    over the parameters ``trainable_mask`` marks True (all without it)."""
-    return AdamW(learning_rate, weight_decay, grad_clip, trainable_mask)
+    over the parameters ``trainable_mask`` marks True (all without it),
+    clipping by the full gradient's norm over ``model_axis``."""
+    return AdamW(learning_rate, weight_decay, grad_clip, trainable_mask, model_axis)
 
 
 def set_learning_rate(opt_state: AdamWState, lr: float) -> AdamWState:

@@ -16,11 +16,21 @@ task's masks from the generator it is given. The draws can be injected
 instead, so tests can feed the JAX package's.
 
 Data parallelism (:65-132): with a data axis (``configure_sharding``, set
-by the trainer from the default process group) every rank draws at the
-global batch size from the same generator and keeps its own rows, divides
-its loss by the global weight sum, and all-reduces by sum its gradients
-before the clip and its metric sums, so that N ranks take the step one
-card takes on the whole batch.
+by the trainer from the process grid) every rank draws at the global batch
+size from the same generator and keeps its own rows, divides its loss by
+the global weight sum, and all-reduces by sum over the data group its
+gradients before the clip and its metric sums, so that N ranks take the
+step one card takes on the whole batch.
+
+Tensor parallelism (the JAX mesh's ``model`` axis, :86-99 there): with a
+grid whose model axis is larger than 1, ``init_state`` makes the full
+weights from the seed and keeps each block's shard (``models/vit.py::
+shard_blocks_``), the blocks all-reduce over the model group inside
+themselves, and the clip takes the full gradient's norm
+(``training/optim.py``). The gradients are all-reduced over the data group
+only: a replicated parameter's gradient is already the same on every model
+rank, and a split one's is the rank's own. The ranks of one model row share
+a data rank, so they draw the same rows from generators in lockstep.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch.nn.functional as F
 
 from ssrl_vit_mae_jepa_torch.models.classifier import classifier_from_config
 from ssrl_vit_mae_jepa_torch.models.mae import mae_from_config
+from ssrl_vit_mae_jepa_torch.models.vit import check_tp_blocks, shard_blocks_, unshard_blocks_
 from ssrl_vit_mae_jepa_torch.ops.augment import (
     apply_augment,
     apply_augment_patches,
@@ -44,7 +55,7 @@ from ssrl_vit_mae_jepa_torch.ops.masking import (
     random_token_mask,
     token_occupancy,
 )
-from ssrl_vit_mae_jepa_torch.parallel.mesh import DataAxis, all_reduce_sum
+from ssrl_vit_mae_jepa_torch.parallel.mesh import DataAxis, Grid, ModelAxis, all_reduce_sum
 from ssrl_vit_mae_jepa_torch.training.optim import (
     make_optimizer,
     set_learning_rate,
@@ -94,15 +105,34 @@ class Task:
         self.mask: Optional[Dict[str, bool]] = None
         #: the ranks the batch is split over (``configure_sharding``)
         self.axis: Optional[DataAxis] = None
+        #: the ranks the blocks are split over; None without one larger than 1
+        self.model_axis: Optional[ModelAxis] = None
         #: the captured step of ``train_steps_fused``
         self._graph: Optional[StepGraph] = None
 
-    # ---- data parallelism ----------------------------------------------
-    def configure_sharding(self, axis: Optional[DataAxis]) -> None:
-        """Run the steps over ``axis`` (None: this process alone). A
-        one-rank axis takes the same code path and gives the same bits."""
-        self.axis = axis
+    # ---- data and tensor parallelism -------------------------------------
+    def configure_sharding(self, grid) -> None:
+        """Run the steps over ``grid`` (``parallel.mesh.get_mesh``'s; a
+        bare ``DataAxis`` or None: data parallelism or this process alone).
+        A one-rank axis takes the same code path and gives the same bits. A
+        model axis larger than 1 is checked against the model here (each
+        block's route, heads and hidden units) and takes effect at
+        ``init_state``, which must come after."""
+        if grid is None or isinstance(grid, DataAxis):
+            grid = Grid(grid, None)
+        model = grid.model if grid.model is not None and grid.model.size > 1 else None
+        if model is not None:
+            if self.tx is not None:
+                raise RuntimeError("configure the model axis before init_state: the "
+                                   "weights are cut into shards when they are made")
+            check_tp_blocks(self.model, model.size)
+        self.axis = grid.data
+        self.model_axis = model
         self._graph = None
+
+    def _data_sum(self, tensors):
+        """All-reduce by sum over the data group."""
+        return all_reduce_sum(tensors, self.axis.group)
 
     def _draw_sliced(self, draw, generator: torch.Generator, local_b: int, *args) -> Tuple:
         """``draw(generator, B, *args)``, a tuple of per-example draws with a
@@ -119,7 +149,7 @@ class Task:
         """The weighted mean's denominator: the global weight sum, so that
         each rank's loss is its share of the global mean."""
         if self.axis is not None:
-            (weight_sum,) = all_reduce_sum([weight_sum.detach().float()])
+            (weight_sum,) = self._data_sum([weight_sum.detach().float()])
         return torch.clamp_min(weight_sum, 1.0)
 
     def _psum_sums(self, sums: Sums) -> Sums:
@@ -127,7 +157,7 @@ class Task:
         if self.axis is None:
             return sums
         keys = list(sums)
-        return dict(zip(keys, all_reduce_sum([sums[k].float() for k in keys])))
+        return dict(zip(keys, self._data_sum([sums[k].float() for k in keys])))
 
     def lr_value(self, epoch) -> float:
         return self.base_lr * warmup_cosine_factor(
@@ -177,19 +207,24 @@ class Task:
         state over the trainable parameters, the task's extra state and a
         device generator for the per-step draws. ``init_params_override``
         maps the initial state dict to the one to load (``strict=True``),
-        e.g. ``utils/load.py::merge_encoder`` of a pretrained encoder."""
+        e.g. ``utils/load.py::merge_encoder`` of a pretrained encoder. Over
+        a model axis every rank makes the full weights, then keeps its
+        shards, so they are the single process's."""
         gen = torch.Generator().manual_seed(seed)
         self.model.to("cpu")  # a second call finds the model on its device
+        unshard_blocks_(self.model)  # and, over a model axis, cut
         self.model.init_weights(gen)
         if init_params_override is not None:
             self.model.load_state_dict(init_params_override(self.model.state_dict()),
                                        strict=True)
         self.model.to(self.device)
+        shard_blocks_(self.model, self.model_axis)
         params = dict(self.model.named_parameters())
         self.mask = self.build_mask(params)
         if self.mask is not None:
             stop_gradients_on_frozen(params, self.mask)
-        self.tx = make_optimizer(self.base_lr, self.weight_decay, self.grad_clip, self.mask)
+        self.tx = make_optimizer(self.base_lr, self.weight_decay, self.grad_clip, self.mask,
+                                 self.model_axis)
         step_seed = int(torch.randint(2**62, (1,), generator=gen))
         generator = torch.Generator(self.device).manual_seed(step_seed)
         return TrainState(params, self.tx.init(params), generator,
@@ -237,10 +272,11 @@ class Task:
         grads = torch.autograd.grad(loss, [state.params[n] for n in names])
         sums = {k: v.detach() for k, v in sums.items()}
         if self.axis is not None:
-            # one all_reduce for the gradients and the sums; the clip must
-            # see the global gradient, or the ranks' norms and updates differ
+            # one all_reduce for the gradients and the sums, over the data
+            # group only; the clip must see the global gradient, or the
+            # ranks' norms and updates differ
             keys = list(sums)
-            out = all_reduce_sum([*grads, *(sums[k].to(grads[0].dtype) for k in keys)])
+            out = self._data_sum([*grads, *(sums[k].to(grads[0].dtype) for k in keys)])
             grads, sums = out[:len(grads)], dict(zip(keys, out[len(grads):]))
         return names, grads, sums
 

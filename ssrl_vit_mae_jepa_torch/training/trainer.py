@@ -29,6 +29,15 @@ but only rank 0 writes checkpoints, ``metrics.jsonl`` and the TensorBoard
 logs (``logger`` is None on the others). A resume loads the same file on
 every rank.
 
+Tensor parallelism (``trainer.py:93-95`` there): ``Trainer(mesh=)`` takes
+the (data, model) grid of ``parallel/mesh.py::get_mesh`` (by default
+``get_mesh()``, data parallelism over the default group); the task makes
+the full weights from the seed on every rank and keeps its shards. The
+checkpoints hold full tensors: ``save`` gathers the params, the Adam moments
+and JEPA's EMA target (the model ranks of rank 0's row take part), and a
+resume gathers the state, restores it and cuts it again. ``world`` and
+``images_per_s`` count data ranks, not processes.
+
 A resume takes the port's checkpoints and the JAX package's native trainer
 checkpoints (``utils/checkpoint.py::restore_native_state``). Not ported: the
 orbax checkpoint backend, a JAX format (the CLIs refuse ``ckpt_backend:
@@ -44,15 +53,19 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ssrl_vit_mae_jepa_torch.data.pipeline import HostLoader, device_prefetch
-from ssrl_vit_mae_jepa_torch.parallel.mesh import get_data_axis
+from ssrl_vit_mae_jepa_torch.parallel import multihost
+from ssrl_vit_mae_jepa_torch.parallel.mesh import Grid, get_mesh, shard_params
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
 from ssrl_vit_mae_jepa_torch.training.tasks import Task
 from ssrl_vit_mae_jepa_torch.utils.checkpoint import (
     CheckpointCallbacks,
+    gather_state_,
+    gathered_payload,
     load_checkpoint,
     restore_native_state,
     restore_state,
     save_checkpoint,
+    shard_state_,
     state_payload,
 )
 from ssrl_vit_mae_jepa_torch.utils.flax_msgpack import is_native_zip
@@ -87,15 +100,21 @@ class Trainer:
     def __init__(self, task: Task, max_epochs: int, output_dir: str | Path, seed: int = 73,
                  hyper_parameters: Optional[Dict[str, Any]] = None,
                  log_every_n_steps: Optional[int] = None,
-                 periodic_ckpt_every: Optional[int] = None):
+                 periodic_ckpt_every: Optional[int] = None,
+                 mesh: Optional[Grid] = None):
         self.task = task
         self.max_epochs = max_epochs
         self.output_dir = Path(output_dir)
-        self.axis = get_data_axis()
-        task.configure_sharding(self.axis)
+        self.mesh = mesh if mesh is not None else get_mesh()
+        task.configure_sharding(self.mesh)
+        self.axis = self.mesh.data
+        #: the data ranks (the global batch is the loader's batch times this)
         self.world = 1 if self.axis is None else self.axis.size
         #: rank 0, the one process that writes files
-        self.is_main = self.axis is None or self.axis.rank == 0
+        self.is_main = multihost.rank() == 0
+        #: whether this rank takes part in making the checkpoints' payload:
+        #: rank 0 and, over a model axis, the rest of its model row (gathers)
+        self._payloads = self.is_main or (task.model_axis is not None and self.axis.rank == 0)
         self.seed = seed
         self.log_every_n_steps = log_every_n_steps
         self.logger = MetricsLogger(self.output_dir) if self.is_main else None
@@ -157,9 +176,10 @@ class Trainer:
                      if k not in ("epoch_time_s", "images_per_s")}
             print(f"Epoch {epoch}: {n_steps} steps, {dt:.1f}s, "
                   f"{metrics['images_per_s']:.0f} img/s - {shown}", flush=True)
+            payload = self._payload() if self._payloads else None
             if self.is_main:
                 self.callbacks.on_epoch_end(
-                    epoch, metrics, self._payload(),
+                    epoch, metrics, payload,
                     meta_base={"global_step": self.global_step,
                                "hyper_parameters": self.hyper_parameters})
                 self.logger.flush()
@@ -200,24 +220,36 @@ class Trainer:
 
     def save(self, path: str | Path) -> Optional[Path]:
         """The whole state as a checkpoint that resumes (``fit(resume_from=)``),
-        written by rank 0 (None on the others)."""
+        written by rank 0 (None on the others); over a model axis every rank
+        calls it (rank 0's model row gathers the shards)."""
+        payload = self._payload() if self._payloads else None
         if not self.is_main:
             return None
-        return save_checkpoint(path, self._payload(), {"hyper_parameters": self.hyper_parameters,
-                                                       "global_step": self.global_step})
+        return save_checkpoint(path, payload, {"hyper_parameters": self.hyper_parameters,
+                                               "global_step": self.global_step})
 
     def _payload(self) -> Dict[str, Any]:
-        return state_payload(self.state, self.task.model.state_dict(), self.task.tx)
+        """The checkpoint's tensors, full ones over a model axis."""
+        tp = self.task.model_axis
+        if tp is None:
+            return state_payload(self.state, self.task.model.state_dict(), self.task.tx)
+        return gathered_payload(self.state, self.task.model.state_dict(), self.task.tx, tp)
 
     def _resume(self, path: str | Path) -> int:
         """Restore the state from the port's checkpoint or the JAX package's
-        native trainer checkpoint; returns the epoch to go on from."""
+        native trainer checkpoint; returns the epoch to go on from. Over a
+        model axis the state is full while it is restored, then cut again."""
+        tp = self.task.model_axis
+        if tp is not None:
+            gather_state_(self.state, self.task.tx, tp)
         if is_native_zip(path):
             ckpt = restore_native_state(path, self.state, self.task.model, self.task.tx,
                                         self.task.flax_params_to_state)
         else:
             ckpt = load_checkpoint(path)
             restore_state(ckpt, self.state, self.task.model, self.task.tx)
+        if tp is not None:
+            shard_state_(self.state, self.task.tx, tp)
         self.global_step = int(ckpt.get("global_step", 0))
         self.callbacks.best_score = ckpt.get("callbacks", {}).get("best_model_score")
         start_epoch = int(ckpt.get("epoch", -1)) + 1
@@ -230,6 +262,6 @@ class Trainer:
         state."""
         if self.state is None:
             self.init_state()
-        self.task.model.load_state_dict(params, strict=True)
+        self.task.model.load_state_dict(shard_params(params, self.task.model_axis), strict=True)
         self.state.opt_state = self.task.tx.init(self.state.params)
         return self.state

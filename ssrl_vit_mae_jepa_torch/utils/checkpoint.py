@@ -27,17 +27,26 @@ and Adam's moments through the task's relayout of ``utils/interop.py``,
 JEPA's EMA target through the encoder's, count, rate, step, and the
 ``meta.json`` that holds epoch, global step and best score. A threefry key
 has no torch generator state: the generator is seeded from its two words.
+
+A checkpoint always holds full tensors. Over a model axis
+(``parallel/mesh.py``) ``gathered_payload`` gathers the shards of the
+params, the moments and the EMA target before the payload is made, and
+``gather_state_`` / ``shard_state_`` take a state to full tensors and back
+in place around a restore, so a file written by a grid and one written by
+one process load alike in either.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ssrl_vit_mae_jepa_torch.parallel.mesh import ModelAxis, gather_params, shard_params
 from ssrl_vit_mae_jepa_torch.training.optim import AdamW
 from ssrl_vit_mae_jepa_torch.training.state import TrainState
 from ssrl_vit_mae_jepa_torch.utils.flax_msgpack import read_native_checkpoint
@@ -71,6 +80,45 @@ def state_payload(state: TrainState, model_state: Dict[str, torch.Tensor],
     out["extra"] = None if state.extra is None else _host(state.extra)
     out["step"] = int(state.step)
     return out
+
+
+def _moments(state: TrainState, tx: AdamW):
+    names = tx.trainable(state.params)
+    return dict(zip(names, state.opt_state.mu)), dict(zip(names, state.opt_state.nu))
+
+
+def gathered_payload(state: TrainState, model_state: Dict[str, torch.Tensor], tx: AdamW,
+                     axis: ModelAxis) -> Dict[str, Any]:
+    """:func:`state_payload` of the full state of which this rank holds a
+    shard over ``axis``: every rank of the model group must call it (the
+    gathers are all-reduces over the group)."""
+    mu, nu = _moments(state, tx)
+    mu, nu = gather_params(mu, axis), gather_params(nu, axis)
+    opt = replace(state.opt_state, mu=list(mu.values()), nu=list(nu.values()))
+    extra = None if state.extra is None else gather_params(state.extra, axis)
+    full = replace(state, opt_state=opt, extra=extra)
+    return state_payload(full, gather_params(model_state, axis), tx)
+
+
+def _set_data(tensors: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
+    for k, t in tensors.items():
+        t.data = new[k]
+
+
+@torch.no_grad()
+def gather_state_(state: TrainState, tx: AdamW, axis: ModelAxis) -> None:
+    """The params (so the model's own), moments and EMA target of ``state``
+    as full tensors, in place (the tensor objects stay): a collective over
+    the model group."""
+    for group in (state.params, *_moments(state, tx), state.extra or {}):
+        _set_data(group, gather_params(group, axis))
+
+
+@torch.no_grad()
+def shard_state_(state: TrainState, tx: AdamW, axis: ModelAxis) -> None:
+    """``gather_state_`` undone: this rank's shards again, in place."""
+    for group in (state.params, *_moments(state, tx), state.extra or {}):
+        _set_data(group, shard_params(group, axis))
 
 
 def save_checkpoint(path: str | Path, payload: Dict[str, Any],

@@ -1134,3 +1134,109 @@ def test_fused_steps_replay_the_eager_steps(cuda, kind):
     assert torch.equal(ga, gb)
     assert sa.keys() == sb.keys() and all(
         torch.equal(sa[k], sb[k]) if torch.is_tensor(sa[k]) else sa[k] == sb[k] for k in sa)
+
+
+# The branches split over a model axis (``ops/block_fused.py``'s TP entries):
+# each shard's partial kernels, the finish and the LN backward against their
+# plain versions, at model_parallel 2 and 3 (attention widths 72, 48, 96, 64,
+# 48, 32, 24; hidden slices 288, 192, 384, 256, 192, 128, 96; the encoder's
+# proj at mp=2 has K=72, a K tail of the wgmma loop), bf16 and f32; and the
+# shards finished together against the unsplit branch kernel.
+TP_SHAPES = [(64, 37, 144, 6, 2), (64, 37, 144, 6, 3), (32, 145, 192, 6, 2),
+             (32, 145, 192, 6, 3), (32, 145, 96, 6, 2), (32, 145, 96, 6, 3), (3, 17, 48, 4, 2)]
+
+
+def _tp_operands(kind, params, mp, m):
+    from ssrl_vit_mae_jepa_torch.parallel.mesh import ShardSpec, shard_index
+
+    D, dev = params[0].shape[0], params[0].device
+    if kind == "attn":
+        rows = shard_index(ShardSpec(0, 3), 3 * D, mp, m).to(dev)
+        cols = shard_index(ShardSpec(1), D, mp, m).to(dev)
+        return (params[0], params[1], params[2][rows], params[3][rows], params[4][:, cols])
+    fs = shard_index(ShardSpec(0), params[2].shape[0], mp, m).to(dev)
+    return (params[0], params[1], params[2][fs], params[3][fs], params[4][:, fs])
+
+
+def _within(got, want, rel):
+    err = (got.float() - want.float()).abs().max().item()
+    return err <= rel * want.float().abs().max().item() + 1e-6, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("kind", ["attn", "mlp"])
+@pytest.mark.parametrize("B,L,D,H,mp", TP_SHAPES)
+def test_tp_entries_match_plain(cuda, dtype, kind, B, L, D, H, mp):
+    f32 = dtype == "f32"
+    dt = torch.float32 if f32 else torch.bfloat16
+    fwd_atol, bwd_rel = (5e-5, 1e-4) if f32 else (6e-2, 2e-2)
+    x, dy, params = _inputs(kind, B, L, D, cuda)
+    x, dy = x.to(dt), dy.to(dt)
+    hl = H // mp
+    s = dys = 0
+    for m in range(mp):
+        p = _tp_operands(kind, params, mp, m)
+        if kind == "attn":
+            part, a = bf.attn_branch_partial(x, p, hl)
+            part_ns, none = bf.attn_branch_partial(x, p, hl, stash=False)
+            assert none is None and torch.equal(part_ns, part)
+            ref, _ = bf.attn_part_plain(x, p, hl)
+            dy1, grads = bf.attn_branch_partial_bwd(x, p, a, dy, hl)
+            dy1_r, grads_r = bf.attn_part_bwd_plain(x, p, a, dy, hl)
+        else:
+            part = bf.mlp_branch_partial(x, p)
+            ref = bf.mlp_part_plain(x, p)
+            dy1, grads = bf.mlp_branch_partial_bwd(x, p, dy)
+            dy1_r, grads_r = bf.mlp_part_bwd_plain(x, p, dy)
+        torch.cuda.synchronize()
+        assert part.dtype == torch.float32 and part.shape == (B, L, D)
+        assert (part - ref).abs().max().item() <= fwd_atol
+        for name, k, r in zip(("dy", "dw_a", "db_a", "dw_b"), (dy1, *grads), (dy1_r, *grads_r)):
+            assert k.shape == r.shape, name
+            ok, err = _within(k, r, bwd_rel)
+            assert ok, f"shard {m} {name}: {err}"
+        s, dys = s + part, dys + dy1
+    out = bf.branch_finish(x, s, params[5])
+    assert torch.equal(out, bf.branch_finish_plain(x, s, params[5]))
+    dx, dln = bf.branch_ln_bwd(x, params[0], dys, dy)
+    dx_r, dln_r = bf.ln_bwd_plain(x, params[0], dys, dy)
+    for name, k, r in zip(("dx", "d_ln_s", "d_ln_b", "d_bias"), (dx, *dln), (dx_r, *dln_r)):
+        ok, err = _within(k, r, bwd_rel)
+        assert ok, f"LN backward {name}: {err}"
+    # the shards finished together are the unsplit branch, up to f32 order
+    leaves = [x.clone().requires_grad_()] + [q.clone().requires_grad_() for q in params]
+    whole = (bf.fused_attn_branch(*leaves, H) if kind == "attn"
+             else bf.fused_mlp_branch(*leaves))
+    assert (whole.float() - out.float()).abs().max().item() <= fwd_atol
+    gw = torch.autograd.grad(whole, leaves, dy)
+    for name, k, r in (("dx", dx, gw[0]), ("d_ln_s", dln[0], gw[1]), ("d_ln_b", dln[1], gw[2]),
+                       ("d_bias", dln[2], gw[6])):
+        ok, err = _within(k, r, bwd_rel)
+        assert ok, f"whole {name}: {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_tp_entries_count_and_are_deterministic(cuda, dtype):
+    """Each TP entry adds one to its own counter per launch, and two calls
+    give the same bits."""
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, dy, params = _inputs("attn", 8, 37, 144, cuda)
+    x, dy = x.to(dt), dy.to(dt)
+    p = _tp_operands("attn", params, 2, 1)
+    bf.reset_launch_counts()
+    runs = [bf.attn_branch_partial(x, p, 3) for _ in range(2)]
+    grads = [bf.attn_branch_partial_bwd(x, p, runs[0][1], dy, 3) for _ in range(2)]
+    ln = [bf.branch_ln_bwd(x, params[0], grads[0][0], dy) for _ in range(2)]
+    fin = [bf.branch_finish(x, runs[0][0], params[5]) for _ in range(2)]
+    torch.cuda.synchronize()
+    key = lambda k: bf.dtype_key(dt, k)  # noqa: E731
+    assert {k: v for k, v in bf.LAUNCHES.items() if v} == {
+        key("attn_branch_part_fwd"): 2, key("attn_branch_part_bwd"): 2,
+        key("branch_ln_bwd"): 2, key("branch_finish"): 2}
+    for pair in (runs, [g[1] for g in grads], [g[0] for g in grads], [r[0] for r in ln],
+                 [r[1] for r in ln], fin):
+        a, b = pair
+        for u, v in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)

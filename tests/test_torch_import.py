@@ -29,7 +29,7 @@ print(" ".join(names))
 """
 # the modules of the JEPA slice, the fused patch embed, the chained blocks,
 # the classifier stage with its engine and data path, the CLIs, the data
-# parallelism and the checkpoint-fidelity CLIs, among all others
+# and tensor parallelism and the checkpoint-fidelity CLIs, among all others
 CLI_MODULES = {"scripts.utils", "scripts.data", "scripts.training.pretrain_mae",
                "scripts.training.train_mae", "scripts.training.pretrain_jepa",
                "scripts.evaluation.evaluate_classifier", "scripts.evaluation.knn_eval",
@@ -48,7 +48,7 @@ NEW_MODULES = {"config", "ops.jepa_masking", "ops.embed_fused", "models.jepa",
                "models.classifier", "training.trainer", "utils.checkpoint", "utils.load",
                "utils.metrics_logger", "data.stl10", "data.pipeline", "data.loaders",
                "runtime.native", "utils.umap_np", "utils.profiling", "parallel",
-               "parallel.mesh", "parallel.multihost", "bench", "utils.flops",
+               "parallel.mesh", "parallel.multihost", "parallel.tensor", "bench", "utils.flops",
                "utils.flax_msgpack", "utils.interop"} | CLI_MODULES
 
 
@@ -63,7 +63,7 @@ def test_port_imports_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     names = proc.stdout.split()
-    assert len(names) >= 70  # every module of the port, the CLIs' among them
+    assert len(names) >= 74  # every module of the port, the CLIs' among them
     assert {f"ssrl_vit_mae_jepa_torch.{m}" for m in NEW_MODULES} <= set(names)
 
 
