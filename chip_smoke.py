@@ -57,16 +57,26 @@ Phases (any failure exits nonzero; nothing is caught):
      (4), and no attention-entry or embed kernel;
   9. phase 8 with ``SSRL_FUSED_EMBED=1`` (two embed forwards and one
      backward more per step), then phase 4 with it (one and one more);
-  3d. the whole-block kernel of ``csrc/fused_block.cu`` at the five block
-     geometries of phase 3, forward and all 13 backward outputs (the target
-     encoder's through the no-grad forward), against ``block_ref``, with
-     the kernel's and the plain version's times;
+  3d. the MLP half of the whole block and the chain alone (one kernel each
+     way, ``csrc/block_mlp.cu``) at the block geometries against
+     ``mlp_fwd_plain`` / ``mlp_bwd_plain``, z rounded and in f32, forward
+     and all seven backward outputs, the rounded forward equal to the split
+     MLP branch's bit for bit, with CUDA-event, device and plain times;
+     then the whole-block kernel of ``csrc/fused_block.cu`` at the five
+     block geometries of phase 3, forward and all 13 backward outputs (the
+     target encoder's through the no-grad forward), against ``block_ref``,
+     with the kernel's and the plain version's times;
   3e. the chained-block kernel of ``csrc/block_chain.cu`` at the five
      stacks (MAE encoder N=4 and decoder N=2, JEPA context encoder N=4 and
      predictor N=2 with the stash forward and the backward; the JEPA target
      encoder N=4 through the no-grad forward) against ``chain_ref``, with
      times; the stash forward's output equals the no-grad forward's and the
-     split kernels' bit for bit;
+     split kernels' bit for bit. In 3d and 3e each call's device time and
+     kernel launches under ``torch.profiler``, beside the split kernels'
+     (rows 1 + 4 forward, 2 + 5 backward) on the same blocks; a pass fails
+     unless it launches the MLP-half kernel once a block, no GELU epilogue
+     of the branch GEMM (z never reaches memory) and LN1 once a block, the
+     backward's qkv product once a block;
   3f. the f32 forwards of ``csrc/branch_f32.cu`` (the attention branch
      without stash and the MLP branch, f32 throughout, TF32 off) against
      their plain versions at the feature extractor's (256, 145, 144) and the
@@ -245,7 +255,7 @@ just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
 
-The line before the last is ``{"kernels": [...]}`` (56 entries): per
+The line before the last is ``{"kernels": [...]}`` (58 entries): per
 kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
 ``step`` (the MAE step where it runs the kernel, else the JEPA step),
 ``*_jepa`` the same per JEPA step, ``*_classifier`` per full fine-tune
@@ -256,7 +266,11 @@ batch of 256 (``step`` "features"), ``*_reconstruction`` per
 rate (the f32 training kernels per f32 step of ``step``). ``ms`` and
 the other times are CUDA-event means of the wrapper's call, host work
 included; ``device_ms`` and ``library_device_ms`` (attention and embed
-rows) are the summed durations of the device kernels one call launches.
+rows) are the summed durations of the device kernels one call launches;
+the block and chain rows add ``split_device_ms`` (the split kernels on the
+same blocks) and ``kernel_launches`` / ``split_kernel_launches`` (device
+kernels a call), the MLP-half rows ``also_replaces`` (the chain's TPU
+kernels, whose MLP half they run too).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -268,6 +282,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -387,6 +402,17 @@ BLOCK_KERNELS = {"block_fwd": _TPU + "block_pallas.py:408",
 CHAIN_KERNELS = {"chain_fwd": _TPU + "block_chain.py:261",
                  "chain_fwd_nograd": _TPU + "block_chain.py:235",
                  "chain_bwd": _TPU + "block_chain.py:288"}
+# the MLP half of the bf16 whole block and chain, one kernel each way
+# (csrc/block_mlp.cu), per block: kernel -> the TPU kernel of the whole block
+# whose MLP half it runs (the chain's are in HALF_ALSO)
+HALF_KERNELS = {"mlp_half_fwd": _TPU + "block_pallas.py:408",
+                "mlp_half_bwd": _TPU + "block_pallas.py:442"}
+HALF_ALSO = {"mlp_half_fwd": _TPU + "block_chain.py:235, :261",
+             "mlp_half_bwd": _TPU + "block_chain.py:288"}
+# the branch GEMM's epilogues with a GELU (ssrl::Epi 4-7, csrc/gemm.cuh) and
+# the NT bias epilogue (2, the qkv product), by kernel name
+GELU_EPIS = {4, 5, 6, 7}
+EPI_QKV = 2
 CHAIN_DEPTH = {"enc": 4, "dec": 2, "ctx": 4, "pred": 2, "tgt": 4, "cls": 4}
 CHAIN_CALLS = {"mae": {"enc": 1, "dec": 1}, "jepa": {"ctx": 1, "pred": 1, "tgt": 1},
                "classifier": {"cls": 1}}
@@ -403,7 +429,9 @@ CLS_LAUNCHES = {
     "eval": {"attn_branch_fwd_nograd": 4, "mlp_branch_fwd": 4},
 }
 # the classifier's full fine-tune and eval step on attn_impl="block" (phase 24)
-CLS_BLOCK_LAUNCHES = {"full": {"block_fwd": 4, "block_bwd": 4}, "eval": {"block_fwd_nograd": 4}}
+CLS_BLOCK_LAUNCHES = {"full": {"block_fwd": 4, "block_bwd": 4, "mlp_half_fwd": 4,
+                               "mlp_half_bwd": 4},
+                      "eval": {"block_fwd_nograd": 4, "mlp_half_fwd": 4}}
 
 
 def cls_launches(policy: str, impl: str = "auto", fused: bool = False) -> dict:
@@ -469,8 +497,11 @@ def step_tolerances(dtype) -> tuple:
 
 def launch_names(per_step: dict, dtype) -> dict:
     """Launch counts keyed for ``dtype``: an f32 kernel counts under its bf16
-    twin's key + ``_f32`` (``block_fused.dtype_key``)."""
-    return {bf.dtype_key(dtype, k): v for k, v in per_step.items()}
+    twin's key + ``_f32`` (``block_fused.dtype_key``); the MLP-half kernels
+    of the bf16 whole block and chain have no f32 twin (the f32 entries run
+    the split f32 sequences)."""
+    return {bf.dtype_key(dtype, k): v for k, v in per_step.items()
+            if dtype == torch.bfloat16 or not k.startswith("mlp_half")}
 
 
 def fail(msg: str) -> None:
@@ -618,7 +649,8 @@ def summarize(per_geo: dict, err: float, calls_by_step: dict) -> dict:
     per step under ``*_<path>``, every geometry's per call under ``*_<geo>``."""
     runs = [s for s, calls in calls_by_step.items() if any(g in per_geo for g in calls)]
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
-                        "library_device_ms")
+                        "library_device_ms", "split_device_ms", "kernel_launches",
+                        "split_kernel_launches")
             if all(k in v for v in per_geo.values())]
     worst = max(per_geo.values(), key=lambda v: v["bound_ms"])
     r = {"max_abs_err": err, "bound_by": worst["bound_by"], "step": runs[0]}
@@ -886,6 +918,163 @@ def stack_inputs(L: int, D: int, N: int, seed: int, dtype=torch.bfloat16):
     return x, dy, params
 
 
+def gemm_epis(counts: dict) -> dict:
+    """Epilogue (``ssrl::Epi``) -> launches a call of the branch GEMM, from
+    ``device_ms``'s launches by kernel name."""
+    out = {}
+    for name, n in counts.items():
+        m = re.search(r"gemm_sm90_kernel<\w+, \w+, \d+, (\d+)>", name)
+        if m:
+            out[int(m.group(1))] = out.get(int(m.group(1)), 0) + n
+    return out
+
+
+def named(counts: dict, part: str) -> float:
+    """Launches a call of the kernels whose names hold ``part``."""
+    return sum(n for k, n in counts.items() if part in k)
+
+
+def split_stack(x, params, H: int):
+    """The same blocks on the split branch kernels (rows 1 + 4 forward; with
+    grad their backward is rows 2 + 5)."""
+    for p in params:
+        x = bf.fused_mlp_branch(bf.fused_attn_branch(x, *p[:6], H), *p[6:])
+    return x
+
+
+def call_launches(fn, ok, sessions: int = 3) -> dict:
+    """Device kernel name -> launches of one call of ``fn`` under
+    ``torch.profiler``: the first of ``sessions`` sessions whose counts
+    ``ok`` accepts (a session now and then loses kernels), else the last."""
+    for _ in range(sessions):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+        if ok(counts):
+            break
+    return counts
+
+
+def stack_device(kind: str, geo: str, N: int, fwd_fn, bwd_fn, x, dy, params, H: int) -> dict:
+    """Phases 3d / 3e at bf16: device time and kernel launches of one call
+    of the forward (``fwd_fn``, with or without grad) and of the backward
+    (``bwd_fn``, or None under no-grad), and the split kernels' on the same
+    blocks; fails unless each pass launches the MLP-half kernel once a block
+    and no GELU epilogue of the branch GEMM (z never reaches memory), and
+    LN1 once a block, with the backward's qkv product once a block."""
+    grad = bwd_fn is not None
+    xs = x.clone().requires_grad_(grad)
+    ps = [[t.clone().requires_grad_(grad) for t in p] for p in params]
+    res, line = {}, []
+    with torch.set_grad_enabled(grad):
+        out_s = split_stack(xs, ps, H)
+    passes = [("fwd", fwd_fn, lambda: split_stack(xs, ps, H), "mlp_half_fwd_kernel")]
+    if grad:
+        leaves_s = [xs] + [t for p in ps for t in p]
+        passes.append(("bwd", bwd_fn, lambda: torch.autograd.grad(out_s, leaves_s, dy,
+                                                                    retain_graph=True),
+                       "mlp_half_bwd_kernel"))
+    for pas, fn, split, half in passes:
+        def ok(counts):
+            epis = gemm_epis(counts)
+            return (named(counts, half) == N and named(counts, "ln_fwd_kernel") == N
+                    and not set(epis) & GELU_EPIS
+                    and (pas == "fwd" or epis.get(EPI_QKV) == N))
+
+        with torch.set_grad_enabled(grad):
+            # the larger of two sessions: a session that loses kernels reads low
+            ms = max(device_ms(fn), device_ms(fn))
+            split_ms = max(device_ms(split), device_ms(split))
+            counts = call_launches(fn, ok)
+            split_counts = call_launches(split, lambda c: True)
+        res[pas] = {"device_ms": ms, "split_device_ms": split_ms,
+                    "kernel_launches": sum(counts.values()),
+                    "split_kernel_launches": sum(split_counts.values())}
+        epis = gemm_epis(counts)
+        line.append(f"{pas} {ms:.3f} ms, {sum(counts.values())} launches (split pair "
+                    f"{split_ms:.3f} ms, {sum(split_counts.values())}); MLP half "
+                    f"{named(counts, half)}, LN1 {named(counts, 'ln_fwd_kernel')}, "
+                    f"qkv {epis.get(EPI_QKV, 0)}, GELU epilogues "
+                    f"{sum(epis.get(e, 0) for e in GELU_EPIS)}")
+        if not ok(counts):
+            fail(f"{kind}@{geo} {pas}: launches a call {counts}")
+    del out_s, xs, ps
+    print(f"  {kind}@{geo} device, per call: " + "; ".join(line), flush=True)
+    return res
+
+
+def half_bounds(L: int, D: int):
+    """Per-call (fwd, bwd) bounds of the MLP half at (B, L, D), F = 4D: the
+    forward reads x and writes out (bf16), 16MD^2 operations (fc1, fc2);
+    the backward reads x and the f32 gradient, writes dx in bf16 and f32
+    and the f32 parameter gradients, 40MD^2 operations (fc1 again, dh, dW2,
+    dW1, dy2); weights (bf16) and LN params (f32) read once."""
+    M = BATCH * L
+    w = 8 * D * D * 2 + 5 * D * 2 + 2 * D * 4
+    fwd = bound(2 * M * D * 2 + w, 16 * M * D * D)
+    bwd = bound(M * D * (2 + 4 + 2 + 4) + w + (8 * D * D + 7 * D) * 4, 40 * M * D * D)
+    return fwd, bwd
+
+
+def check_mlp_half() -> dict:
+    """Phase 3d, first: the MLP-half kernels of ``csrc/block_mlp.cu`` alone
+    at the block geometries against ``mlp_fwd_plain`` / ``mlp_bwd_plain``
+    on the card, z rounded (the chain's) and in f32 (the whole block's):
+    the forward within FWD_ATOL, the f32 input gradient and the six
+    parameter gradients within BWD_REL of their largest magnitudes, the
+    rounded forward equal to the split MLP branch's bit for bit; per-call
+    CUDA-event and device times (z in f32), the plain version's and the
+    bounds. The target geometry has no backward in a step."""
+    per = {k: {} for k in HALF_KERNELS}
+    errs = dict.fromkeys(HALF_KERNELS, 0.0)
+    names = ["dx", "d_ln_scale", "d_ln_bias", "d_w1", "d_b1", "d_w2", "d_b2"]
+    for geo, (L, D, _) in GEOMETRIES.items():
+        x, dy, params = branch_inputs("mlp", L, D, seed=L + D + 1)
+        gy = dy.float()
+        for round_z in (True, False):
+            z = "z bf16" if round_z else "z f32"
+            out = bf.mlp_half(x, params, round_z)
+            dx, grads = bf.mlp_half_bwd(x, params, gy, round_z)
+            out_r = bf.mlp_fwd_plain(x, params, round_z)
+            dx_r, grads_r = bf.mlp_bwd_plain(x, params, gy, round_z)
+            fwd_err = (out.float() - out_r.float()).abs().max().item()
+            if not fwd_err <= FWD_ATOL:
+                fail(f"mlp_half@{geo} {z} forward: max abs err {fwd_err} > {FWD_ATOL}")
+            errs["mlp_half_fwd"] = max(errs["mlp_half_fwd"], fwd_err)
+            errs["mlp_half_bwd"] = max(errs["mlp_half_bwd"], check_grads(
+                f"mlp_half@{geo} {z}", names, (dx, *grads), (dx_r, *grads_r)))
+            if round_z:
+                with torch.no_grad():
+                    if not torch.equal(out, bf.fused_mlp_branch(x, *params)):
+                        fail(f"mlp_half@{geo}: the forward differs from the split MLP branch's")
+            del out, dx, grads, out_r, dx_r, grads_r
+        (bf_ms, bf_by), (bb_ms, bb_by) = half_bounds(L, D)
+        fwd = lambda: bf.mlp_half(x, params, False)  # noqa: E731
+        bwd = lambda: bf.mlp_half_bwd(x, params, gy, False)  # noqa: E731
+        per["mlp_half_fwd"][geo] = {
+            "ms": cuda_ms(fwd), "device_ms": device_ms(fwd), "bound_ms": bf_ms, "bound_by": bf_by,
+            "plain_ms": cuda_ms(lambda: bf.mlp_fwd_plain(x, params, False))}
+        line = (f"  mlp_half@{geo} L={L} D={D}: fwd {per['mlp_half_fwd'][geo]['ms']:.3f} ms "
+                f"(device {per['mlp_half_fwd'][geo]['device_ms']:.3f}, plain "
+                f"{per['mlp_half_fwd'][geo]['plain_ms']:.3f}, bound {bf_ms:.3f})")
+        if geo != "tgt":
+            per["mlp_half_bwd"][geo] = {
+                "ms": cuda_ms(bwd), "device_ms": device_ms(bwd), "bound_ms": bb_ms,
+                "bound_by": bb_by,
+                "plain_ms": cuda_ms(lambda: bf.mlp_bwd_plain(x, params, gy, False))}
+            r = per["mlp_half_bwd"][geo]
+            line += (f", bwd {r['ms']:.3f} ms (device {r['device_ms']:.3f}, plain "
+                     f"{r['plain_ms']:.3f}, bound {bb_ms:.3f})")
+        print(line, flush=True)
+        del x, dy, params, gy
+        torch.cuda.empty_cache()
+    return {k: summarize(per[k], errs[k], STEP_CALLS) for k in HALF_KERNELS}
+
+
 def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
     """Phases 3d (``kind="block"``: one block per geometry) and 3e
     (``"chain"``: CHAIN_DEPTH blocks), and at f32 phase 24 (a): the kernels
@@ -944,6 +1133,12 @@ def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
         key = fwd if grad else nograd
         per[key][geo] = {"ms": t_fwd, "plain_ms": t_plain, "bound_ms": bf_ms, "bound_by": bf_by}
         errs[key] = max(errs[key], fwd_err)
+        if not f32:
+            dev = stack_device(
+                kind, geo, N, (lambda: kern(xl, pl)) if grad else (lambda: kern(x, params)),
+                (lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True))
+                if grad else None, x, dy, params, H)
+            per[key][geo].update(dev["fwd"])
         line = (f"  {kind}@{geo} {DT_NAME[dtype]} L={L} D={D} N={N}: fwd {t_fwd:.3f} ms (plain "
                 f"{t_plain:.3f}, bound {bf_ms:.3f})")
         if grad:
@@ -966,6 +1161,8 @@ def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
                              **timing)
             per[bwd][geo] = {"ms": t_bwd, "plain_ms": t_pbwd, "bound_ms": bb_ms,
                              "bound_by": bb_by}
+            if not f32:
+                per[bwd][geo].update(dev["bwd"])
             errs[bwd] = max(errs[bwd], bwd_err)
             line += (f", bwd {t_bwd:.3f} ms (plain {t_pbwd:.3f}, bound {bb_ms:.3f}); bwd max "
                      f"abs err {bwd_err:.3e}")
@@ -1321,7 +1518,8 @@ def expected(per_step: dict, steps: int = 1) -> dict:
 def mae_launches(impl: str, fused_embed: bool = False) -> dict:
     """Launches per MAE step on the main path of ``impl``: one forward and
     one backward of its kernels per block (6 blocks), or per stack (2
-    chains), with the fused embed one of each more."""
+    chains), with the fused embed one of each more; block and chain launch
+    the MLP-half kernels once a block each way."""
     names = ["attn_branch_fwd", "attn_branch_bwd", "mlp_branch_fwd", "mlp_branch_bwd"]
     if impl == "chain":
         names = ["chain_fwd", "chain_bwd"]
@@ -1329,8 +1527,10 @@ def mae_launches(impl: str, fused_embed: bool = False) -> dict:
         names = ["block_fwd", "block_bwd"]
     elif impl != "auto":
         names = [f"{IMPL_ENTRY[impl]}_{pas}" for pas in ("fwd", "bwd")]
-    n = len(CHAIN_CALLS["mae"]) if impl == "chain" else sum(STEP_CALLS["mae"].values())
-    want = dict.fromkeys(names, n)
+    blocks = sum(STEP_CALLS["mae"].values())
+    want = dict.fromkeys(names, len(CHAIN_CALLS["mae"]) if impl == "chain" else blocks)
+    if impl in ("block", "chain"):
+        want.update(mlp_half_fwd=blocks, mlp_half_bwd=blocks)
     if fused_embed:
         want.update(patch_embed_fwd=1, patch_embed_bwd=1)
     return want
@@ -1349,6 +1549,8 @@ def jepa_launches(fused_embed: bool, impl: str = "auto") -> dict:
         want = {"block_fwd": grad, "block_fwd_nograd": c["tgt"], "block_bwd": grad}
     elif impl == "chain":
         want = {"chain_fwd": 2, "chain_fwd_nograd": 1, "chain_bwd": 2}
+    if impl in ("block", "chain"):
+        want.update(mlp_half_fwd=grad + c["tgt"], mlp_half_bwd=grad)
     if fused_embed:
         want.update(patch_embed_fwd=2, patch_embed_bwd=1)
     return want
@@ -4234,7 +4436,9 @@ def main() -> None:
         res.update(check_attention())
     with timed_phase(times, "3c", "patch-embed kernels vs plain version (B=768, bf16)"):
         res.update(check_embed())
-    with timed_phase(times, "3d", "whole-block kernels vs plain version (B=768, bf16)"):
+    with timed_phase(times, "3d", "MLP-half and whole-block kernels vs plain versions "
+                     "(B=768, bf16)"):
+        res.update(check_mlp_half())
         res.update(check_stack("block"))
     with timed_phase(times, "3e", "chained-block kernels vs plain version (B=768, bf16)"):
         res.update(check_stack("chain"))
@@ -4330,6 +4534,8 @@ def main() -> None:
              for pas, replaces in (("fwd", r_fwd), ("bwd", r_bwd))]
     rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/patch_embed.cu", replaces)
              for k, replaces in EMBED_KERNELS.items()]
+    rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/block_mlp.cu", replaces)
+             for k, replaces in HALF_KERNELS.items()]
     rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/fused_block.cu", replaces)
              for k, replaces in BLOCK_KERNELS.items()]
     rows += [(k, "ssrl_vit_mae_jepa_torch/csrc/block_chain.cu", replaces)
@@ -4357,6 +4563,7 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"),
+            **({"also_replaces": HALF_ALSO[k]} if k in HALF_ALSO else {}),
             **{kk: v for kk, v in r.items() if kk not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })

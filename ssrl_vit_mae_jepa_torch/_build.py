@@ -73,6 +73,11 @@ _SIGNATURES = {
     "ssrl_block_chain_fwd": (_I, [_P, _PP] + [_P] * 3 + [_I] * 6 + [_F, _P]),
     "ssrl_block_chain_bwd_workspace": (_LL, [_I] * 4),
     "ssrl_block_chain_bwd": (_I, [_P, _PP] + [_P] * 5 + [_I] * 6 + [_F, _P]),
+    # the MLP half of the whole block and the chain alone (csrc/block_mlp.cu):
+    # 8 / 15 pointers, M, D, F, round_z, stream
+    "ssrl_mlp_half_fwd": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "ssrl_mlp_half_bwd_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_half_bwd": (_I, [_P] * 15 + [_I] * 4 + [_P]),
     # layout, M, N, K / layout, epi, 11 pointers, M, N, K, stream
     "ssrl_gemm_workspace": (_LL, [_I] * 4),
     "ssrl_gemm": (_I, [_I] * 2 + [_P] * 11 + [_I] * 3 + [_P]),

@@ -18,15 +18,21 @@
 //
 // What bounds it on the H100: the same products as the branch kernels,
 // below the card's ~295 FLOP/byte ridge at D = 96-192; memory traffic of the
-// intermediates and the launch count bound it, not the tensor cores.
+// intermediates and the launch count bound it, not the tensor cores. The
+// MLP half's F-wide intermediates cost the most: as split products z, h and
+// dz each went to device memory and back, and y2 and dy2 besides.
 //
-// What this design does about it: one host entry per pass launches the
-// branch sequences of attn_branch.cu and mlp_branch.cu (csrc/branch.cuh)
-// block after block on one stream, with the chain's rounding points (an f32
-// gradient in and out of every branch backward, its bf16 form beside it).
-// The TPU kernel keeps all N blocks' weights and the gradient chain resident
-// in VMEM; on this card the gradient chain goes through device memory (two
-// (B*L, D) f32 buffers in turn), and the weights are read per launch from L2.
+// What this design does about it: one host entry per pass runs the blocks
+// on one stream; the attention half as the attention branch's launches
+// (csrc/attn_branch.cu through csrc/branch.cuh), the MLP half as one kernel
+// each way (csrc/block_mlp.cu: LN2, fc1, the GELU and fc2 on chip, z
+// rounded to bf16, the products summed in the split kernels' order so the
+// forward keeps their bits; the backward's dy2 and LN2 backward in its
+// epilogue), with the chain's rounding points (an f32 gradient in and out
+// of every half's backward, its bf16 form beside it). The TPU kernel keeps
+// all N blocks' weights and the gradient chain resident in VMEM; on this
+// card the gradient chain goes through device memory (two (B*L, D) f32
+// buffers in turn), and the weights are read per launch from L2.
 #include "common.cuh"
 #include "branch.cuh"
 
@@ -35,20 +41,19 @@ namespace {
 size_t max2(size_t a, size_t b) { return a > b ? a : b; }
 
 // Without a stash: x_mid and two buffers the block outputs alternate
-// between; and one scratch region the branch forwards take in turn.
-size_t fwd_carve(Carver& c, int B, int L, int D, int F, bool stash, bf16** mid,
-                 bf16** xa, bf16** xb, char** scratch) {
+// between; and the attention forward's scratch (the MLP half needs none).
+size_t fwd_carve(Carver& c, int B, int L, int D, bool stash, bf16** mid, bf16** xa,
+                 bf16** xb, char** scratch) {
   const size_t M = (size_t)B * L;
   *mid = stash ? nullptr : c.take<bf16>(M * D);
   *xa = stash ? nullptr : c.take<bf16>(M * D);
   *xb = stash ? nullptr : c.take<bf16>(M * D);
-  *scratch = c.take<char>(max2(ssrl::attn_fwd_workspace(B, L, D, stash),
-                               ssrl::mlp_fwd_workspace(M, D, F)));
+  *scratch = c.take<char>(ssrl::attn_fwd_workspace(B, L, D, stash));
   return c.off;
 }
 
 // The f32 gradient chain at the branch boundaries, two buffers in turn, each
-// with its bf16 form; one scratch region for the branch backwards.
+// with its bf16 form; one scratch region for the halves' backwards.
 size_t bwd_carve(Carver& c, int B, int L, int D, int F, float** g32, bf16** gbf,
                  char** scratch) {
   const size_t M = (size_t)B * L;
@@ -56,7 +61,7 @@ size_t bwd_carve(Carver& c, int B, int L, int D, int F, float** g32, bf16** gbf,
     g32[i] = c.take<float>(M * D);
     gbf[i] = c.take<bf16>(M * D);
   }
-  *scratch = c.take<char>(max2(ssrl::mlp_bwd_workspace(M, D, F, false),
+  *scratch = c.take<char>(max2(ssrl::mlp_half_bwd_workspace((int)M, D, F),
                                ssrl::attn_bwd_workspace(B, L, D)));
   return c.off;
 }
@@ -74,10 +79,11 @@ bf16* slot(void* stash, int i, size_t MD) { return static_cast<bf16*>(stash) + i
 extern "C" {
 
 long long ssrl_block_chain_fwd_workspace(int B, int L, int D, int F, int stash) {
+  (void)F;
   Carver c{nullptr};
   bf16 *mid, *xa, *xb;
   char* scratch;
-  return (long long)fwd_carve(c, B, L, D, F, stash != 0, &mid, &xa, &xb, &scratch);
+  return (long long)fwd_carve(c, B, L, D, stash != 0, &mid, &xa, &xb, &scratch);
 }
 
 // x, out: [B*L][D] bf16; params: 12 N pointers, block after block, each
@@ -92,7 +98,7 @@ int ssrl_block_chain_fwd(const void* x, const void* const* params, void* out,
   Carver c{static_cast<char*>(ws)};
   bf16 *mid, *xa, *xb;
   char* scratch;
-  fwd_carve(c, B, L, D, F, stash != nullptr, &mid, &xa, &xb, &scratch);
+  fwd_carve(c, B, L, D, stash != nullptr, &mid, &xa, &xb, &scratch);
   const bf16* xin = static_cast<const bf16*>(x);
   for (int k = 0; k < N; ++k) {
     const void* const* p = params + 12 * k;
@@ -105,7 +111,7 @@ int ssrl_block_chain_fwd(const void* x, const void* const* params, void* out,
     cudaError_t e = ssrl::attn_fwd(xin, ssrl::branch_params(p), xm, a, scratch, B, L, D,
                                    H, scale, st);
     if (e != cudaSuccess) return (int)e;
-    e = ssrl::mlp_fwd(xm, ssrl::branch_params(p + 6), xo, scratch, B * L, D, F, false, st);
+    e = ssrl::mlp_half_fwd(xm, ssrl::branch_params(p + 6), xo, B * L, D, F, true, st);
     if (e != cudaSuccess) return (int)e;
     xin = xo;
   }
@@ -142,11 +148,11 @@ int ssrl_block_chain_bwd(const void* x, const void* const* params, const void* s
     ssrl::block_grads(static_cast<float*>(grads) + k * ssrl::block_grad_floats(D, F), D,
                       F, &da, &dm);
     const bf16* xin = k == 0 ? static_cast<const bf16*>(x) : slot(sv, 2 * N + k - 1, MD);
-    // MLP branch: gradient at x_mid into buffer 1
-    cudaError_t e = ssrl::mlp_bwd(slot(sv, N + k, MD), ssrl::branch_params(p + 6), gout,
-                                  {gbf[1], g32[1]}, dm, scratch, B * L, D, F, false, st);
+    // MLP half: gradient at x_mid into buffer 1
+    cudaError_t e = ssrl::mlp_half_bwd(slot(sv, N + k, MD), ssrl::branch_params(p + 6), gout,
+                                       {gbf[1], g32[1]}, dm, scratch, B * L, D, F, true, st);
     if (e != cudaSuccess) return (int)e;
-    // attention branch: gradient at x_in into buffer 0, or dx once at the end
+    // attention half: gradient at x_in into buffer 0, or dx once at the end
     const ssrl::GradOut gin = k == 0 ? ssrl::GradOut{static_cast<bf16*>(dx), nullptr}
                                      : ssrl::GradOut{gbf[0], g32[0]};
     e = ssrl::attn_bwd(xin, ssrl::branch_params(p), slot(sv, k, MD), {gbf[1], g32[1]}, gin,

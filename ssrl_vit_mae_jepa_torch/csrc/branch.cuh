@@ -1,7 +1,8 @@
 // The two residual branches of a pre-LN block as host-side launch sequences
 // (defined in csrc/attn_branch.cu and csrc/mlp_branch.cu), shared by the
 // branch entries, the whole-block kernel (csrc/fused_block.cu) and the
-// chained-block kernel (csrc/block_chain.cu).
+// chained-block kernel (csrc/block_chain.cu); and the MLP half those two run
+// as one kernel each way (csrc/block_mlp.cu).
 //
 // The three callers compute the same products and differ only in where they
 // round (ssrl_vit_mae_jepa_tpu/ops/block_pallas.py, ops/block_chain.py):
@@ -12,7 +13,9 @@
 //   - the gradient a branch backward leaves is written bf16, or f32 as well;
 //   - the MLP's pre-activation z is rounded to bf16 before the GELU (branch
 //     and chain, block_pallas.py:530) or kept in f32 (the whole block,
-//     block_pallas.py:271).
+//     block_pallas.py:271); the whole block and the chain run their MLP
+//     half on csrc/block_mlp.cu, so only the branch entries call mlp_fwd /
+//     mlp_bwd, with z rounded.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -83,6 +86,19 @@ cudaError_t mlp_bwd(const bf16_t* x, const BranchParams& p, GradIn g,
 // ---------------------------------------------------------------------------
 // One whole block, for fused_block.cu and block_chain.cu.
 // ---------------------------------------------------------------------------
+
+// The MLP half of the whole block and of the chain, one kernel each way
+// (csrc/block_mlp.cu): mlp_fwd's function with z rounded to bf16
+// (round_z, the chain) or kept in f32 (the whole block), and its backward.
+// The backward takes the gradient at out as GradIn and gives dx = g + the
+// half's input gradient as GradOut, as mlp_bwd does, and writes every
+// gradient of d; z never reaches device memory.
+cudaError_t mlp_half_fwd(const bf16_t* x, const BranchParams& p, bf16_t* out, int M, int D,
+                         int F, bool round_z, cudaStream_t st);
+size_t mlp_half_bwd_workspace(int M, int D, int F);
+cudaError_t mlp_half_bwd(const bf16_t* x, const BranchParams& p, GradIn g, GradOut dx,
+                         const BranchGrads& d, void* ws, int M, int D, int F, bool round_z,
+                         cudaStream_t st);
 
 // A block's 12 tensors in the JAX package's _BLOCK_TREE order
 // (models/vit.py:213-220): ln1_s, ln1_b, wqkv, bqkv, wp, bp, ln2_s, ln2_b,

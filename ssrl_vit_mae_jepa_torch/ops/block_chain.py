@@ -12,7 +12,8 @@ Port of ``ssrl_vit_mae_jepa_tpu/ops/block_chain.py::fused_block_chain``:
   the bias gradients of the branch outputs sum the f32 gradient.
 
 On a CUDA tensor :func:`fused_block_chain` launches ``csrc/block_chain.cu``
-(bf16) or ``csrc/block_chain_f32.cu`` (f32, where every rounding point is a
+(bf16; each block's MLP half one kernel each way, ``csrc/block_mlp.cu``)
+or ``csrc/block_chain_f32.cu`` (f32, where every rounding point is a
 no-op and the stash has the same slots in f32) through a
 ``torch.autograd.Function`` whose backward is a kernel too; on a CPU tensor
 it runs :func:`chain_ref`, the plain version with the same
@@ -42,6 +43,7 @@ from ssrl_vit_mae_jepa_torch.ops.block_fused import (
     attn_fwd_plain,
     block_grad_floats,
     check_block,
+    count_mlp_half,
     dtype_key,
     grad_views,
     mlp_bwd_plain,
@@ -149,6 +151,7 @@ def _fwd_cuda(x, kp, num_heads: int, stash: bool):
     ws = _workspace(ws_fn(B, L, D, F_, int(stash)), x)
     key = dtype_key(x.dtype, "chain_fwd" if stash else "chain_fwd_nograd")
     LAUNCHES[key] += 1
+    count_mlp_half(x.dtype, "fwd", N)
     _build.check(fn(
         x.data_ptr(), pointers(kp), out.data_ptr(), st.data_ptr() if stash else None,
         ws.data_ptr(), B, L, D, num_heads, F_, N, _scale(D, num_heads), _stream(x),
@@ -167,6 +170,7 @@ def _bwd_cuda(x, kp, st, g, num_heads: int):
     ws = _workspace(ws_fn(B, L, D, F_), x)
     key = dtype_key(x.dtype, "chain_bwd")
     LAUNCHES[key] += 1
+    count_mlp_half(x.dtype, "bwd", N)
     _build.check(fn(
         x.data_ptr(), pointers(kp), st.data_ptr(), g.data_ptr(), dx.data_ptr(),
         grads.data_ptr(), ws.data_ptr(), B, L, D, num_heads, F_, N,

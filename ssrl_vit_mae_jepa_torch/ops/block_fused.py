@@ -11,7 +11,9 @@ Port of ``ssrl_vit_mae_jepa_tpu/ops/block_pallas.py``::
 and ``fused_block`` (the whole block, :389-474) are the wrappers the model
 calls. On a CUDA tensor they launch the hand-written kernels of
 ``csrc/attn_branch.cu``, ``csrc/mlp_branch.cu`` and ``csrc/fused_block.cu``
-(at f32 ``csrc/branch_f32.cu`` and ``csrc/fused_block_f32.cu``) through a
+(whose MLP half, like the chain's, is one kernel each way in
+``csrc/block_mlp.cu``, alone ``mlp_half`` / ``mlp_half_bwd``; at f32
+``csrc/branch_f32.cu`` and ``csrc/fused_block_f32.cu``) through a
 ``torch.autograd.Function`` whose backward is a kernel too; on a CPU tensor
 they run the plain versions ``attn_branch_ref`` / ``mlp_branch_ref`` /
 ``block_ref``, which compute the same function with the
@@ -78,6 +80,10 @@ LAUNCHES = {
     "block_fwd": 0,         # the whole block, in a graph
     "block_fwd_nograd": 0,  # the same kernel for no-grad callers
     "block_bwd": 0,
+    # the MLP half's kernels of csrc/block_mlp.cu: one a bf16 whole block,
+    # N a bf16 chain of N blocks (each way), or one a call of ``mlp_half*``
+    "mlp_half_fwd": 0,
+    "mlp_half_bwd": 0,
     "gemm": 0,  # the GEMM alone (``gemm``), for its own checks; never on a step
     "gemm_f32": 0,  # the f32 GEMM alone (``gemm`` at f32), likewise
     "attn_branch_fwd_f32": 0,  # csrc/branch_f32.cu: the f32 branches
@@ -622,6 +628,7 @@ def _block_fwd_cuda(x, kp, num_heads: int, grad: bool):
     ws = _workspace(ws_fn(B, L, D, F_), x)
     key = dtype_key(x.dtype, "block_fwd" if grad else "block_fwd_nograd")
     LAUNCHES[key] += 1
+    count_mlp_half(x.dtype, "fwd", 1)
     _build.check(fn(
         x.data_ptr(), pointers(kp), out.data_ptr(), ws.data_ptr(),
         B, L, D, num_heads, F_, _scale(D, num_heads), _stream(x),
@@ -638,11 +645,20 @@ def _block_bwd_cuda(x, kp, g, num_heads: int):
     ws = _workspace(ws_fn(B, L, D, F_), x)
     key = dtype_key(x.dtype, "block_bwd")
     LAUNCHES[key] += 1
+    count_mlp_half(x.dtype, "bwd", 1)
     _build.check(fn(
         x.data_ptr(), pointers(kp), g.data_ptr(), dx.data_ptr(), grads.data_ptr(),
         ws.data_ptr(), B, L, D, num_heads, F_, _scale(D, num_heads), _stream(x),
     ), key)
     return dx, grad_views(grads, D, F_)
+
+
+def count_mlp_half(dtype: torch.dtype, pas: str, blocks: int) -> None:
+    """Count the MLP-half kernel launches of a bf16 whole block or chain of
+    ``blocks`` blocks (``pas``: "fwd" or "bwd"); the f32 entries run the
+    split sequences of ``csrc/branch_f32.cuh`` instead."""
+    if dtype == torch.bfloat16:
+        LAUNCHES[f"mlp_half_{pas}"] += blocks
 
 
 class _Block(torch.autograd.Function):
@@ -1064,6 +1080,87 @@ def branch_ln_bwd(x, ln_scale, dy, gy):
                         gy.to(x.dtype).contiguous())
 
 
+
+
+# The MLP half of the whole block and the chain alone (``csrc/block_mlp.cu``;
+# chip_smoke.py and the card's tests hold it to ``mlp_fwd_plain`` /
+# ``mlp_bwd_plain``): a CUDA tensor launches the kernel, a CPU one runs the
+# plain version.
+
+
+def mlp_half_supported(D: int, F_: int) -> bool:
+    """Whether the MLP-half kernels take (D, F): ``ssrl::mlp_shape_ok`` --
+    8 <= D <= 256, D and F multiples of 8 (any number of rows)."""
+    return 8 <= D <= 256 and D % 8 == 0 and F_ >= 8 and F_ % 8 == 0
+
+
+def check_mlp_half(x, params) -> int:
+    """Raise on what the MLP-half kernels do not take: bf16 (B, L, D)
+    activations and the MLP's six parameters (ln_s, ln_b, w1 (F, D), b1,
+    w2 (D, F), b2) at a (D, F) of ``mlp_half_supported``; return F."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the MLP-half kernels take bfloat16 activations, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"expected (B, L, D) activations, got {tuple(x.shape)}")
+    D, F_ = x.shape[-1], params[2].shape[0]
+    if not mlp_half_supported(D, F_):
+        raise ValueError(f"the MLP-half kernels do not take D={D} F={F_}")
+    shapes = [(D,), (D,), (F_, D), (F_,), (D, F_), (D,)]
+    for t, shape in zip(params, shapes):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"MLP parameter of shape {tuple(t.shape)}, expected {shape}")
+    return F_
+
+
+def mlp_half(x, p, round_z: bool = True):
+    """The MLP half ``x + bf16(h W2^T + b2)`` of ``p`` = (ln_s, ln_b, w1, b1,
+    w2, b2), z rounded to bf16 (``round_z``, the chain) or kept in f32 (the
+    whole block): ``mlp_fwd_plain`` on the CPU, the kernel on the card."""
+    if _route(x) == "cpu":
+        return mlp_fwd_plain(x, p, round_z)
+    F_ = check_mlp_half(x, p)
+    _check_params(p, [tuple(t.shape) for t in p])  # on the card
+    x = x.contiguous()
+    kp = _prep6(*p, x.dtype)
+    B, L, D = x.shape
+    out = torch.empty_like(x)
+    LAUNCHES["mlp_half_fwd"] += 1
+    _build.check(_build.load().ssrl_mlp_half_fwd(
+        x.data_ptr(), *(t.data_ptr() for t in kp), out.data_ptr(), B * L, D, F_,
+        int(round_z), _stream(x),
+    ), "mlp_half_fwd")
+    return out
+
+
+def mlp_half_bwd(x, p, gy, round_z: bool = True):
+    """The MLP half's backward from the f32 gradient ``gy`` at its output:
+    (gy + its input gradient in f32, the six f32 parameter gradients), as
+    ``mlp_bwd_plain`` returns them; the kernel on the card (it also writes
+    the bf16 form of the first, which the whole block and the chain pass
+    on), ``mlp_bwd_plain`` on the CPU."""
+    if _route(x) == "cpu":
+        return mlp_bwd_plain(x, p, gy.float(), round_z)
+    F_ = check_mlp_half(x, p)
+    _check_params(p, [tuple(t.shape) for t in p])  # on the card
+    x = x.contiguous()
+    s, b, w1, b1, w2, _ = _prep6(*p, x.dtype)
+    B, L, D = x.shape
+    g32 = gy.float().contiguous()
+    gbf = g32.to(x.dtype)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dx32 = torch.empty_like(x), torch.empty_like(g32)
+    dln3 = torch.empty((3, D), **f32)
+    dw1, db1, dw2 = (torch.empty(shape, **f32) for shape in ((F_, D), (F_,), (D, F_)))
+    lib = _build.load()
+    ws = _workspace(lib.ssrl_mlp_half_bwd_workspace(B * L, D, F_), x)
+    LAUNCHES["mlp_half_bwd"] += 1
+    _build.check(lib.ssrl_mlp_half_bwd(
+        x.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), gbf.data_ptr(), g32.data_ptr(), dx.data_ptr(), dx32.data_ptr(),
+        dln3.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), ws.data_ptr(),
+        B * L, D, F_, int(round_z), _stream(x),
+    ), "mlp_half_bwd")
+    return dx32, (dln3[0], dln3[1], dw1, db1, dw2, dln3[2])
 
 
 def _needs_grad(x, params) -> bool:

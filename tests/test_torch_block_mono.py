@@ -140,6 +140,55 @@ def test_supported_is_the_kernels_fit():
     assert not bf.supported(2, 17, 264, 8, 1056)  # D > 256
 
 
+def test_mlp_half_is_the_plain_half_on_the_cpu():
+    """On CPU tensors the MLP-half wrappers (``csrc/block_mlp.cu`` on the
+    card) are ``mlp_fwd_plain`` / ``mlp_bwd_plain`` and launch nothing; with
+    z in f32 the half is the whole block's second half bit for bit, and its
+    backward's input gradient is the f32 gradient plus the half's own."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(torch.bfloat16)
+    gy = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32))
+    p = [torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2 else a))
+         for a in block_params(D, seed=3)]
+    bf.reset_launch_counts()
+    x_mid = bf.attn_fwd_plain(x, p[:6], H)[0]
+    assert torch.equal(bf.mlp_half(x_mid, p[6:], round_z=False), bf.block_ref(x, p, H))
+    for round_z in (True, False):
+        assert torch.equal(bf.mlp_half(x, p[6:], round_z), bf.mlp_fwd_plain(x, p[6:], round_z))
+        dx, grads = bf.mlp_half_bwd(x, p[6:], gy, round_z)
+        dx_r, grads_r = bf.mlp_bwd_plain(x, p[6:], gy, round_z)
+        assert dx.dtype == torch.float32 and torch.equal(dx, dx_r)
+        assert all(map(torch.equal, grads, grads_r)) and len(grads) == 6
+    assert not any(bf.LAUNCHES.values())
+
+
+def test_mlp_half_guard_is_the_kernels_fit():
+    """``check_mlp_half`` (run before every launch on the card) takes what
+    ``ssrl::mlp_shape_ok`` takes and returns F; it refuses f32 (the f32
+    whole block and chain run the split f32 sequences), a D beyond 8-256 or
+    off a multiple of 8, an F off a multiple of 8, and mis-shaped params."""
+    def params(D, F_):
+        return [torch.zeros(D), torch.zeros(D), torch.zeros(F_, D), torch.zeros(F_),
+                torch.zeros(D, F_), torch.zeros(D)]
+
+    x = torch.zeros(2, 3, 144, dtype=torch.bfloat16)
+    assert bf.check_mlp_half(x, params(144, 576)) == 576
+    assert bf.check_mlp_half(x[..., :96], params(96, 384)) == 384
+    assert bf.mlp_half_supported(8, 8) and bf.mlp_half_supported(256, 1024)
+    assert not bf.mlp_half_supported(264, 1056) and not bf.mlp_half_supported(100, 400)
+    assert not bf.mlp_half_supported(144, 580)
+    with pytest.raises(TypeError):
+        bf.check_mlp_half(x.float(), params(144, 576))
+    with pytest.raises(ValueError, match="do not take"):
+        bf.check_mlp_half(torch.zeros(2, 3, 100, dtype=torch.bfloat16), params(100, 400))
+    with pytest.raises(ValueError, match="do not take"):
+        bf.check_mlp_half(x, params(144, 580))
+    with pytest.raises(ValueError, match="expected"):
+        bf.check_mlp_half(x, params(144, 576)[:4] + [torch.zeros(576, 144), torch.zeros(144)])
+    with pytest.raises(ValueError, match="activations"):
+        bf.check_mlp_half(x[0], params(144, 576))
+
+
 # ---------------------------------------------------------------------------
 # the whole step
 # ---------------------------------------------------------------------------

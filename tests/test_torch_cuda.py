@@ -27,6 +27,7 @@ whole block and the chain are held to the same bounds against their
 """
 
 import math
+import re
 
 import pytest
 import torch
@@ -284,7 +285,7 @@ def test_block_kernel_matches_plain(cuda, B, L, D, H):
     before = dict(bf.LAUNCHES)
     out_k, grads_k = _stack_run(_mono(H), x, dy, params)
     assert {k: v - before[k] for k, v in bf.LAUNCHES.items() if v != before[k]} == {
-        "block_fwd": 1, "block_bwd": 1}
+        "block_fwd": 1, "block_bwd": 1, "mlp_half_fwd": 1, "mlp_half_bwd": 1}
     out_r, grads_r = _stack_run(_mono_ref(H), x, dy, params)
     with torch.no_grad():
         out_ng = bf.fused_block(x, params[0], H)
@@ -328,18 +329,133 @@ def test_chain_kernel_matches_plain(cuda, B, L, D, H, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["mono", "chain"])
+@pytest.mark.parametrize("kind", ["mono", "chain", "mlp_half"])
 def test_block_kernels_are_deterministic(cuda, kind):
     """Repeated calls on the same inputs give the same bits (no atomics:
-    every sum is a fixed-order reduction)."""
+    every sum is a fixed-order reduction); ``mlp_half`` runs the MLP-half
+    kernels of ``csrc/block_mlp.cu`` alone, the whole block's (z in f32)."""
     B, L, D, H = 768, 145, 192, 6
     x, dy, params = _stack_inputs(B, L, D, 2 if kind == "chain" else 1, cuda)
     fn = (lambda x, pl: bc.fused_block_chain(x, pl, H)) if kind == "chain" else _mono(H)
+    if kind == "mlp_half":
+        fn = lambda x, pl: _HalfFn.apply(x, False, *pl[0])  # noqa: E731
+        params = [params[0][6:]]
     first = _stack_run(fn, x, dy, params)
     for _ in range(2):
         out, grads = _stack_run(fn, x, dy, params)
         assert torch.equal(out, first[0])
         assert all(torch.equal(a, b) for a, b in zip(grads, first[1]))
+
+
+class _HalfFn(torch.autograd.Function):
+    """The MLP-half kernels alone as one autograd step: forward
+    ``bf.mlp_half``, backward ``bf.mlp_half_bwd`` (dx rounded to bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, round_z, *p):
+        ctx.save_for_backward(x, *p)
+        ctx.round_z = round_z
+        return bf.mlp_half(x, p, round_z)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *p = ctx.saved_tensors
+        dx, grads = bf.mlp_half_bwd(x, p, g.float(), ctx.round_z)
+        return (dx.to(x.dtype), None, *grads)
+
+
+
+
+# (B, L, D): the MLP half at the five block geometries (MAE encoder and
+# decoder, JEPA context encoder, predictor, target encoder and classifier),
+# F = 4D, and at ragged row counts (M = 51 and 333, not multiples of 128)
+# with a D of 48 and 144
+HALF_SHAPES = [(768, 37, 144), (768, 145, 192), (768, 45, 144), (768, 145, 96),
+               (768, 145, 144), (3, 17, 48), (9, 37, 144)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_z", [True, False])
+@pytest.mark.parametrize("B,L,D", HALF_SHAPES)
+def test_mlp_half_matches_plain(cuda, B, L, D, round_z):
+    """The MLP-half kernels of ``csrc/block_mlp.cu`` against
+    ``mlp_fwd_plain`` / ``mlp_bwd_plain`` on the card, z rounded (the
+    chain) and in f32 (the whole block): the forward within 6e-2, the f32
+    input gradient (with the output gradient added) and the six parameter
+    gradients within 2% of their largest magnitudes; with z rounded the
+    forward equals the split MLP branch's bit for bit."""
+    x, dy, params = _stack_inputs(B, L, D, 1, cuda)
+    p = params[0][6:]
+    g = torch.Generator().manual_seed(D)
+    gy = (torch.randn(B, L, D, generator=g) * 0.5).to(cuda)
+    _reset()
+    out = bf.mlp_half(x, p, round_z)
+    dx32, grads = bf.mlp_half_bwd(x, p, gy, round_z)
+    torch.cuda.synchronize()
+    assert _launched() == {"mlp_half_fwd": 1, "mlp_half_bwd": 1}
+    out_r = bf.mlp_fwd_plain(x, p, round_z)
+    dx_r, grads_r = bf.mlp_bwd_plain(x, p, gy, round_z)
+    assert out.dtype == torch.bfloat16 and dx32.dtype == torch.float32
+    torch.testing.assert_close(out.float(), out_r.float(), atol=6e-2, rtol=0)
+    for a, b in zip((dx32, *grads), (dx_r, *grads_r)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        bound = 2e-2 * b.float().abs().max().item() + 1e-3
+        torch.testing.assert_close(a, b.float(), atol=bound, rtol=0)
+    if round_z:
+        with torch.no_grad():
+            assert torch.equal(out, bf.fused_mlp_branch(x, *p))
+
+
+def _kernel_names(fn):
+    """Device kernel name -> launches of one call of ``fn`` (after a warm-up
+    call), under ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA}
+
+
+def _epis(names):
+    """The epilogues (``ssrl::Epi``) of the branch GEMM's launches, each as
+    often as it ran."""
+    out = []
+    for name, n in names.items():
+        m = re.search(r"gemm_sm90_kernel<\w+, \w+, \d+, (\d+)>", name)
+        if m:
+            out += [int(m.group(1))] * n
+    return sorted(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mono", "chain"])
+def test_block_kernels_launch_ln1_and_qkv_once(cuda, kind):
+    """By the profiler's kernel names, per call: the whole block's backward
+    runs LN1 and the qkv product (the NT bias epilogue) once, the chain's
+    once a block; neither runs a GELU epilogue of the branch GEMM (no z to
+    write or read: the MLP half is one kernel each way, one a block)."""
+    B, L, D, H = 96, 37, 144, 6
+    N = 2 if kind == "chain" else 1
+    x, dy, params = _stack_inputs(B, L, D, N, cuda)
+    fn = (lambda x, pl: bc.fused_block_chain(x, pl, H)) if kind == "chain" else _mono(H)
+    xl = x.clone().requires_grad_()
+    pl = [[t.clone().requires_grad_() for t in p] for p in params]
+    out = fn(xl, pl)
+    leaves = [xl] + [t for p in pl for t in p]
+    bwd = _kernel_names(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+    with torch.no_grad():
+        fwd = _kernel_names(lambda: fn(x, params))
+
+    def count(names, part):
+        return sum(n for k, n in names.items() if part in k)
+
+    for names, half in ((fwd, "mlp_half_fwd_kernel"), (bwd, "mlp_half_bwd_kernel")):
+        assert count(names, half) == N
+        assert count(names, "ln_fwd_kernel") == N  # LN1 only: LN2 is in the half
+        assert not set(_epis(names)) & {4, 5, 6, 7}  # EPI_*GELU*
+    assert _epis(bwd).count(2) == N  # EPI_BIAS_BF16: the qkv product
 
 
 def _f32_close(out_k, grads_k, out_r, grads_r):
