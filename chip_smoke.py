@@ -213,13 +213,19 @@ Phases (any failure exits nonzero; nothing is caught):
      falling loss and exact launches; (f) 3 replayed f32 MAE steps
      (``train_steps_fused``) equal to 3 eager ones bit for bit.
   24. f32 on attn_impl block and chain with ``SSRL_FUSED_EMBED=1``, TF32
-     off: (a) the f32 whole block (``csrc/fused_block_f32.cu``) at the block
+     off: (a) first the f32 MLP half (``csrc/block_mlp_f32.cu``, which no
+     step runs) alone against its plain versions at the block geometries,
+     its forward equal to the split f32 MLP branch's bit for bit, its device
+     ms beside the split branch's; the f32 whole block
+     (``csrc/fused_block_f32.cu``) at the block
      geometries of phase 3, forward and all 13 backward outputs against
      ``block_ref`` (the target encoder's through the no-grad forward); the
      f32 chain (``csrc/block_chain_f32.cu``) at the MAE encoder (N=4), the
      decoder (N=2) and the no-grad JEPA target (N=4) against ``chain_ref``;
      both forwards equal to the f32 split kernels' bit for bit, a second
-     backward to the first; the f32 fused embed (``csrc/patch_embed_f32.cu``)
+     backward to the first, each call's device ms and launches beside the
+     split pair's (LN twice and the qkv product once a block each way: the
+     block's backward keeps LN1 and qkv); the f32 fused embed (``csrc/patch_embed_f32.cu``)
      at K=37, K=45 and no index against its plain version, with a gather +
      ``torch.matmul`` at f32 as the yardstick; forward within 5e-5, each
      backward output within 1e-4 of its largest magnitude, a second call the
@@ -404,15 +410,19 @@ CHAIN_KERNELS = {"chain_fwd": _TPU + "block_chain.py:261",
                  "chain_bwd": _TPU + "block_chain.py:288"}
 # the MLP half of the bf16 whole block and chain, one kernel each way
 # (csrc/block_mlp.cu), per block: kernel -> the TPU kernel of the whole block
-# whose MLP half it runs (the chain's are in HALF_ALSO)
+# whose MLP half it runs (the chain's are in HALF_ALSO); at f32, the keys +
+# "_f32", csrc/block_mlp_f32.cu, checked alone (no f32 block or chain runs it)
 HALF_KERNELS = {"mlp_half_fwd": _TPU + "block_pallas.py:408",
                 "mlp_half_bwd": _TPU + "block_pallas.py:442"}
 HALF_ALSO = {"mlp_half_fwd": _TPU + "block_chain.py:235, :261",
              "mlp_half_bwd": _TPU + "block_chain.py:288"}
 # the branch GEMM's epilogues with a GELU (ssrl::Epi 4-7, csrc/gemm.cuh) and
-# the NT bias epilogue (2, the qkv product), by kernel name
+# the NT bias epilogue (2, the qkv product), by kernel name; at f32 those of
+# the SIMT GEMM (ssrl::F32Epi, csrc/gemm_f32.cuh: 2, 4, 5 and F_BIAS 1)
 GELU_EPIS = {4, 5, 6, 7}
 EPI_QKV = 2
+GELU_EPIS_F32 = {2, 4, 5}
+EPI_QKV_F32 = 1
 CHAIN_DEPTH = {"enc": 4, "dec": 2, "ctx": 4, "pred": 2, "tgt": 4, "cls": 4}
 CHAIN_CALLS = {"mae": {"enc": 1, "dec": 1}, "jepa": {"ctx": 1, "pred": 1, "tgt": 1},
                "classifier": {"cls": 1}}
@@ -498,8 +508,8 @@ def step_tolerances(dtype) -> tuple:
 def launch_names(per_step: dict, dtype) -> dict:
     """Launch counts keyed for ``dtype``: an f32 kernel counts under its bf16
     twin's key + ``_f32`` (``block_fused.dtype_key``); the MLP-half kernels
-    of the bf16 whole block and chain have no f32 twin (the f32 entries run
-    the split f32 sequences)."""
+    of the bf16 whole block and chain have no f32 twin on a step (the f32
+    entries run the split f32 sequences)."""
     return {bf.dtype_key(dtype, k): v for k, v in per_step.items()
             if dtype == torch.bfloat16 or not k.startswith("mlp_half")}
 
@@ -918,12 +928,15 @@ def stack_inputs(L: int, D: int, N: int, seed: int, dtype=torch.bfloat16):
     return x, dy, params
 
 
-def gemm_epis(counts: dict) -> dict:
-    """Epilogue (``ssrl::Epi``) -> launches a call of the branch GEMM, from
+def gemm_epis(counts: dict, f32: bool = False) -> dict:
+    """Epilogue (``ssrl::Epi``, or with ``f32`` ``ssrl::F32Epi``) ->
+    launches a call of the branch GEMM (the f32 SIMT GEMM), from
     ``device_ms``'s launches by kernel name."""
+    pattern = (r"gemm_f32_kernel<\w+, \w+, \d+, \d+, \d+, (\d+)>" if f32
+               else r"gemm_sm90_kernel<\w+, \w+, \d+, (\d+)>")
     out = {}
     for name, n in counts.items():
-        m = re.search(r"gemm_sm90_kernel<\w+, \w+, \d+, (\d+)>", name)
+        m = re.search(pattern, name)
         if m:
             out[int(m.group(1))] = out.get(int(m.group(1)), 0) + n
     return out
@@ -959,31 +972,41 @@ def call_launches(fn, ok, sessions: int = 3) -> dict:
     return counts
 
 
-def stack_device(kind: str, geo: str, N: int, fwd_fn, bwd_fn, x, dy, params, H: int) -> dict:
-    """Phases 3d / 3e at bf16: device time and kernel launches of one call
-    of the forward (``fwd_fn``, with or without grad) and of the backward
-    (``bwd_fn``, or None under no-grad), and the split kernels' on the same
-    blocks; fails unless each pass launches the MLP-half kernel once a block
-    and no GELU epilogue of the branch GEMM (z never reaches memory), and
-    LN1 once a block, with the backward's qkv product once a block."""
+def stack_device(kind: str, geo: str, N: int, fwd_fn, bwd_fn, x, dy, params, H: int,
+                 f32: bool = False) -> dict:
+    """Phases 3d / 3e (and at f32, ``f32``, phase 24 (a)): device time and
+    kernel launches of one call of the forward (``fwd_fn``, with or without
+    grad) and of the backward (``bwd_fn``, or None under no-grad), and the
+    split kernels' on the same blocks; fails unless each pass launches the
+    MLP-half kernel once a block and no GELU epilogue of the branch GEMM (z
+    never reaches memory), and LN1 once a block, with the backward's qkv
+    product once a block. At f32 the MLP half is the split f32 sequence, so
+    each pass must launch ``ln_f32_kernel`` twice a block (LN1, LN2) and the
+    qkv product (F_BIAS) once a block: the whole block's backward keeps LN1
+    and qkv from its recomputing forward."""
     grad = bwd_fn is not None
+    half_fmt = "mlp_half_f32_{}_kernel" if f32 else "mlp_half_{}_kernel"
+    ln1 = "ln_f32_kernel" if f32 else "ln_fwd_kernel"  # at f32 LN2 too
+    gelu_epis, epi_qkv = (GELU_EPIS_F32, EPI_QKV_F32) if f32 else (GELU_EPIS, EPI_QKV)
     xs = x.clone().requires_grad_(grad)
     ps = [[t.clone().requires_grad_(grad) for t in p] for p in params]
     res, line = {}, []
     with torch.set_grad_enabled(grad):
         out_s = split_stack(xs, ps, H)
-    passes = [("fwd", fwd_fn, lambda: split_stack(xs, ps, H), "mlp_half_fwd_kernel")]
+    passes = [("fwd", fwd_fn, lambda: split_stack(xs, ps, H), half_fmt.format("fwd"))]
     if grad:
         leaves_s = [xs] + [t for p in ps for t in p]
         passes.append(("bwd", bwd_fn, lambda: torch.autograd.grad(out_s, leaves_s, dy,
                                                                     retain_graph=True),
-                       "mlp_half_bwd_kernel"))
+                       half_fmt.format("bwd")))
     for pas, fn, split, half in passes:
         def ok(counts):
-            epis = gemm_epis(counts)
-            return (named(counts, half) == N and named(counts, "ln_fwd_kernel") == N
-                    and not set(epis) & GELU_EPIS
-                    and (pas == "fwd" or epis.get(EPI_QKV) == N))
+            epis = gemm_epis(counts, f32)
+            if f32:
+                return named(counts, ln1) == 2 * N and epis.get(epi_qkv) == N
+            return (named(counts, half) == N and named(counts, ln1) == N
+                    and not set(epis) & gelu_epis
+                    and (pas == "fwd" or epis.get(epi_qkv) == N))
 
         with torch.set_grad_enabled(grad):
             # the larger of two sessions: a session that loses kernels reads low
@@ -994,95 +1017,130 @@ def stack_device(kind: str, geo: str, N: int, fwd_fn, bwd_fn, x, dy, params, H: 
         res[pas] = {"device_ms": ms, "split_device_ms": split_ms,
                     "kernel_launches": sum(counts.values()),
                     "split_kernel_launches": sum(split_counts.values())}
-        epis = gemm_epis(counts)
+        epis = gemm_epis(counts, f32)
         line.append(f"{pas} {ms:.3f} ms, {sum(counts.values())} launches (split pair "
                     f"{split_ms:.3f} ms, {sum(split_counts.values())}); MLP half "
-                    f"{named(counts, half)}, LN1 {named(counts, 'ln_fwd_kernel')}, "
-                    f"qkv {epis.get(EPI_QKV, 0)}, GELU epilogues "
-                    f"{sum(epis.get(e, 0) for e in GELU_EPIS)}")
+                    f"{named(counts, half)}, LN1 {named(counts, ln1)}, "
+                    f"qkv {epis.get(epi_qkv, 0)}, GELU epilogues "
+                    f"{sum(epis.get(e, 0) for e in gelu_epis)}")
         if not ok(counts):
             fail(f"{kind}@{geo} {pas}: launches a call {counts}")
     del out_s, xs, ps
-    print(f"  {kind}@{geo} device, per call: " + "; ".join(line), flush=True)
+    print(f"  {kind}@{geo}{' f32' if f32 else ''} device, per call: " + "; ".join(line),
+          flush=True)
     return res
 
 
-def half_bounds(L: int, D: int):
+def half_bounds(L: int, D: int, f32: bool = False):
     """Per-call (fwd, bwd) bounds of the MLP half at (B, L, D), F = 4D: the
     forward reads x and writes out (bf16), 16MD^2 operations (fc1, fc2);
     the backward reads x and the f32 gradient, writes dx in bf16 and f32
     and the f32 parameter gradients, 40MD^2 operations (fc1 again, dh, dW2,
-    dW1, dy2); weights (bf16) and LN params (f32) read once."""
+    dW1, dy2); weights (bf16) and LN params (f32) read once. With ``f32``
+    every tensor is f32 (dx written once) and the operations run at the f32
+    CUDA-core peak."""
     M = BATCH * L
+    if f32:
+        w = (8 * D * D + 7 * D) * 4
+        return (bound_f32(2 * M * D * 4 + w, 16 * M * D * D),
+                bound_f32(3 * M * D * 4 + 2 * w, 40 * M * D * D))
     w = 8 * D * D * 2 + 5 * D * 2 + 2 * D * 4
     fwd = bound(2 * M * D * 2 + w, 16 * M * D * D)
     bwd = bound(M * D * (2 + 4 + 2 + 4) + w + (8 * D * D + 7 * D) * 4, 40 * M * D * D)
     return fwd, bwd
 
 
-def check_mlp_half() -> dict:
-    """Phase 3d, first: the MLP-half kernels of ``csrc/block_mlp.cu`` alone
-    at the block geometries against ``mlp_fwd_plain`` / ``mlp_bwd_plain``
-    on the card, z rounded (the chain's) and in f32 (the whole block's):
-    the forward within FWD_ATOL, the f32 input gradient and the six
-    parameter gradients within BWD_REL of their largest magnitudes, the
-    rounded forward equal to the split MLP branch's bit for bit; per-call
-    CUDA-event and device times (z in f32), the plain version's and the
-    bounds. The target geometry has no backward in a step."""
-    per = {k: {} for k in HALF_KERNELS}
-    errs = dict.fromkeys(HALF_KERNELS, 0.0)
+def check_mlp_half(dtype=torch.bfloat16) -> dict:
+    """Phase 3d, first (and at f32 phase 24 (a), first): the MLP-half
+    kernels of ``csrc/block_mlp.cu`` (``csrc/block_mlp_f32.cu``) alone at
+    the block geometries against ``mlp_fwd_plain`` / ``mlp_bwd_plain`` on
+    the card, z rounded (the chain's) and in f32 (the whole block's; at f32
+    one function): the forward within FWD_ATOL (F32_ATOL), the f32 input
+    gradient and the six parameter gradients within BWD_REL (F32_BWD_REL)
+    of their largest magnitudes, the rounded forward equal to the split MLP
+    branch's bit for bit (at f32 also a second call's forward and backward);
+    per-call CUDA-event and device times (z in f32), the plain version's
+    and the bounds. The target geometry has no backward in a step."""
+    f32 = dtype == torch.float32
+    keys = {k: bf.dtype_key(dtype, k) for k in HALF_KERNELS}
+    fk, bk = keys["mlp_half_fwd"], keys["mlp_half_bwd"]
+    per = {k: {} for k in keys.values()}
+    errs = dict.fromkeys(keys.values(), 0.0)
     names = ["dx", "d_ln_scale", "d_ln_bias", "d_w1", "d_b1", "d_w2", "d_b2"]
+    timing = F32_TIMING if f32 else {}
     for geo, (L, D, _) in GEOMETRIES.items():
-        x, dy, params = branch_inputs("mlp", L, D, seed=L + D + 1)
+        x, dy, params = branch_inputs("mlp", L, D, seed=L + D + 1, dtype=dtype)
         gy = dy.float()
-        for round_z in (True, False):
-            z = "z bf16" if round_z else "z f32"
+        for round_z in ((True,) if f32 else (True, False)):
+            z = "f32" if f32 else "z bf16" if round_z else "z f32"
             out = bf.mlp_half(x, params, round_z)
             dx, grads = bf.mlp_half_bwd(x, params, gy, round_z)
             out_r = bf.mlp_fwd_plain(x, params, round_z)
             dx_r, grads_r = bf.mlp_bwd_plain(x, params, gy, round_z)
             fwd_err = (out.float() - out_r.float()).abs().max().item()
-            if not fwd_err <= FWD_ATOL:
-                fail(f"mlp_half@{geo} {z} forward: max abs err {fwd_err} > {FWD_ATOL}")
-            errs["mlp_half_fwd"] = max(errs["mlp_half_fwd"], fwd_err)
-            errs["mlp_half_bwd"] = max(errs["mlp_half_bwd"], check_grads(
-                f"mlp_half@{geo} {z}", names, (dx, *grads), (dx_r, *grads_r)))
+            atol = F32_ATOL if f32 else FWD_ATOL
+            if not fwd_err <= atol:
+                fail(f"mlp_half@{geo} {z} forward: max abs err {fwd_err} > {atol}")
+            errs[fk] = max(errs[fk], fwd_err)
+            if f32:
+                again = bf.mlp_half_bwd(x, params, gy, round_z)
+                if not (torch.equal(out, bf.mlp_half(x, params, round_z))
+                        and all(map(torch.equal, (dx, *grads), (again[0], *again[1])))):
+                    fail(f"mlp_half@{geo} f32: a second call differs")
+                del again
+                errs[bk] = max(errs[bk], check_close(f"mlp_half@{geo} f32", names,
+                                                     (dx, *grads), (dx_r, *grads_r),
+                                                     F32_BWD_REL))
+            else:
+                errs[bk] = max(errs[bk], check_grads(
+                    f"mlp_half@{geo} {z}", names, (dx, *grads), (dx_r, *grads_r)))
             if round_z:
                 with torch.no_grad():
                     if not torch.equal(out, bf.fused_mlp_branch(x, *params)):
-                        fail(f"mlp_half@{geo}: the forward differs from the split MLP branch's")
+                        fail(f"mlp_half@{geo} {z}: the forward differs from the split MLP "
+                             "branch's")
             del out, dx, grads, out_r, dx_r, grads_r
-        (bf_ms, bf_by), (bb_ms, bb_by) = half_bounds(L, D)
+        (bf_ms, bf_by), (bb_ms, bb_by) = half_bounds(L, D, f32)
         fwd = lambda: bf.mlp_half(x, params, False)  # noqa: E731
         bwd = lambda: bf.mlp_half_bwd(x, params, gy, False)  # noqa: E731
-        per["mlp_half_fwd"][geo] = {
-            "ms": cuda_ms(fwd), "device_ms": device_ms(fwd), "bound_ms": bf_ms, "bound_by": bf_by,
-            "plain_ms": cuda_ms(lambda: bf.mlp_fwd_plain(x, params, False))}
-        line = (f"  mlp_half@{geo} L={L} D={D}: fwd {per['mlp_half_fwd'][geo]['ms']:.3f} ms "
-                f"(device {per['mlp_half_fwd'][geo]['device_ms']:.3f}, plain "
-                f"{per['mlp_half_fwd'][geo]['plain_ms']:.3f}, bound {bf_ms:.3f})")
+        per[fk][geo] = {
+            "ms": cuda_ms(fwd, **timing), "device_ms": device_ms(fwd), "bound_ms": bf_ms,
+            "bound_by": bf_by,
+            "plain_ms": cuda_ms(lambda: bf.mlp_fwd_plain(x, params, False), **timing)}
+        line = (f"  mlp_half@{geo} {DT_NAME[dtype]} L={L} D={D}: fwd {per[fk][geo]['ms']:.3f} "
+                f"ms (device {per[fk][geo]['device_ms']:.3f}, plain "
+                f"{per[fk][geo]['plain_ms']:.3f}, bound {bf_ms:.3f})")
+        if f32:  # the split f32 MLP branch's forward and backward on the same data
+            kp = bf._prep6(*params, dtype)
+            per[fk][geo]["split_device_ms"] = device_ms(lambda: bf._mlp_fwd_cuda(x, kp))
+            line += f" [split {per[fk][geo]['split_device_ms']:.3f}]"
         if geo != "tgt":
-            per["mlp_half_bwd"][geo] = {
-                "ms": cuda_ms(bwd), "device_ms": device_ms(bwd), "bound_ms": bb_ms,
+            per[bk][geo] = {
+                "ms": cuda_ms(bwd, **timing), "device_ms": device_ms(bwd), "bound_ms": bb_ms,
                 "bound_by": bb_by,
-                "plain_ms": cuda_ms(lambda: bf.mlp_bwd_plain(x, params, gy, False))}
-            r = per["mlp_half_bwd"][geo]
+                "plain_ms": cuda_ms(lambda: bf.mlp_bwd_plain(x, params, gy, False), **timing)}
+            r = per[bk][geo]
             line += (f", bwd {r['ms']:.3f} ms (device {r['device_ms']:.3f}, plain "
                      f"{r['plain_ms']:.3f}, bound {bb_ms:.3f})")
+            if f32:
+                r["split_device_ms"] = device_ms(lambda: bf._mlp_bwd_cuda(x, kp, gy))
+                line += f" [split {r['split_device_ms']:.3f}]"
         print(line, flush=True)
         del x, dy, params, gy
         torch.cuda.empty_cache()
-    return {k: summarize(per[k], errs[k], STEP_CALLS) for k in HALF_KERNELS}
+    return {k: summarize(per[k], errs[k], STEP_CALLS) for k in keys.values()}
 
 
 def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
     """Phases 3d (``kind="block"``: one block per geometry) and 3e
     (``"chain"``: CHAIN_DEPTH blocks), and at f32 phase 24 (a): the kernels
     against their plain versions, every backward output, and per-call
-    times; the target geometry runs the no-grad forward only. At f32 the
-    chain runs at F32_CHAIN_GEOS, the forward is held to F32_ATOL and each
-    backward output to F32_BWD_REL, and both kinds' forwards equal the f32
-    split kernels' bit for bit (one function at f32)."""
+    times, with each pass's device time and launches beside the split
+    kernels' (``stack_device``); the target geometry runs the no-grad
+    forward only. At f32 the chain runs at F32_CHAIN_GEOS, the forward is
+    held to F32_ATOL and each backward output to F32_BWD_REL, and both
+    kinds' forwards equal the f32 split kernels' bit for bit (one function
+    at f32)."""
     f32 = dtype == torch.float32
     names = [bf.dtype_key(dtype, k)
              for k in (BLOCK_KERNELS if kind == "block" else CHAIN_KERNELS)]
@@ -1133,12 +1191,11 @@ def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
         key = fwd if grad else nograd
         per[key][geo] = {"ms": t_fwd, "plain_ms": t_plain, "bound_ms": bf_ms, "bound_by": bf_by}
         errs[key] = max(errs[key], fwd_err)
-        if not f32:
-            dev = stack_device(
-                kind, geo, N, (lambda: kern(xl, pl)) if grad else (lambda: kern(x, params)),
-                (lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True))
-                if grad else None, x, dy, params, H)
-            per[key][geo].update(dev["fwd"])
+        dev = stack_device(
+            kind, geo, N, (lambda: kern(xl, pl)) if grad else (lambda: kern(x, params)),
+            (lambda: torch.autograd.grad(out_k, leaves, dy, retain_graph=True))
+            if grad else None, x, dy, params, H, f32)
+        per[key][geo].update(dev["fwd"])
         line = (f"  {kind}@{geo} {DT_NAME[dtype]} L={L} D={D} N={N}: fwd {t_fwd:.3f} ms (plain "
                 f"{t_plain:.3f}, bound {bf_ms:.3f})")
         if grad:
@@ -1160,9 +1217,7 @@ def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
             t_pbwd = cuda_ms(lambda: torch.autograd.grad(out_rg, leaves, dy, retain_graph=True),
                              **timing)
             per[bwd][geo] = {"ms": t_bwd, "plain_ms": t_pbwd, "bound_ms": bb_ms,
-                             "bound_by": bb_by}
-            if not f32:
-                per[bwd][geo].update(dev["bwd"])
+                             "bound_by": bb_by, **dev["bwd"]}
             errs[bwd] = max(errs[bwd], bwd_err)
             line += (f", bwd {t_bwd:.3f} ms (plain {t_pbwd:.3f}, bound {bb_ms:.3f}); bwd max "
                      f"abs err {bwd_err:.3e}")
@@ -3729,7 +3784,8 @@ def f32_kernel_checks(phase: str) -> dict:
             res = check_f32_branches()
             res.update(check_f32_attention())
         else:
-            res = check_stack("block", f32)
+            res = check_mlp_half(f32)
+            res.update(check_stack("block", f32))
             res.update(check_stack("chain", f32))
             res.update(check_embed(f32))
     return res
@@ -3813,8 +3869,8 @@ def f32_stack_routes(cfg: dict, name: str):
         for k, v in c.items():
             counts[k] += v
 
-    print("phase 24 (a): the f32 whole block, chain and patch embed vs their plain "
-          "versions", flush=True)
+    print("phase 24 (a): the f32 MLP half, whole block, chain and patch embed vs their "
+          "plain versions", flush=True)
     res = f32_kernels_process("24")
     with no_tf32():
         print("phase 24 (b): MAE and JEPA on block and chain, the classifier's full "
@@ -4550,6 +4606,8 @@ def main() -> None:
     rows += [(f"{k}_f32", f"ssrl_vit_mae_jepa_torch/csrc/{src}",
               {**BLOCK_KERNELS, **CHAIN_KERNELS, **EMBED_KERNELS}[k])
              for k, src in F32_STACK_SOURCES.items()]
+    rows += [(f"{k}_f32", "ssrl_vit_mae_jepa_torch/csrc/block_mlp_f32.cu", replaces)
+             for k, replaces in HALF_KERNELS.items()]
     rows += [(bf.dtype_key(dt, k), "ssrl_vit_mae_jepa_torch/csrc/"
               + (src if dt == torch.bfloat16 else "branch_f32.cu"), replaces)
              for dt in (torch.bfloat16, torch.float32)

@@ -78,6 +78,10 @@ _SIGNATURES = {
     "ssrl_mlp_half_fwd": (_I, [_P] * 8 + [_I] * 4 + [_P]),
     "ssrl_mlp_half_bwd_workspace": (_LL, [_I] * 3),
     "ssrl_mlp_half_bwd": (_I, [_P] * 15 + [_I] * 4 + [_P]),
+    # its f32 kernel (csrc/block_mlp_f32.cu): 8 / 13 pointers, M, D, F, stream
+    "ssrl_mlp_half_fwd_f32": (_I, [_P] * 8 + [_I] * 3 + [_P]),
+    "ssrl_mlp_half_bwd_f32_workspace": (_LL, [_I] * 3),
+    "ssrl_mlp_half_bwd_f32": (_I, [_P] * 13 + [_I] * 3 + [_P]),
     # layout, M, N, K / layout, epi, 11 pointers, M, N, K, stream
     "ssrl_gemm_workspace": (_LL, [_I] * 4),
     "ssrl_gemm": (_I, [_I] * 2 + [_P] * 11 + [_I] * 3 + [_P]),

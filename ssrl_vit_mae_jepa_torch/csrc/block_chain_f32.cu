@@ -21,12 +21,15 @@
 // What bounds it on the H100: the products on the CUDA cores (67 TFLOP/s,
 // no TF32), as for the f32 branches: bound by operations.
 //
-// What this design does about it: nothing beyond the branches' own design --
-// the first version, right before fast. One host entry per pass launches the
-// f32 branch sequences of branch_f32.cu (csrc/branch_f32.cuh) block after
-// block on the caller's stream. The TPU kernel keeps all N blocks' weights
-// and the gradient chain resident in VMEM; here the gradient chain goes
-// through device memory (two (B*L, D) f32 buffers in turn), and each
+// What this design does about it: one host entry per pass launches the f32
+// branch sequences of branch_f32.cu (csrc/branch_f32.cuh) block after block
+// on the caller's stream. The backward reads each block's `a` and x_mid from
+// the stash, so it runs LN1 and the qkv product once a block. The MLP half
+// as one CUDA-core kernel each way (csrc/block_mlp_f32.cu) was measured in
+// place of the MLP branch's sequence and ran 1.5-2.2x its device time
+// (PERF.md), so the split sequence stays. The TPU kernel keeps all N blocks'
+// weights and the gradient chain resident in VMEM; here the gradient chain
+// goes through device memory (two (B*L, D) f32 buffers in turn), and each
 // block's 12 gradients are written straight into its packed buffer.
 #include "common.cuh"
 #include "branch_f32.cuh"

@@ -223,10 +223,12 @@ bool attn_ok(int B, int L, int D, int Da, int H, bool bwd) {
          ssrl::mha_f32_fits(L, Da / H, bwd) && (!bwd || D <= 256);
 }
 
-size_t attn_fwd_carve(Carver& c, size_t M, int D, int Da, bool stash, float** y1,
+// With `kept`, y1 and qkv are the caller's (the whole block's backward keeps
+// them for the attention backward) and take no workspace.
+size_t attn_fwd_carve(Carver& c, size_t M, int D, int Da, bool stash, bool kept, float** y1,
                       float** qkv, float** a_scratch) {
-  *y1 = c.take<float>(M * D);
-  *qkv = c.take<float>(M * 3 * Da);
+  *y1 = kept ? nullptr : c.take<float>(M * D);
+  *qkv = kept ? nullptr : c.take<float>(M * 3 * Da);
   *a_scratch = stash ? nullptr : c.take<float>(M * Da);
   return c.off;
 }
@@ -244,14 +246,15 @@ struct AttnBwdWs {
   float *y1, *qkv, *da, *dqkv, *dy1, *part, *tmp;
 };
 
-size_t attn_bwd_carve(Carver& c, int B, int L, int D, int Da, AttnBwdWs* w) {
+// With `kept`, y1 and qkv come from the caller's recomputing forward.
+size_t attn_bwd_carve(Carver& c, int B, int L, int D, int Da, bool kept, AttnBwdWs* w) {
   const int M = B * L;
   size_t part = gemm_tn_f32_part_floats(D, Da, M);
   const size_t cands[2] = {gemm_tn_f32_part_floats(3 * Da, D, M),
                            (size_t)ln_bwd_blocks(M) * 3 * D};
   for (size_t x : cands) part = x > part ? x : part;
-  w->y1 = c.take<float>((size_t)M * D);
-  w->qkv = c.take<float>((size_t)M * 3 * Da);
+  w->y1 = kept ? nullptr : c.take<float>((size_t)M * D);
+  w->qkv = kept ? nullptr : c.take<float>((size_t)M * 3 * Da);
   w->da = c.take<float>((size_t)M * Da);
   w->dqkv = c.take<float>((size_t)M * 3 * Da);
   w->dy1 = c.take<float>((size_t)M * D);
@@ -285,15 +288,20 @@ size_t mlp_fwd_carve(Carver& c, int M, int D, int F, float** y2, float** h) {
 }
 
 // The attention forward: out = x + (a Wp^T + bp); or, with `part` set (a
-// model-axis shard), only part = a Wp^T, Wp (D, Da).
+// model-axis shard), only part = a Wp^T, Wp (D, Da). With y1_keep and
+// qkv_keep set, LN1(x) and the qkv product are written there.
 cudaError_t attn_fwd_seq(const float* x, const ssrl::BranchParamsF32& p, float* out,
-                         float* part, float* a, void* ws, int B, int L, int D, int Da, int H,
-                         float scale, cudaStream_t st) {
+                         float* part, float* a, float* y1_keep, float* qkv_keep, void* ws, int B,
+                         int L, int D, int Da, int H, float scale, cudaStream_t st) {
   if (!attn_ok(B, L, D, Da, H, false)) return cudaErrorInvalidValue;
   const int M = B * L;
   Carver c{static_cast<char*>(ws)};
   float *y1, *qkv, *a_scratch;
-  attn_fwd_carve(c, M, D, Da, a != nullptr, &y1, &qkv, &a_scratch);
+  attn_fwd_carve(c, M, D, Da, a != nullptr, y1_keep != nullptr, &y1, &qkv, &a_scratch);
+  if (y1_keep) {
+    y1 = y1_keep;
+    qkv = qkv_keep;
+  }
   float* abuf = a ? a : a_scratch;
   SSRL_TRY(ln_qkv(x, p.ln_s, p.ln_b, p.wa, p.ba, y1, qkv, M, D, Da, st));
   ssrl::MhaArgsT<float> m = qkv_args(qkv, B, L, Da, H, scale);
@@ -308,17 +316,24 @@ cudaError_t attn_fwd_seq(const float* x, const ssrl::BranchParamsF32& p, float* 
 
 // The attention backward; with `dy1_out` set (a model-axis shard) it stops
 // at dy1 = dqkv Wqkv, written there (no LN backward: dx and d.dln3 unused).
+// With y1_kept and qkv_kept set (the forward's LN1(x) and qkv), it runs
+// neither again.
 cudaError_t attn_bwd_seq(const float* x, const ssrl::BranchParamsF32& p, const float* a,
                          const float* g, float* dx, const ssrl::BranchGrads& d, float* dy1_out,
-                         void* ws, int B, int L, int D, int Da, int H, float scale,
-                         cudaStream_t st) {
+                         const float* y1_kept, const float* qkv_kept, void* ws, int B, int L,
+                         int D, int Da, int H, float scale, cudaStream_t st) {
   if (!attn_ok(B, L, D, Da, H, true)) return cudaErrorInvalidValue;
   const int M = B * L;
   Carver c{static_cast<char*>(ws)};
   AttnBwdWs w;
-  attn_bwd_carve(c, B, L, D, Da, &w);
+  attn_bwd_carve(c, B, L, D, Da, y1_kept != nullptr, &w);
   if (dy1_out) w.dy1 = dy1_out;
-  SSRL_TRY(ln_qkv(x, p.ln_s, p.ln_b, p.wa, p.ba, w.y1, w.qkv, M, D, Da, st));
+  if (y1_kept) {
+    w.y1 = const_cast<float*>(y1_kept);
+    w.qkv = const_cast<float*>(qkv_kept);
+  } else {
+    SSRL_TRY(ln_qkv(x, p.ln_s, p.ln_b, p.wa, p.ba, w.y1, w.qkv, M, D, Da, st));
+  }
   // dWp = g^T a; da = g Wp
   SSRL_TRY(gemm_tn_f32(g, a, d.dwb, w.part, D, Da, M, st));
   SSRL_TRY(gemm_f32(ssrl::GEMM_NN, F_NONE, g, p.wb, nullptr, nullptr, w.da, nullptr, M, Da, D,
@@ -413,24 +428,44 @@ bool attn_f32_ok(int B, int L, int D, int H, bool bwd) { return attn_ok(B, L, D,
 size_t attn_f32_fwd_workspace(int B, int L, int D, bool stash) {
   Carver c{nullptr};
   float *y1, *qkv, *as;
-  return attn_fwd_carve(c, (size_t)B * L, D, D, stash, &y1, &qkv, &as);
+  return attn_fwd_carve(c, (size_t)B * L, D, D, stash, false, &y1, &qkv, &as);
 }
 
 cudaError_t attn_f32_fwd(const float* x, const BranchParamsF32& p, float* out, float* a,
                          void* ws, int B, int L, int D, int H, float scale, cudaStream_t st) {
-  return attn_fwd_seq(x, p, out, nullptr, a, ws, B, L, D, D, H, scale, st);
+  return attn_fwd_seq(x, p, out, nullptr, a, nullptr, nullptr, ws, B, L, D, D, H, scale, st);
+}
+
+cudaError_t attn_f32_fwd_keep(const float* x, const BranchParamsF32& p, float* out, float* a,
+                              float* y1, float* qkv, void* ws, int B, int L, int D, int H,
+                              float scale, cudaStream_t st) {
+  return attn_fwd_seq(x, p, out, nullptr, a, y1, qkv, ws, B, L, D, D, H, scale, st);
 }
 
 size_t attn_f32_bwd_workspace(int B, int L, int D) {
   Carver c{nullptr};
   AttnBwdWs w;
-  return attn_bwd_carve(c, B, L, D, D, &w);
+  return attn_bwd_carve(c, B, L, D, D, false, &w);
 }
 
 cudaError_t attn_f32_bwd(const float* x, const BranchParamsF32& p, const float* a,
                          const float* g, float* dx, const BranchGrads& d, void* ws, int B,
                          int L, int D, int H, float scale, cudaStream_t st) {
-  return attn_bwd_seq(x, p, a, g, dx, d, nullptr, ws, B, L, D, D, H, scale, st);
+  return attn_bwd_seq(x, p, a, g, dx, d, nullptr, nullptr, nullptr, ws, B, L, D, D, H, scale,
+                      st);
+}
+
+size_t attn_f32_bwd_kept_workspace(int B, int L, int D) {
+  Carver c{nullptr};
+  AttnBwdWs w;
+  return attn_bwd_carve(c, B, L, D, D, true, &w);
+}
+
+cudaError_t attn_f32_bwd_kept(const float* x, const BranchParamsF32& p, const float* a,
+                              const float* y1, const float* qkv, const float* g, float* dx,
+                              const BranchGrads& d, void* ws, int B, int L, int D, int H,
+                              float scale, cudaStream_t st) {
+  return attn_bwd_seq(x, p, a, g, dx, d, nullptr, y1, qkv, ws, B, L, D, D, H, scale, st);
 }
 
 bool mlp_f32_ok(int M, int D, int F) { return M >= 1 && D >= 1 && D <= 256 && F >= 1; }
@@ -548,7 +583,8 @@ int ssrl_mlp_branch_bwd_f32(const void* x, const void* ln_s, const void* ln_b,
 long long ssrl_attn_branch_part_fwd_f32_workspace(int B, int L, int D, int Da, int stash) {
   Carver c{nullptr};
   float *y1, *qkv, *as;
-  return (long long)attn_fwd_carve(c, (size_t)B * L, D, Da, stash != 0, &y1, &qkv, &as);
+  return (long long)attn_fwd_carve(c, (size_t)B * L, D, Da, stash != 0, false, &y1, &qkv,
+                                   &as);
 }
 
 int ssrl_attn_branch_part_fwd_f32(const void* x, const void* ln_s, const void* ln_b,
@@ -557,14 +593,14 @@ int ssrl_attn_branch_part_fwd_f32(const void* x, const void* ln_s, const void* l
                                   int H, float scale, void* stream) {
   return (int)attn_fwd_seq(static_cast<const float*>(x),
                            params6(ln_s, ln_b, wqkv, bqkv, wp, nullptr), nullptr,
-                           static_cast<float*>(part), static_cast<float*>(a), ws, B, L, D, Da,
-                           H, scale, static_cast<cudaStream_t>(stream));
+                           static_cast<float*>(part), static_cast<float*>(a), nullptr, nullptr,
+                           ws, B, L, D, Da, H, scale, static_cast<cudaStream_t>(stream));
 }
 
 long long ssrl_attn_branch_part_bwd_f32_workspace(int B, int L, int D, int Da) {
   Carver c{nullptr};
   AttnBwdWs w;
-  return (long long)attn_bwd_carve(c, B, L, D, Da, &w);
+  return (long long)attn_bwd_carve(c, B, L, D, Da, false, &w);
 }
 
 int ssrl_attn_branch_part_bwd_f32(const void* x, const void* ln_s, const void* ln_b,
@@ -577,8 +613,8 @@ int ssrl_attn_branch_part_bwd_f32(const void* x, const void* ln_s, const void* l
   return (int)attn_bwd_seq(static_cast<const float*>(x),
                            params6(ln_s, ln_b, wqkv, bqkv, wp, nullptr),
                            static_cast<const float*>(a), static_cast<const float*>(g), nullptr,
-                           d, static_cast<float*>(dy1), ws, B, L, D, Da, H, scale,
-                           static_cast<cudaStream_t>(stream));
+                           d, static_cast<float*>(dy1), nullptr, nullptr, ws, B, L, D, Da, H,
+                           scale, static_cast<cudaStream_t>(stream));
 }
 
 long long ssrl_mlp_branch_part_fwd_f32_workspace(int M, int D, int F) {

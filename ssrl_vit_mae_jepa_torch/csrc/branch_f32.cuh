@@ -1,7 +1,8 @@
 // The f32 residual branches of a pre-LN block as host-side launch sequences
 // (defined in csrc/branch_f32.cu), shared by the f32 branch entries, the f32
 // whole block (csrc/fused_block_f32.cu) and the f32 chain
-// (csrc/block_chain_f32.cu), as csrc/branch.cuh shares the bf16 ones.
+// (csrc/block_chain_f32.cu), as csrc/branch.cuh shares the bf16 ones; and
+// the f32 MLP half as one kernel each way (csrc/block_mlp_f32.cu).
 //
 // At f32 every rounding point of the TPU kernels is a no-op
 // (ssrl_vit_mae_jepa_tpu/ops/block_pallas.py:256-317, ops/block_chain.py:
@@ -51,6 +52,19 @@ cudaError_t attn_f32_bwd(const float* x, const BranchParamsF32& p, const float* 
                          const float* g, float* dx, const BranchGrads& d, void* ws, int B,
                          int L, int D, int H, float scale, cudaStream_t st);
 
+// The whole block's backward keeps LN1(x) and the qkv product from its
+// recomputing forward: attn_f32_fwd_keep writes them to y1 (B*L, D) and qkv
+// (B*L, 3D) as well, and attn_f32_bwd_kept takes them in place of running
+// LN1 and the qkv product again (the same bits as attn_f32_bwd).
+cudaError_t attn_f32_fwd_keep(const float* x, const BranchParamsF32& p, float* out, float* a,
+                              float* y1, float* qkv, void* ws, int B, int L, int D, int H,
+                              float scale, cudaStream_t st);
+size_t attn_f32_bwd_kept_workspace(int B, int L, int D);
+cudaError_t attn_f32_bwd_kept(const float* x, const BranchParamsF32& p, const float* a,
+                              const float* y1, const float* qkv, const float* g, float* dx,
+                              const BranchGrads& d, void* ws, int B, int L, int D, int H,
+                              float scale, cudaStream_t st);
+
 // x (M, D) -> out = x + gelu(LN(x) W1^T + b1) W2^T + b2, and its backward
 // (dln3 = d ln_s | d ln_b | d b2); the backward takes D <= 256.
 bool mlp_f32_ok(int M, int D, int F);
@@ -60,6 +74,19 @@ cudaError_t mlp_f32_fwd(const float* x, const BranchParamsF32& p, float* out, vo
 size_t mlp_f32_bwd_workspace(int M, int D, int F);
 cudaError_t mlp_f32_bwd(const float* x, const BranchParamsF32& p, const float* g, float* dx,
                         const BranchGrads& d, void* ws, int M, int D, int F, cudaStream_t st);
+
+// The f32 MLP half as one CUDA-core kernel each way (csrc/block_mlp_f32.cu,
+// alone: it runs slower than mlp_f32_fwd / mlp_f32_bwd, which the whole
+// block and the chain keep): mlp_f32_fwd's function with the split kernels'
+// bits, and its backward from the f32 gradient g at out (dx = g + the
+// half's input gradient, every gradient of d written); z and dy2 never
+// reach device memory. Any shape mlp_f32_ok takes.
+cudaError_t mlp_half_f32_fwd(const float* x, const BranchParamsF32& p, float* out, int M,
+                             int D, int F, cudaStream_t st);
+size_t mlp_half_f32_bwd_workspace(int M, int D, int F);
+cudaError_t mlp_half_f32_bwd(const float* x, const BranchParamsF32& p, const float* g,
+                             float* dx, const BranchGrads& d, void* ws, int M, int D, int F,
+                             cudaStream_t st);
 
 // A block (or a chain of them) at f32: the bf16 block's shape gate
 // (block_shape_ok, which ops/block_fused.py::supported mirrors) and the f32

@@ -22,14 +22,23 @@
 //
 // What bounds it on the H100: the products of both branches on the CUDA
 // cores (67 TFLOP/s, no TF32): ~24 M D^2 + 4 B L^2 D operations forward
-// against 2 M D f32 activations, bound by operations.
+// against 2 M D f32 activations, bound by operations. Run as the two split
+// branches in turn, its backward also ran LN1 and the qkv product twice:
+// once in the recomputing forward and once more in the attention backward
+// (6 M D^2 operations a block, ~1.8 ms of a MAE step at f32).
 //
-// What this design does about it: nothing beyond the branches' own design --
-// the first version, right before fast. One host entry per pass launches the
-// f32 branch sequences of branch_f32.cu (csrc/branch_f32.cuh) on the
-// caller's stream; x_mid, the recomputed attention output `a` and dx_mid go
-// through device memory, and the 12 gradients are written straight into the
-// packed buffer of ssrl::block_grads.
+// What this design does about it:
+//   - the backward's recomputing forward keeps LN1(x) and qkv
+//     (attn_f32_fwd_keep) and the attention backward takes them
+//     (attn_f32_bwd_kept), so LN1 and the qkv product run once a call, with
+//     the same bits as before;
+//   - both halves stay on the f32 branch launches (csrc/branch_f32.cu: the
+//     SIMT GEMM of csrc/gemm_f32_simt.cuh and the core of mha_f32.cu); x_mid,
+//     a and dx_mid go through device memory, and the 12 gradients are
+//     written straight into the packed buffer of ssrl::block_grads.
+// The MLP half as one CUDA-core kernel each way (csrc/block_mlp_f32.cu) was
+// measured in its place and ran 1.5-2.2x the split MLP sequence's device
+// time (PERF.md), so the split sequence stays here.
 #include "common.cuh"
 #include "branch_f32.cuh"
 
@@ -46,17 +55,23 @@ size_t fwd_carve(Carver& c, int B, int L, int D, int F, float** mid, char** scra
   return c.off;
 }
 
-// The recomputed a and x_mid, dx_mid, and one scratch region for the
-// recomputing forward and the two branch backwards.
-size_t bwd_carve(Carver& c, int B, int L, int D, int F, float** a, float** mid, float** gmid,
-                 char** scratch) {
+// The recomputed a, x_mid, y1 and qkv, dx_mid, and one scratch region for
+// the MLP branch's backward and then the attention backward (the
+// recomputing forward needs none: its y1 and qkv are the kept ones).
+struct BwdWs {
+  float *a, *mid, *y1, *qkv, *gmid;
+  char* scratch;
+};
+
+size_t bwd_carve(Carver& c, int B, int L, int D, int F, BwdWs* w) {
   const size_t M = (size_t)B * L;
-  *a = c.take<float>(M * D);
-  *mid = c.take<float>(M * D);
-  *gmid = c.take<float>(M * D);
-  *scratch = c.take<char>(max2(max2(ssrl::attn_f32_fwd_workspace(B, L, D, true),
-                                    ssrl::mlp_f32_bwd_workspace((int)M, D, F)),
-                               ssrl::attn_f32_bwd_workspace(B, L, D)));
+  w->a = c.take<float>(M * D);
+  w->mid = c.take<float>(M * D);
+  w->y1 = c.take<float>(M * D);
+  w->qkv = c.take<float>(M * 3 * D);
+  w->gmid = c.take<float>(M * D);
+  w->scratch = c.take<char>(max2(ssrl::mlp_f32_bwd_workspace((int)M, D, F),
+                                 ssrl::attn_f32_bwd_kept_workspace(B, L, D)));
   return c.off;
 }
 
@@ -89,9 +104,8 @@ int ssrl_fused_block_fwd_f32(const void* x, const void* const* params, void* out
 
 long long ssrl_fused_block_bwd_f32_workspace(int B, int L, int D, int F) {
   Carver c{nullptr};
-  float *a, *mid, *gmid;
-  char* scratch;
-  return (long long)bwd_carve(c, B, L, D, F, &a, &mid, &gmid, &scratch);
+  BwdWs w;
+  return (long long)bwd_carve(c, B, L, D, F, &w);
 }
 
 // g, dx: [B*L][D] f32; grads: the block's f32 gradients in the packed layout
@@ -102,22 +116,23 @@ int ssrl_fused_block_bwd_f32(const void* x, const void* const* params, const voi
   if (!ssrl::block_f32_ok(B, L, D, H, F, true)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Carver c{static_cast<char*>(ws)};
-  float *a, *mid, *gmid;
-  char* scratch;
-  bwd_carve(c, B, L, D, F, &a, &mid, &gmid, &scratch);
+  BwdWs w;
+  bwd_carve(c, B, L, D, F, &w);
   ssrl::BranchGrads da, dm;
   ssrl::block_grads(static_cast<float*>(grads), D, F, &da, &dm);
   const float* xf = static_cast<const float*>(x);
   const ssrl::BranchParamsF32 pa = ssrl::branch_params_f32(params);
 
-  // recompute a and x_mid
-  SSRL_TRY(ssrl::attn_f32_fwd(xf, pa, mid, a, scratch, B, L, D, H, scale, st));
+  // recompute a and x_mid, keeping LN1(x) and qkv
+  SSRL_TRY(ssrl::attn_f32_fwd_keep(xf, pa, w.mid, w.a, w.y1, w.qkv, nullptr, B, L, D, H, scale,
+                                   st));
   // MLP branch: dx_mid = g + LN2'(...)
-  SSRL_TRY(ssrl::mlp_f32_bwd(mid, ssrl::branch_params_f32(params + 6),
-                             static_cast<const float*>(g), gmid, dm, scratch, B * L, D, F, st));
-  // attention branch from dx_mid
-  return (int)ssrl::attn_f32_bwd(xf, pa, a, gmid, static_cast<float*>(dx), da, scratch, B, L,
-                                 D, H, scale, st);
+  SSRL_TRY(ssrl::mlp_f32_bwd(w.mid, ssrl::branch_params_f32(params + 6),
+                             static_cast<const float*>(g), w.gmid, dm, w.scratch, B * L, D, F,
+                             st));
+  // attention branch from dx_mid, on the kept LN1(x) and qkv
+  return (int)ssrl::attn_f32_bwd_kept(xf, pa, w.a, w.y1, w.qkv, w.gmid, static_cast<float*>(dx),
+                                      da, w.scratch, B, L, D, H, scale, st);
 }
 
 }  // extern "C"

@@ -27,6 +27,8 @@ forward with or without the stash and backward, and the whole block
 ``csrc/fused_block_f32.cu`` (and the chain of ``ops/block_chain.py``) built
 on the same f32 branch sequences (``csrc/branch_f32.cuh``); f32 throughout
 with no rounding point, so their plain versions are the bf16 ones at f32.
+The f32 MLP half as one kernel each way (``csrc/block_mlp_f32.cu``) runs
+alone, as ``mlp_half`` / ``mlp_half_bwd`` on f32 tensors.
 
 Numerics (``block_pallas.py:28-32``): LN statistics and softmax in f32, LN
 eps 1e-6, products of rounded operands accumulated in f32, bf16 rounding of
@@ -84,6 +86,9 @@ LAUNCHES = {
     # N a bf16 chain of N blocks (each way), or one a call of ``mlp_half*``
     "mlp_half_fwd": 0,
     "mlp_half_bwd": 0,
+    # the f32 MLP half (csrc/block_mlp_f32.cu): one a call of ``mlp_half*`` alone
+    "mlp_half_fwd_f32": 0,
+    "mlp_half_bwd_f32": 0,
     "gemm": 0,  # the GEMM alone (``gemm``), for its own checks; never on a step
     "gemm_f32": 0,  # the f32 GEMM alone (``gemm`` at f32), likewise
     "attn_branch_fwd_f32": 0,  # csrc/branch_f32.cu: the f32 branches
@@ -1082,29 +1087,34 @@ def branch_ln_bwd(x, ln_scale, dy, gy):
 
 
 
-# The MLP half of the whole block and the chain alone (``csrc/block_mlp.cu``;
-# chip_smoke.py and the card's tests hold it to ``mlp_fwd_plain`` /
+# The MLP half of the bf16 whole block and chain alone (``csrc/block_mlp.cu``),
+# and at f32 ``csrc/block_mlp_f32.cu``, which no block or chain runs
+# (chip_smoke.py and the card's tests hold both to ``mlp_fwd_plain`` /
 # ``mlp_bwd_plain``): a CUDA tensor launches the kernel, a CPU one runs the
 # plain version.
 
 
-def mlp_half_supported(D: int, F_: int) -> bool:
-    """Whether the MLP-half kernels take (D, F): ``ssrl::mlp_shape_ok`` --
-    8 <= D <= 256, D and F multiples of 8 (any number of rows)."""
+def mlp_half_supported(D: int, F_: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the MLP-half kernels take (D, F) at ``dtype``: bf16
+    ``ssrl::mlp_shape_ok`` -- 8 <= D <= 256, D and F multiples of 8; f32
+    ``ssrl::mlp_f32_ok`` -- 1 <= D <= 256, any F >= 1 (any number of rows)."""
+    if dtype == torch.float32:
+        return 1 <= D <= 256 and F_ >= 1
     return 8 <= D <= 256 and D % 8 == 0 and F_ >= 8 and F_ % 8 == 0
 
 
 def check_mlp_half(x, params) -> int:
-    """Raise on what the MLP-half kernels do not take: bf16 (B, L, D)
-    activations and the MLP's six parameters (ln_s, ln_b, w1 (F, D), b1,
+    """Raise on what the MLP-half kernels do not take: bf16 or f32 (B, L,
+    D) activations and the MLP's six parameters (ln_s, ln_b, w1 (F, D), b1,
     w2 (D, F), b2) at a (D, F) of ``mlp_half_supported``; return F."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the MLP-half kernels take bfloat16 activations, got {x.dtype}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the MLP-half kernels take {' or '.join(map(str, _DTYPES))} "
+                        f"activations, got {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"expected (B, L, D) activations, got {tuple(x.shape)}")
     D, F_ = x.shape[-1], params[2].shape[0]
-    if not mlp_half_supported(D, F_):
-        raise ValueError(f"the MLP-half kernels do not take D={D} F={F_}")
+    if not mlp_half_supported(D, F_, x.dtype):
+        raise ValueError(f"the MLP-half kernels do not take D={D} F={F_} at {x.dtype}")
     shapes = [(D,), (D,), (F_, D), (F_,), (D, F_), (D,)]
     for t, shape in zip(params, shapes):
         if tuple(t.shape) != shape:
@@ -1115,7 +1125,8 @@ def check_mlp_half(x, params) -> int:
 def mlp_half(x, p, round_z: bool = True):
     """The MLP half ``x + bf16(h W2^T + b2)`` of ``p`` = (ln_s, ln_b, w1, b1,
     w2, b2), z rounded to bf16 (``round_z``, the chain) or kept in f32 (the
-    whole block): ``mlp_fwd_plain`` on the CPU, the kernel on the card."""
+    whole block); at f32 every rounding is a no-op and ``round_z`` changes
+    nothing: ``mlp_fwd_plain`` on the CPU, the kernel on the card."""
     if _route(x) == "cpu":
         return mlp_fwd_plain(x, p, round_z)
     F_ = check_mlp_half(x, p)
@@ -1124,20 +1135,24 @@ def mlp_half(x, p, round_z: bool = True):
     kp = _prep6(*p, x.dtype)
     B, L, D = x.shape
     out = torch.empty_like(x)
-    LAUNCHES["mlp_half_fwd"] += 1
-    _build.check(_build.load().ssrl_mlp_half_fwd(
-        x.data_ptr(), *(t.data_ptr() for t in kp), out.data_ptr(), B * L, D, F_,
-        int(round_z), _stream(x),
-    ), "mlp_half_fwd")
+    key = dtype_key(x.dtype, "mlp_half_fwd")
+    lib = _build.load()
+    args = (x.data_ptr(), *(t.data_ptr() for t in kp), out.data_ptr(), B * L, D, F_)
+    LAUNCHES[key] += 1
+    if x.dtype == torch.float32:
+        code = lib.ssrl_mlp_half_fwd_f32(*args, _stream(x))
+    else:
+        code = lib.ssrl_mlp_half_fwd(*args, int(round_z), _stream(x))
+    _build.check(code, key)
     return out
 
 
 def mlp_half_bwd(x, p, gy, round_z: bool = True):
     """The MLP half's backward from the f32 gradient ``gy`` at its output:
     (gy + its input gradient in f32, the six f32 parameter gradients), as
-    ``mlp_bwd_plain`` returns them; the kernel on the card (it also writes
-    the bf16 form of the first, which the whole block and the chain pass
-    on), ``mlp_bwd_plain`` on the CPU."""
+    ``mlp_bwd_plain`` returns them; the kernel on the card (at bf16 it also
+    writes the bf16 form of the first, which the whole block and the chain
+    pass on), ``mlp_bwd_plain`` on the CPU."""
     if _route(x) == "cpu":
         return mlp_bwd_plain(x, p, gy.float(), round_z)
     F_ = check_mlp_half(x, p)
@@ -1146,12 +1161,22 @@ def mlp_half_bwd(x, p, gy, round_z: bool = True):
     s, b, w1, b1, w2, _ = _prep6(*p, x.dtype)
     B, L, D = x.shape
     g32 = gy.float().contiguous()
-    gbf = g32.to(x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx, dx32 = torch.empty_like(x), torch.empty_like(g32)
+    dx32 = torch.empty_like(g32)
     dln3 = torch.empty((3, D), **f32)
     dw1, db1, dw2 = (torch.empty(shape, **f32) for shape in ((F_, D), (F_,), (D, F_)))
     lib = _build.load()
+    if x.dtype == torch.float32:
+        ws = _workspace(lib.ssrl_mlp_half_bwd_f32_workspace(B * L, D, F_), x)
+        LAUNCHES["mlp_half_bwd_f32"] += 1
+        _build.check(lib.ssrl_mlp_half_bwd_f32(
+            x.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), g32.data_ptr(), dx32.data_ptr(), dln3.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), ws.data_ptr(), B * L, D, F_, _stream(x),
+        ), "mlp_half_bwd_f32")
+        return dx32, (dln3[0], dln3[1], dw1, db1, dw2, dln3[2])
+    gbf = g32.to(x.dtype)
+    dx = torch.empty_like(x)
     ws = _workspace(lib.ssrl_mlp_half_bwd_workspace(B * L, D, F_), x)
     LAUNCHES["mlp_half_bwd"] += 1
     _build.check(lib.ssrl_mlp_half_bwd(

@@ -164,9 +164,11 @@ def test_mlp_half_is_the_plain_half_on_the_cpu():
 
 def test_mlp_half_guard_is_the_kernels_fit():
     """``check_mlp_half`` (run before every launch on the card) takes what
-    ``ssrl::mlp_shape_ok`` takes and returns F; it refuses f32 (the f32
-    whole block and chain run the split f32 sequences), a D beyond 8-256 or
-    off a multiple of 8, an F off a multiple of 8, and mis-shaped params."""
+    ``ssrl::mlp_shape_ok`` takes at bf16 and ``ssrl::mlp_f32_ok`` at f32
+    (``csrc/block_mlp_f32.cu``; its shapes in
+    ``tests/test_torch_mlp_half_f32.py``) and returns F; it refuses float16,
+    a bf16 D beyond 8-256 or off a multiple of 8, a bf16 F off a multiple of
+    8, and mis-shaped params."""
     def params(D, F_):
         return [torch.zeros(D), torch.zeros(D), torch.zeros(F_, D), torch.zeros(F_),
                 torch.zeros(D, F_), torch.zeros(D)]
@@ -177,8 +179,9 @@ def test_mlp_half_guard_is_the_kernels_fit():
     assert bf.mlp_half_supported(8, 8) and bf.mlp_half_supported(256, 1024)
     assert not bf.mlp_half_supported(264, 1056) and not bf.mlp_half_supported(100, 400)
     assert not bf.mlp_half_supported(144, 580)
+    assert bf.check_mlp_half(x.float(), params(144, 576)) == 576
     with pytest.raises(TypeError):
-        bf.check_mlp_half(x.float(), params(144, 576))
+        bf.check_mlp_half(x.half(), params(144, 576))
     with pytest.raises(ValueError, match="do not take"):
         bf.check_mlp_half(torch.zeros(2, 3, 100, dtype=torch.bfloat16), params(100, 400))
     with pytest.raises(ValueError, match="do not take"):

@@ -505,6 +505,80 @@ def test_f32_block_kernels_match_plain(cuda, kind):
     _f32_close(out_k, grads_k, out_r, grads_r)
 
 
+# (B, L, D, F): the f32 MLP half at the MAE encoder and decoder and the JEPA
+# predictor's widths, ragged row counts (not multiples of 64), and widths
+# that take the 4-byte copies (D or F not a multiple of 4) or pad D to 48
+F32_HALF_SHAPES = [(96, 37, 144, 576), (64, 145, 192, 768), (48, 145, 96, 384),
+                   (3, 17, 48, 192), (9, 37, 144, 576), (2, 5, 45, 180), (2, 7, 40, 100),
+                   (3, 11, 256, 1024), (1, 1, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,F_", F32_HALF_SHAPES)
+def test_f32_mlp_half_matches_plain(cuda, B, L, D, F_):
+    """The f32 MLP half of ``csrc/block_mlp_f32.cu`` alone against
+    ``mlp_fwd_plain`` / ``mlp_bwd_plain`` at f32 (TF32 off): one launch each
+    way under the ``_f32`` keys; the forward within 5e-5 and equal to the
+    split f32 MLP branch's bit for bit (fc1 over K = D and fc2 over K = F in
+    ascending k, LN2 in ``ln_f32_kernel``'s order); the input gradient and
+    the six parameter gradients within 1e-4 of their largest magnitudes; a
+    second call the same bits."""
+    g = torch.Generator().manual_seed(B + L + D + F_)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    p = [t.to(cuda) for t in (1.0 + 0.1 * rn(D), 0.1 * rn(D), rn(F_, D) * D**-0.5,
+                               0.1 * rn(F_), rn(D, F_) * F_**-0.5, 0.1 * rn(D))]
+    x, gy = rn(B, L, D).to(cuda), rn(B, L, D).to(cuda)
+    _reset()
+    out = bf.mlp_half(x, p)
+    dx, grads = bf.mlp_half_bwd(x, p, gy)
+    torch.cuda.synchronize()
+    assert _launched() == {"mlp_half_fwd_f32": 1, "mlp_half_bwd_f32": 1}
+    with torch.no_grad():
+        assert torch.equal(out, bf.fused_mlp_branch(x, *p))
+    again = bf.mlp_half_bwd(x, p, gy)
+    assert torch.equal(bf.mlp_half(x, p), out)
+    assert all(map(torch.equal, (dx, *grads), (again[0], *again[1])))
+    dx_r, grads_r = bf.mlp_bwd_plain(x, p, gy, True)
+    _f32_close(out, (dx, *grads), bf.mlp_fwd_plain(x, p), (dx_r, *grads_r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mono", "chain"])
+def test_f32_block_kernels_launch_ln1_and_qkv_once(cuda, kind):
+    """By the profiler's kernel names, per call at f32: the whole block's
+    backward runs LN1 and the qkv product (the SIMT GEMM's F_BIAS epilogue)
+    once, kept from its recomputing forward; the chain's once a block (its
+    stash holds ``a``). ``ln_f32_kernel`` runs LN1 and LN2 (the split MLP
+    branch's), so twice a block each way."""
+    B, L, D, H = 96, 37, 144, 6
+    N = 2 if kind == "chain" else 1
+    x, dy, params = _stack_inputs(B, L, D, N, cuda)
+    x, dy = x.float(), dy.float()
+    fn = (lambda x, pl: bc.fused_block_chain(x, pl, H)) if kind == "chain" else _mono(H)
+    xl = x.clone().requires_grad_()
+    pl = [[t.clone().requires_grad_() for t in p] for p in params]
+    out = fn(xl, pl)
+    leaves = [xl] + [t for p in pl for t in p]
+    bwd = _kernel_names(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+    with torch.no_grad():
+        fwd = _kernel_names(lambda: fn(x, params))
+
+    def count(names, part):
+        return sum(n for k, n in names.items() if part in k)
+
+    def epis(names):
+        out = []
+        for name, n in names.items():
+            m = re.search(r"gemm_f32_kernel<\w+, \w+, \d+, \d+, \d+, (\d+)>", name)
+            if m:
+                out += [int(m.group(1))] * n
+        return sorted(out)
+
+    for names in (fwd, bwd):
+        assert count(names, "ln_f32_kernel") == 2 * N  # LN1 and LN2
+        assert epis(names).count(1) == N  # F_BIAS: the qkv product
+
+
 @pytest.mark.cuda
 def test_block_kernels_refuse_what_they_do_not_take(cuda):
     x, _, params = _stack_inputs(2, 17, 48, 2, cuda)
