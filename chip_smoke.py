@@ -223,9 +223,14 @@ Phases (any failure exits nonzero; nothing is caught):
      f32 chain (``csrc/block_chain_f32.cu``) at the MAE encoder (N=4), the
      decoder (N=2) and the no-grad JEPA target (N=4) against ``chain_ref``;
      both forwards equal to the f32 split kernels' bit for bit, a second
-     backward to the first, each call's device ms and launches beside the
-     split pair's (LN twice and the qkv product once a block each way: the
-     block's backward keeps LN1 and qkv); the f32 fused embed (``csrc/patch_embed_f32.cu``)
+     backward to the first, the chain's backward to the split f32 pair's
+     (rows 2 + 5) bit for bit, each call's device ms and launches beside
+     the split pair's (the block: LN twice and the qkv product once a block
+     each way, its backward keeping LN1 and qkv; the chain's forward the
+     same, its backward, from its stash, no LN forward, no qkv and no fc1
+     product), and the peak device memory and device ms of one f32 MAE
+     step on the chain (``mae_step_peak_gib`` in the chain backward's
+     entry); the f32 fused embed (``csrc/patch_embed_f32.cu``)
      at K=37, K=45 and no index against its plain version, with a gather +
      ``torch.matmul`` at f32 as the yardstick; forward within 5e-5, each
      backward output within 1e-4 of its largest magnitude, a second call the
@@ -261,7 +266,7 @@ just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
 
-The line before the last is ``{"kernels": [...]}`` (58 entries): per
+The line before the last is ``{"kernels": [...]}`` (60 entries): per
 kernel, ``ms``, ``plain_ms`` and ``bound_ms`` are per training step of
 ``step`` (the MAE step where it runs the kernel, else the JEPA step),
 ``*_jepa`` the same per JEPA step, ``*_classifier`` per full fine-tune
@@ -418,11 +423,13 @@ HALF_ALSO = {"mlp_half_fwd": _TPU + "block_chain.py:235, :261",
              "mlp_half_bwd": _TPU + "block_chain.py:288"}
 # the branch GEMM's epilogues with a GELU (ssrl::Epi 4-7, csrc/gemm.cuh) and
 # the NT bias epilogue (2, the qkv product), by kernel name; at f32 those of
-# the SIMT GEMM (ssrl::F32Epi, csrc/gemm_f32.cuh: 2, 4, 5 and F_BIAS 1)
+# the SIMT GEMM (ssrl::F32Epi, csrc/gemm_f32.cuh: 2, 4, 5 and F_BIAS 1), and
+# F_BIAS_GELU_Z (4), the fc1 product that also writes z
 GELU_EPIS = {4, 5, 6, 7}
 EPI_QKV = 2
 GELU_EPIS_F32 = {2, 4, 5}
 EPI_QKV_F32 = 1
+EPI_FC1_Z_F32 = 4
 CHAIN_DEPTH = {"enc": 4, "dec": 2, "ctx": 4, "pred": 2, "tgt": 4, "cls": 4}
 CHAIN_CALLS = {"mae": {"enc": 1, "dec": 1}, "jepa": {"ctx": 1, "pred": 1, "tgt": 1},
                "classifier": {"cls": 1}}
@@ -619,16 +626,19 @@ def attention_bounds(L: int, D: int):
 
 def stack_bounds(L: int, D: int, N: int, stash: bool, f32: bool = False):
     """Per-call (fwd, bwd) bounds of N blocks at (B, L, D), F = 4D. Bytes:
-    x and the output (dy and dx) once, the chain's 3N - 1 stash tensors
-    written by its forward and read by its backward, bf16 (``f32``: f32)
-    activations and weights and f32 LN params read once, f32 gradients
-    written once; with ``f32`` the operations at the f32 CUDA-core peak. Operations per block:
-    forward qkv 6, proj 2, fc1 8, fc2 8 (x MD^2) and attention 4BL^2D.
-    Backward of the whole block (only x is an input): the forward up to
-    x_mid again (8MD^2, 4BL^2D), the MLP's 40MD^2 (fc1 again, dh, dW2, dW1,
-    dy2), dWp, da, dWqkv, dy1 16MD^2, the attention backward 8BL^2D; of a
-    chain block (a and x_mid stashed): qkv again 6, the MLP's 40, 16, and
-    the attention backward with QK^T again 10BL^2D."""
+    x and the output (dy and dx) once, the chain's stash
+    (``block_chain.stash_floats``) written by its forward and read by its
+    backward, bf16 (``f32``: f32) activations and weights and f32 LN params
+    read once, f32 gradients written once; with ``f32`` the operations at
+    the f32 CUDA-core peak. Operations per block: forward qkv 6, proj 2,
+    fc1 8, fc2 8 (x MD^2) and attention 4BL^2D. Backward of the whole block
+    (only x is an input): the forward up to x_mid again (8MD^2, 4BL^2D),
+    the MLP's 40MD^2 (fc1 again, dh, dW2, dW1, dy2), dWp, da, dWqkv, dy1
+    16MD^2, the attention backward 8BL^2D; of a bf16 chain block (a and
+    x_mid stashed): qkv again 6, the MLP's 40, 16, and the attention
+    backward with QK^T again 10BL^2D (62MD^2); of an f32 chain block, whose
+    stash also holds LN1's output, qkv, LN2's output, z and h, neither qkv
+    nor fc1 runs again: the MLP's 32, 16 (48MD^2) and 10BL^2D."""
     M = BATCH * L
     e = 4 if f32 else 2
     bnd = bound_f32 if f32 else bound
@@ -636,10 +646,11 @@ def stack_bounds(L: int, D: int, N: int, stash: bool, f32: bool = False):
     w = N * ((12 * D * D + 9 * D) * e + 4 * D * 4)
     grads = N * (12 * D * D + 13 * D) * 4
     att = BATCH * L * L * D
-    st = (3 * N - 1) * act if stash else 0
+    dt = torch.float32 if f32 else torch.bfloat16
+    st = bc.stash_floats(N, BATCH, L, D, 4 * D, dt) * e if stash else 0
     fwd = bnd(2 * act + st + w, N * (24 * M * D * D + 4 * att))
     if stash:
-        bwd = bnd(3 * act + st + w + grads, N * (62 * M * D * D + 10 * att))
+        bwd = bnd(3 * act + st + w + grads, N * ((48 if f32 else 62) * M * D * D + 10 * att))
     else:
         bwd = bnd(3 * act + w + grads, N * (64 * M * D * D + 12 * att))
     return fwd, bwd
@@ -981,9 +992,13 @@ def stack_device(kind: str, geo: str, N: int, fwd_fn, bwd_fn, x, dy, params, H: 
     MLP-half kernel once a block and no GELU epilogue of the branch GEMM (z
     never reaches memory), and LN1 once a block, with the backward's qkv
     product once a block. At f32 the MLP half is the split f32 sequence, so
-    each pass must launch ``ln_f32_kernel`` twice a block (LN1, LN2) and the
-    qkv product (F_BIAS) once a block: the whole block's backward keeps LN1
-    and qkv from its recomputing forward."""
+    each pass of the whole block must launch ``ln_f32_kernel`` twice a block
+    (LN1, LN2) and the qkv product (F_BIAS) once a block: its backward keeps
+    LN1 and qkv from its recomputing forward. The f32 chain's forward does
+    the same, its training forward with the fc1 product that keeps z
+    (F_BIAS_GELU_Z) once a block; its backward, which takes LN1's and LN2's
+    outputs, qkv, z and h from the stash, must launch neither LN forward nor
+    the qkv or the fc1 product."""
     grad = bwd_fn is not None
     half_fmt = "mlp_half_f32_{}_kernel" if f32 else "mlp_half_{}_kernel"
     ln1 = "ln_f32_kernel" if f32 else "ln_fwd_kernel"  # at f32 LN2 too
@@ -1002,6 +1017,10 @@ def stack_device(kind: str, geo: str, N: int, fwd_fn, bwd_fn, x, dy, params, H: 
     for pas, fn, split, half in passes:
         def ok(counts):
             epis = gemm_epis(counts, f32)
+            if f32 and kind == "chain" and pas == "bwd":
+                return named(counts, ln1) == 0 and not {epi_qkv, EPI_FC1_Z_F32} & set(epis)
+            if f32 and kind == "chain" and epis.get(EPI_FC1_Z_F32, 0) != (N if grad else 0):
+                return False
             if f32:
                 return named(counts, ln1) == 2 * N and epis.get(epi_qkv) == N
             return (named(counts, half) == N and named(counts, ln1) == N
@@ -1020,9 +1039,10 @@ def stack_device(kind: str, geo: str, N: int, fwd_fn, bwd_fn, x, dy, params, H: 
         epis = gemm_epis(counts, f32)
         line.append(f"{pas} {ms:.3f} ms, {sum(counts.values())} launches (split pair "
                     f"{split_ms:.3f} ms, {sum(split_counts.values())}); MLP half "
-                    f"{named(counts, half)}, LN1 {named(counts, ln1)}, "
+                    f"{named(counts, half)}, LN{'' if f32 else '1'} {named(counts, ln1)}, "
                     f"qkv {epis.get(epi_qkv, 0)}, GELU epilogues "
-                    f"{sum(epis.get(e, 0) for e in gelu_epis)}")
+                    f"{sum(epis.get(e, 0) for e in gelu_epis)}"
+                    + (f" (fc1 with z {epis.get(EPI_FC1_Z_F32, 0)})" if f32 else ""))
         if not ok(counts):
             fail(f"{kind}@{geo} {pas}: launches a call {counts}")
     del out_s, xs, ps
@@ -1138,9 +1158,11 @@ def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
     times, with each pass's device time and launches beside the split
     kernels' (``stack_device``); the target geometry runs the no-grad
     forward only. At f32 the chain runs at F32_CHAIN_GEOS, the forward is
-    held to F32_ATOL and each backward output to F32_BWD_REL, and both
-    kinds' forwards equal the f32 split kernels' bit for bit (one function
-    at f32)."""
+    held to F32_ATOL and each backward output to F32_BWD_REL, both kinds'
+    forwards equal the f32 split kernels' bit for bit (one function at f32),
+    a second backward gives the first's bits, and the chain's backward (from
+    its stash, running neither the qkv nor the fc1 product) gives the split
+    f32 pair's gradients (rows 2 + 5 through autograd) bit for bit."""
     f32 = dtype == torch.float32
     names = [bf.dtype_key(dtype, k)
              for k in (BLOCK_KERNELS if kind == "block" else CHAIN_KERNELS)]
@@ -1208,6 +1230,19 @@ def check_stack(kind: str, dtype=torch.bfloat16) -> dict:
                 if not all(map(torch.equal, grads_k, again)):
                     fail(f"{kind}@{geo} f32: a second backward differs from the first")
                 del again
+                if kind == "chain":
+                    xs = x.clone().requires_grad_()
+                    ps = [[t.clone().requires_grad_() for t in p] for p in params]
+                    grads_s = torch.autograd.grad(split_stack(xs, ps, H),
+                                                  [xs] + [t for p in ps for t in p], dy)
+                    differ = [n for n, a, b in zip(gnames, grads_k, grads_s)
+                              if not torch.equal(a, b)]
+                    if differ:
+                        fail(f"chain@{geo} f32: the backward differs from the split f32 "
+                             f"pair's in {differ}")
+                    print(f"  chain@{geo} f32: the backward from the stash equals the split "
+                          f"f32 pair's bit for bit ({len(gnames)} outputs)", flush=True)
+                    del xs, ps, grads_s
                 bwd_err = check_close(f"{kind}@{geo} f32", gnames, grads_k, grads_r,
                                       F32_BWD_REL)
             else:
@@ -3787,7 +3822,37 @@ def f32_kernel_checks(phase: str) -> dict:
             res = check_mlp_half(f32)
             res.update(check_stack("block", f32))
             res.update(check_stack("chain", f32))
+            res[bf.dtype_key(f32, "chain_bwd")]["mae_step_peak_gib"] = f32_chain_step("mae")[
+                "peak_gib"]
             res.update(check_embed(f32))
+    return res
+
+
+def f32_chain_step(task_name: str) -> dict:
+    """Phase 24 (a) (and ``tools/torch_f32_stack_ab.py``, on each tree): one
+    f32 MAE or JEPA step on the chain with the fused embed at B=768, after
+    a warm-up step: its peak device memory (GiB, ``max_memory_allocated``
+    over the step) and its device ms (3 steps under the profiler)."""
+    cfg = load_config(REPO / "configs" / "mae.yaml")
+    with fused_embed(True):
+        if task_name == "mae":
+            task = MAETask(cfg["model"], PRE_CFG, dtype=torch.float32, device="cuda",
+                           attn_impl="chain")
+        else:
+            task = JEPATask(cfg["model"], {**cfg["jepa"], "batch_size": BATCH},
+                            dtype=torch.float32, device="cuda", attn_impl="chain")
+        state, batch, ctx = task.init_state(0), flagship_images(), task.epoch_context(0)
+        state, _ = task.train_step(state, batch, 0, ctx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = task.train_step(state, batch, 0, ctx)
+        torch.cuda.synchronize()
+        res = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "device_ms": device_ms(lambda: task.train_step(state, batch, 0, ctx), iters=3)}
+    print(f"  f32 {task_name.upper()} step on chain, SSRL_FUSED_EMBED=1, B={BATCH}: peak "
+          f"memory {res['peak_gib']:.3f} GiB, {res['device_ms']:.3f} device ms", flush=True)
+    del task, state, batch
+    torch.cuda.empty_cache()
     return res
 
 

@@ -28,6 +28,8 @@
 //   mlp:  y2 = LN2(x); z = y2 W1^T + b1, h = gelu(z); dW2 = gy^T h;
 //         dz = (gy W2) o gelu'(z); dW1 = dz^T y2; db1 = colsum(dz);
 //         dy2 = dz W1; dx = gy + LN2'(dy2); d ln2 and db2 as above.
+// The kept variants (attn_f32_bwd_kept, mlp_f32_bwd_kept) take y1 and qkv,
+// or y2, z and h, from a forward that kept them, and start after them.
 // Weight gradients are TN products split over the B*L rows into f32
 // partials, then folded in one fixed order (gemm_f32_tn.cu); bias sums go
 // through common.cuh::reduce_rows; no atomics anywhere, so two calls give
@@ -264,26 +266,31 @@ size_t attn_bwd_carve(Carver& c, int B, int L, int D, int Da, bool kept, AttnBwd
 }
 
 struct MlpBwdWs {
-  float *y2, *z, *h, *dy2, *part, *tmp;
+  float *y2, *z, *h, *dz, *dy2, *part, *tmp;
 };
 
-size_t mlp_bwd_carve(Carver& c, int M, int D, int F, MlpBwdWs* w) {
+// With `kept`, y2, z and h are the caller's (the chain's stash) and stay as
+// they are: dz takes a buffer of its own. Without, dz goes over h's buffer
+// (h is dead after dW2).
+size_t mlp_bwd_carve(Carver& c, int M, int D, int F, bool kept, MlpBwdWs* w) {
   size_t part = gemm_tn_f32_part_floats(D, F, M);  // dW2 (D, F), then dW1 (F, D)
   const size_t cands[2] = {gemm_tn_f32_part_floats(F, D, M),
                            (size_t)ln_bwd_blocks(M) * 3 * D};
   for (size_t x : cands) part = x > part ? x : part;
-  w->y2 = c.take<float>((size_t)M * D);
-  w->z = c.take<float>((size_t)M * F);
-  w->h = c.take<float>((size_t)M * F);  // h, then dz (h is dead after dW2)
+  w->y2 = kept ? nullptr : c.take<float>((size_t)M * D);
+  w->z = kept ? nullptr : c.take<float>((size_t)M * F);
+  w->h = kept ? nullptr : c.take<float>((size_t)M * F);
+  w->dz = kept ? c.take<float>((size_t)M * F) : w->h;
   w->dy2 = c.take<float>((size_t)M * D);
   w->part = c.take<float>(part);
   w->tmp = c.take<float>((size_t)64 * (F > 3 * D ? F : 3 * D));
   return c.off;
 }
 
-size_t mlp_fwd_carve(Carver& c, int M, int D, int F, float** y2, float** h) {
-  *y2 = c.take<float>((size_t)M * D);
-  *h = c.take<float>((size_t)M * F);
+// With `kept`, y2, z and h are the caller's and take no workspace.
+size_t mlp_fwd_carve(Carver& c, int M, int D, int F, bool kept, float** y2, float** h) {
+  *y2 = kept ? nullptr : c.take<float>((size_t)M * D);
+  *h = kept ? nullptr : c.take<float>((size_t)M * F);
   return c.off;
 }
 
@@ -356,15 +363,23 @@ cudaError_t attn_bwd_seq(const float* x, const ssrl::BranchParamsF32& p, const f
 }
 
 // The MLP forward: out = x + (h W2^T + b2); or, with `part` set (a model-axis
-// shard, F its slice), only part = h W2^T.
+// shard, F its slice), only part = h W2^T. With y2_keep, z_keep and h_keep
+// set, LN2(x), the pre-activation z and h = gelu(z) are written there (fc1
+// through F_BIAS_GELU_Z, whose h has F_BIAS_GELU's bits: the same sum, bias
+// and erf GELU on the registers).
 cudaError_t mlp_fwd_seq(const float* x, const ssrl::BranchParamsF32& p, float* out,
-                        float* part, void* ws, int M, int D, int F, cudaStream_t st) {
+                        float* part, float* y2_keep, float* z_keep, float* h_keep, void* ws,
+                        int M, int D, int F, cudaStream_t st) {
   Carver c{static_cast<char*>(ws)};
   float *y2, *h;
-  mlp_fwd_carve(c, M, D, F, &y2, &h);
+  mlp_fwd_carve(c, M, D, F, y2_keep != nullptr, &y2, &h);
+  if (y2_keep) {
+    y2 = y2_keep;
+    h = h_keep;
+  }
   launch_ln(x, p.ln_s, p.ln_b, y2, M, D, st);
-  SSRL_TRY(gemm_f32(ssrl::GEMM_NT, F_BIAS_GELU, y2, p.wa, p.ba, nullptr, h, nullptr, M, F, D,
-                    st));
+  SSRL_TRY(gemm_f32(ssrl::GEMM_NT, y2_keep ? F_BIAS_GELU_Z : F_BIAS_GELU, y2, p.wa, p.ba,
+                    nullptr, h, z_keep, M, F, D, st));
   if (part)
     return gemm_f32(ssrl::GEMM_NT, F_NONE, h, p.wb, nullptr, nullptr, part, nullptr, M, D, F,
                     st);
@@ -372,20 +387,29 @@ cudaError_t mlp_fwd_seq(const float* x, const ssrl::BranchParamsF32& p, float* o
 }
 
 // The MLP backward; with `dy2_out` set it stops at dy2 = dz W1, written there.
+// With y2_kept, z_kept and h_kept set (the forward's LN2(x), z and h), it
+// runs neither LN2 nor the fc1 product and starts at dW2.
 cudaError_t mlp_bwd_seq(const float* x, const ssrl::BranchParamsF32& p, const float* g,
-                        float* dx, const ssrl::BranchGrads& d, float* dy2_out, void* ws, int M,
-                        int D, int F, cudaStream_t st) {
+                        float* dx, const ssrl::BranchGrads& d, float* dy2_out,
+                        const float* y2_kept, const float* z_kept, const float* h_kept, void* ws,
+                        int M, int D, int F, cudaStream_t st) {
   Carver c{static_cast<char*>(ws)};
   MlpBwdWs w;
-  mlp_bwd_carve(c, M, D, F, &w);
+  mlp_bwd_carve(c, M, D, F, y2_kept != nullptr, &w);
   if (dy2_out) w.dy2 = dy2_out;
-  launch_ln(x, p.ln_s, p.ln_b, w.y2, M, D, st);
-  // z = y2 W1^T + b1, h = gelu(z)
-  SSRL_TRY(gemm_f32(ssrl::GEMM_NT, F_BIAS_GELU_Z, w.y2, p.wa, p.ba, nullptr, w.h, w.z, M, F,
-                    D, st));
-  // dW2 = g^T h; then dz = (g W2) o gelu'(z) over h's buffer
+  if (y2_kept) {
+    w.y2 = const_cast<float*>(y2_kept);
+    w.z = const_cast<float*>(z_kept);
+    w.h = const_cast<float*>(h_kept);
+  } else {
+    launch_ln(x, p.ln_s, p.ln_b, w.y2, M, D, st);
+    // z = y2 W1^T + b1, h = gelu(z)
+    SSRL_TRY(gemm_f32(ssrl::GEMM_NT, F_BIAS_GELU_Z, w.y2, p.wa, p.ba, nullptr, w.h, w.z, M, F,
+                      D, st));
+  }
+  // dW2 = g^T h; then dz = (g W2) o gelu'(z)
   SSRL_TRY(gemm_tn_f32(g, w.h, d.dwb, w.part, D, F, M, st));
-  float* dz = w.h;
+  float* dz = w.dz;
   SSRL_TRY(gemm_f32(ssrl::GEMM_NN, F_GELU_BWD, g, p.wb, nullptr, w.z, dz, nullptr, M, F, D,
                     st));
   // dW1 = dz^T y2; db1 = colsum(dz); dy2 = dz W1
@@ -473,24 +497,43 @@ bool mlp_f32_ok(int M, int D, int F) { return M >= 1 && D >= 1 && D <= 256 && F 
 size_t mlp_f32_fwd_workspace(int M, int D, int F) {
   Carver c{nullptr};
   float *y2, *h;
-  return mlp_fwd_carve(c, M, D, F, &y2, &h);
+  return mlp_fwd_carve(c, M, D, F, false, &y2, &h);
 }
 
 cudaError_t mlp_f32_fwd(const float* x, const BranchParamsF32& p, float* out, void* ws, int M,
                         int D, int F, cudaStream_t st) {
-  return mlp_fwd_seq(x, p, out, nullptr, ws, M, D, F, st);
+  return mlp_fwd_seq(x, p, out, nullptr, nullptr, nullptr, nullptr, ws, M, D, F, st);
+}
+
+cudaError_t mlp_f32_fwd_keep(const float* x, const BranchParamsF32& p, float* out, float* y2,
+                             float* z, float* h, int M, int D, int F, cudaStream_t st) {
+  return mlp_fwd_seq(x, p, out, nullptr, y2, z, h, nullptr, M, D, F, st);
 }
 
 size_t mlp_f32_bwd_workspace(int M, int D, int F) {
   Carver c{nullptr};
   MlpBwdWs w;
-  return mlp_bwd_carve(c, M, D, F, &w);
+  return mlp_bwd_carve(c, M, D, F, false, &w);
 }
 
 cudaError_t mlp_f32_bwd(const float* x, const BranchParamsF32& p, const float* g, float* dx,
                         const BranchGrads& d, void* ws, int M, int D, int F, cudaStream_t st) {
   if (!mlp_f32_ok(M, D, F)) return cudaErrorInvalidValue;
-  return mlp_bwd_seq(x, p, g, dx, d, nullptr, ws, M, D, F, st);
+  return mlp_bwd_seq(x, p, g, dx, d, nullptr, nullptr, nullptr, nullptr, ws, M, D, F, st);
+}
+
+size_t mlp_f32_bwd_kept_workspace(int M, int D, int F) {
+  Carver c{nullptr};
+  MlpBwdWs w;
+  return mlp_bwd_carve(c, M, D, F, true, &w);
+}
+
+cudaError_t mlp_f32_bwd_kept(const float* x, const BranchParamsF32& p, const float* y2,
+                             const float* z, const float* h, const float* g, float* dx,
+                             const BranchGrads& d, void* ws, int M, int D, int F,
+                             cudaStream_t st) {
+  if (!mlp_f32_ok(M, D, F)) return cudaErrorInvalidValue;
+  return mlp_bwd_seq(x, p, g, dx, d, nullptr, y2, z, h, ws, M, D, F, st);
 }
 
 }  // namespace ssrl
@@ -625,8 +668,8 @@ int ssrl_mlp_branch_part_fwd_f32(const void* x, const void* ln_s, const void* ln
                                  const void* w1, const void* b1, const void* w2, void* part,
                                  void* ws, int M, int D, int F, void* stream) {
   return (int)mlp_fwd_seq(static_cast<const float*>(x), params6(ln_s, ln_b, w1, b1, w2, nullptr),
-                          nullptr, static_cast<float*>(part), ws, M, D, F,
-                          static_cast<cudaStream_t>(stream));
+                          nullptr, static_cast<float*>(part), nullptr, nullptr, nullptr, ws, M, D,
+                          F, static_cast<cudaStream_t>(stream));
 }
 
 long long ssrl_mlp_branch_part_bwd_f32_workspace(int M, int D, int F) {
@@ -641,8 +684,9 @@ int ssrl_mlp_branch_part_bwd_f32(const void* x, const void* ln_s, const void* ln
   const ssrl::BranchGrads d{nullptr, static_cast<float*>(dw1), static_cast<float*>(db1),
                             static_cast<float*>(dw2)};
   return (int)mlp_bwd_seq(static_cast<const float*>(x), params6(ln_s, ln_b, w1, b1, w2, nullptr),
-                          static_cast<const float*>(g), nullptr, d, static_cast<float*>(dy2), ws,
-                          M, D, F, static_cast<cudaStream_t>(stream));
+                          static_cast<const float*>(g), nullptr, d, static_cast<float*>(dy2),
+                          nullptr, nullptr, nullptr, ws, M, D, F,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // out = x + (s + b), x, s and out [M][D] f32, b [D]; D a multiple of 4.

@@ -53,9 +53,10 @@ cudaError_t attn_f32_bwd(const float* x, const BranchParamsF32& p, const float* 
                          int L, int D, int H, float scale, cudaStream_t st);
 
 // The whole block's backward keeps LN1(x) and the qkv product from its
-// recomputing forward: attn_f32_fwd_keep writes them to y1 (B*L, D) and qkv
-// (B*L, 3D) as well, and attn_f32_bwd_kept takes them in place of running
-// LN1 and the qkv product again (the same bits as attn_f32_bwd).
+// recomputing forward, and the chain's from its training forward:
+// attn_f32_fwd_keep writes them to y1 (B*L, D) and qkv (B*L, 3D) as well,
+// and attn_f32_bwd_kept takes them in place of running LN1 and the qkv
+// product again (the same bits as attn_f32_bwd).
 cudaError_t attn_f32_fwd_keep(const float* x, const BranchParamsF32& p, float* out, float* a,
                               float* y1, float* qkv, void* ws, int B, int L, int D, int H,
                               float scale, cudaStream_t st);
@@ -74,6 +75,19 @@ cudaError_t mlp_f32_fwd(const float* x, const BranchParamsF32& p, float* out, vo
 size_t mlp_f32_bwd_workspace(int M, int D, int F);
 cudaError_t mlp_f32_bwd(const float* x, const BranchParamsF32& p, const float* g, float* dx,
                         const BranchGrads& d, void* ws, int M, int D, int F, cudaStream_t st);
+
+// The chain's training forward keeps LN2(x), z and h for its backward, as
+// it keeps LN1(x) and qkv: mlp_f32_fwd_keep writes them to y2 (M, D), z and
+// h (M, F) (no workspace; the output has mlp_f32_fwd's bits), and
+// mlp_f32_bwd_kept takes them in place of running LN2 and the fc1 product
+// again (the same bits as mlp_f32_bwd), leaving them as they are.
+cudaError_t mlp_f32_fwd_keep(const float* x, const BranchParamsF32& p, float* out, float* y2,
+                             float* z, float* h, int M, int D, int F, cudaStream_t st);
+size_t mlp_f32_bwd_kept_workspace(int M, int D, int F);
+cudaError_t mlp_f32_bwd_kept(const float* x, const BranchParamsF32& p, const float* y2,
+                             const float* z, const float* h, const float* g, float* dx,
+                             const BranchGrads& d, void* ws, int M, int D, int F,
+                             cudaStream_t st);
 
 // The f32 MLP half as one CUDA-core kernel each way (csrc/block_mlp_f32.cu,
 // alone: it runs slower than mlp_f32_fwd / mlp_f32_bwd, which the whole

@@ -5,8 +5,9 @@ Port of ``ssrl_vit_mae_jepa_tpu/ops/block_chain.py::fused_block_chain``:
 - forward: N × (attention branch, MLP branch), the split branches' function
   bit for bit (z rounded to bf16); in a graph it stashes, per block k, the
   attention output ``a_k``, the branch boundary ``x_mid_k`` and, for k ≥ 1,
-  the block input ``x_in_k`` (3N − 1 (B, L, D) tensors); without one it
-  stashes nothing (``_chain_fwd_only``, the no-grad forward);
+  the block input ``x_in_k`` (3N − 1 (B, L, D) tensors; at f32 more, see
+  :func:`stash_floats`); without one it stashes nothing
+  (``_chain_fwd_only``, the no-grad forward);
 - backward: the blocks in reverse with the gradient in f32 across every
   branch and block, rounded only as a GEMM operand and once at the end;
   the bias gradients of the branch outputs sum the f32 gradient.
@@ -14,7 +15,9 @@ Port of ``ssrl_vit_mae_jepa_tpu/ops/block_chain.py::fused_block_chain``:
 On a CUDA tensor :func:`fused_block_chain` launches ``csrc/block_chain.cu``
 (bf16; each block's MLP half one kernel each way, ``csrc/block_mlp.cu``)
 or ``csrc/block_chain_f32.cu`` (f32, where every rounding point is a
-no-op and the stash has the same slots in f32) through a
+no-op; its stash adds, after the same slots in f32, each block's LN1
+output, qkv, LN2 output, z and h, so that its backward runs neither the
+qkv nor the fc1 product again: :func:`stash_floats`) through a
 ``torch.autograd.Function`` whose backward is a kernel too; on a CPU tensor
 it runs :func:`chain_ref`, the plain version with the same
 rounding points (and a backward of its own: autograd over a bf16 forward
@@ -141,13 +144,25 @@ def chain_ref(x, params_list, num_heads):
 # ---------------------------------------------------------------------------
 
 
+def stash_floats(N: int, B: int, L: int, D: int, F: int, dtype: torch.dtype) -> int:
+    """Elements of the training forward's stash, in ``dtype``: 3N − 1 slots
+    of (B, L, D) (a_k, x_mid_k, x_in_k for k ≥ 1); at f32 then, per block,
+    LN1(x_in) (B·L, D), qkv (B·L, 3D), LN2(x_mid) (B·L, D), z and h (B·L, F)
+    (the layout that ``csrc/block_chain_f32.cu`` documents)."""
+    slots = 3 * N - 1
+    if dtype == torch.float32:
+        return B * L * (slots * D + N * (5 * D + 2 * F))
+    return B * L * slots * D
+
+
 def _fwd_cuda(x, kp, num_heads: int, stash: bool):
-    """(out, the (3N - 1, B, L, D) stash or None); ``kp`` flat, 12 per block."""
+    """(out, the flat stash of :func:`stash_floats` or None); ``kp`` flat,
+    12 per block."""
     B, L, D = x.shape
     N, F_ = len(kp) // 12, kp[8].shape[0]
     fn, ws_fn, _ = _entry(x, "block_chain_fwd")
     out = torch.empty_like(x)
-    st = x.new_empty((3 * N - 1, B, L, D)) if stash else None
+    st = x.new_empty(stash_floats(N, B, L, D, F_, x.dtype)) if stash else None
     ws = _workspace(ws_fn(B, L, D, F_, int(stash)), x)
     key = dtype_key(x.dtype, "chain_fwd" if stash else "chain_fwd_nograd")
     LAUNCHES[key] += 1

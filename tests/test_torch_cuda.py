@@ -547,9 +547,12 @@ def test_f32_mlp_half_matches_plain(cuda, B, L, D, F_):
 def test_f32_block_kernels_launch_ln1_and_qkv_once(cuda, kind):
     """By the profiler's kernel names, per call at f32: the whole block's
     backward runs LN1 and the qkv product (the SIMT GEMM's F_BIAS epilogue)
-    once, kept from its recomputing forward; the chain's once a block (its
-    stash holds ``a``). ``ln_f32_kernel`` runs LN1 and LN2 (the split MLP
-    branch's), so twice a block each way."""
+    once, kept from its recomputing forward. ``ln_f32_kernel`` runs LN1 and
+    LN2 (the split MLP branch's), so twice a block in each of the block's
+    passes and the chain's forwards. The chain's training forward keeps
+    LN1's and LN2's outputs, qkv, z and h (the fc1 product with z,
+    F_BIAS_GELU_Z, once a block), so its backward runs no LN forward, no
+    qkv product and no fc1 product."""
     B, L, D, H = 96, 37, 144, 6
     N = 2 if kind == "chain" else 1
     x, dy, params = _stack_inputs(B, L, D, N, cuda)
@@ -560,6 +563,7 @@ def test_f32_block_kernels_launch_ln1_and_qkv_once(cuda, kind):
     out = fn(xl, pl)
     leaves = [xl] + [t for p in pl for t in p]
     bwd = _kernel_names(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True))
+    train = _kernel_names(lambda: fn(xl, pl))
     with torch.no_grad():
         fwd = _kernel_names(lambda: fn(x, params))
 
@@ -574,9 +578,41 @@ def test_f32_block_kernels_launch_ln1_and_qkv_once(cuda, kind):
                 out += [int(m.group(1))] * n
         return sorted(out)
 
-    for names in (fwd, bwd):
+    for names in (fwd, train) + ((bwd,) if kind == "mono" else ()):
         assert count(names, "ln_f32_kernel") == 2 * N  # LN1 and LN2
         assert epis(names).count(1) == N  # F_BIAS: the qkv product
+    if kind == "chain":
+        assert epis(train).count(4) == N and epis(fwd).count(4) == 0  # F_BIAS_GELU_Z
+        assert count(bwd, "ln_f32_kernel") == 0
+        assert epis(bwd).count(1) == 0 and epis(bwd).count(4) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H,N", [(96, 37, 144, 6, 4), (64, 145, 192, 6, 2),
+                                       (3, 17, 48, 4, 2), (2, 5, 40, 4, 3)])
+def test_f32_chain_backward_is_the_split_pair(cuda, B, L, D, H, N):
+    """The f32 chain's backward, from the stash of its training forward
+    (no qkv or fc1 product again), gives the split f32 pair's gradients
+    (the attention and MLP branches through autograd) bit for bit, and a
+    second backward over the same stash gives the same bits."""
+    x, dy, params = _stack_inputs(B, L, D, N, cuda)
+    x, dy = x.float(), dy.float()
+    xl = x.clone().requires_grad_()
+    pl = [[t.clone().requires_grad_() for t in p] for p in params]
+    leaves = [xl] + [t for p in pl for t in p]
+    out = bc.fused_block_chain(xl, pl, H)
+    grads = torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dy)
+    assert all(map(torch.equal, grads, again))
+
+    def split(x, pl):
+        for p in pl:
+            x = bf.fused_mlp_branch(bf.fused_attn_branch(x, *p[:6], H), *p[6:])
+        return x
+
+    out_s, grads_s = _stack_run(split, x, dy, params)
+    assert torch.equal(out.detach(), out_s)
+    assert [i for i, (a, b) in enumerate(zip(grads, grads_s)) if not torch.equal(a, b)] == []
 
 
 @pytest.mark.cuda

@@ -13,8 +13,10 @@ profiler helpers: ``stack_inputs``, ``split_stack``, ``device_ms``,
 and kernel launches of the f32 whole block, the f32 chain and the split f32
 branches on the same blocks (rows 1 + 4, 2 + 5), forward and backward, at
 the MAE encoder and decoder and the JEPA target encoder (no grad) at B=768,
-TF32 off; and their sums per MAE step (4 encoder and 2 decoder blocks) and
-per JEPA target encoder. Needs a GPU::
+TF32 off; their sums per MAE step (4 encoder and 2 decoder blocks) and per
+JEPA target encoder; and the device ms and peak device memory of one f32
+MAE and one f32 JEPA step on the chain with the fused embed
+(``chip_smoke.f32_chain_step``). Needs a GPU::
 
     python3 tools/torch_f32_stack_ab.py build/parent . . build/parent
 
@@ -47,7 +49,7 @@ def worker(root: pathlib.Path) -> None:
 
     bf, bc = cs.bf, cs.bc
     assert pathlib.Path(bf.__file__).resolve().is_relative_to(root.resolve()), bf.__file__
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     cs._build.load()
 
     def profile(fn):
@@ -85,6 +87,7 @@ def worker(root: pathlib.Path) -> None:
                     calls[g] * res[f"{kind}_{g}"][pas][i] for g in ("enc", "dec"))
         step[f"{kind}_fwd_tgt"] = calls["tgt"] * res[f"{kind}_tgt"]["fwd"][0]
     res["per_step"] = step
+    res["chain_steps"] = {t: cs.f32_chain_step(t) for t in ("mae", "jepa")}
     print("AB", root, json.dumps(res), flush=True)
 
 
