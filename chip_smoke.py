@@ -4,7 +4,7 @@ pretraining steps, then the classifier stage and the engine under it, then
 the port's CLIs, then the lineage paths of the step and data parallelism,
 then the bench's steady-state mode (the step as a CUDA-graph replay), then
 checkpoint fidelity, then f32 training on every route, then the
-tensor-parallel model axis.
+tensor-parallel model axis, then the texture rank study at a small scale.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -243,6 +243,29 @@ Phases (any failure exits nonzero; nothing is caught):
      line); (c) the same routes at B=16 against the CPU at f32 (loss rtol
      1e-5, gradients 1e-4); (d) 3 replayed f32 MAE steps on block with the
      fused embed equal to 3 eager ones bit for bit.
+  25. the tensor-parallel model axis: (a) the TP entries at the shard
+     widths against their plain versions, at bf16 and f32; (b, c) two ranks
+     in a (1, 2) grid sharing the card over ``gloo``, against one process,
+     and a fit with a checkpoint and a resume.
+  26. the texture rank study end to end at a small scale: ``bash
+     tools/torch_rank_study.sh`` as a process on the card with
+     ``SSRL_RANK_OUT`` and ``SSRL_RANK_DATA`` in a temporary directory,
+     ``SSRL_RANK_EPOCHS=1`` and ``SSRL_RANK_UNLABELED=6000`` (both
+     pretrainings at B=2000, every k-NN, ridge, mean-pool k-NN and probe
+     stage through the port's CLIs), then
+     ``tools/torch_summarize_rank_study.py`` on it: every stage exits 0,
+     both ``best.ckpt`` exist, and the summary holds four cls k-NN, four
+     ridge, three mean-pool k-NN and three probe rows, each in [0, 1]; each
+     stage's wall time and a ``{"rank_study_small": ...}`` line; the
+     launches of the study's CLI processes, summed from ``SSRL_LAUNCH_LOG``
+     (each process appends its counters at exit), include every kernel of
+     ``RANK_KERNELS``; (b) on the config the study wrote, one MAE and one
+     JEPA step at B=2000 and at the partial last batch (200 real rows, the
+     rest at weight 0): the kernels (bf16, auto) against the plain route
+     (bf16, xla) on the card from the same weights and draws, the loss
+     within 2e-2 and each gradient within 10% of the plain one's largest
+     magnitude (phase 4's bounds), with each route's relative L2 distance
+     from the plain route at f32 and a ``{"study_steps": ...}`` line.
 
 With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
 phase 20 (b), ``--fused-replay OUT`` is phase 21 in a fresh process (the
@@ -261,7 +284,7 @@ over ``nccl``, then in the (N, 1) grid, then on one card, and prints each
 rank's ms/step and device ms/step and the exact TP launches in a
 ``{"tp_cards": ...}`` line before the last.
 
-Each main-path run (phases 4, 6-9, 11-15, 17-25) zeroes every launch count
+Each main-path run (phases 4, 6-9, 11-15, 17-26) zeroes every launch count
 just before it and reads them just after. ``mha_stacked`` and ``mha_packed`` lie
 on none of these paths (the JAX package reaches them from the JEPA
 predictor's sub-layer route and by direct calls); phase 3b drives them.
@@ -4461,6 +4484,180 @@ def tensor_parallel(cfg: dict):
     return res, tp_steps(cfg)
 
 
+# phase 26: the rank study at a small scale (tools/torch_rank_study.sh with
+# 6,000 unlabeled images and one epoch: a few steps at B=2000 a pretraining)
+RANK_SMALL = {"SSRL_RANK_EPOCHS": "1", "SSRL_RANK_UNLABELED": "6000"}
+RANK_ROWS = {"knn": 4, "ridge": 4, "knn_mean": 3, "probes": 3}
+# the kernels the study's CLIs launch: rows 1, 2, 4, 5 in both pretrainings,
+# row 3 in the JEPA target encoder and the frozen probes, rows 3-4 at f32 in
+# every knn_eval feature pass
+RANK_KERNELS = ("attn_branch_fwd", "attn_branch_bwd", "mlp_branch_fwd", "mlp_branch_bwd",
+                "attn_branch_fwd_nograd", "attn_branch_fwd_nograd_f32", "mlp_branch_fwd_f32")
+
+
+# phase 26 (b): one pretraining step of each kind at the study's batch
+# (B=2000: 74,000 encoder and 290,000 decoder rows in MAE) and at its partial
+# last batch (STUDY_PARTIAL real rows, the rest wrap-around padding at weight
+# 0), the kernels (bf16, auto) against the plain route (bf16, xla: no kernel
+# of csrc/) on the card from the same weights, EMA target and draws, at
+# phase 4's tolerances; beside them each route's relative L2 distance from
+# the plain route at f32, over all trainable gradients
+STUDY_PARTIAL = 200
+STUDY_ROUTES = {"plain": ("xla", torch.bfloat16), "plain_f32": ("xla", torch.float32)}
+
+
+def study_task(kind: str, cfg: dict, impl: str, dtype):
+    """The study's MAE or JEPA task on the card, as its CLI builds it."""
+    if kind == "mae":
+        return MAETask(cfg["model"], cfg["pretrain"], dtype=dtype, device="cuda",
+                       attn_impl=impl)
+    return JEPATask(cfg["model"], cfg["jepa"], dtype=dtype, device="cuda", attn_impl=impl)
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over lists of tensors, in f32."""
+    num = sum(float((x.float() - y.float()).square().sum()) for x, y in zip(a, b))
+    return math.sqrt(num / sum(float(y.float().square().sum()) for y in b))
+
+
+def study_steps(cfg: dict) -> dict:
+    """Phase 26 (b): the step agreement above, for MAE and JEPA, at the
+    full and the partial batch of ``cfg``'s pretraining; fails on a loss or
+    gradient out of bound, or when the kernel route launched no kernel or
+    the plain routes one; returns the losses and distances."""
+    batch = cfg["pretrain"]["batch_size"]
+    images = flagship_images(seed=26, n=batch)["image"]
+    res = {}
+    for kind in ("mae", "jepa"):
+        kern = study_task(kind, cfg, "auto", torch.bfloat16)
+        state = kern.init_state(0)
+        plain, states = {}, {}
+        for route, (impl, dtype) in STUDY_ROUTES.items():
+            plain[route] = study_task(kind, cfg, impl, dtype)
+            states[route] = plain[route].init_state(0)
+            plain[route].model.load_state_dict(kern.model.state_dict())
+            if state.extra is not None:  # JEPA's EMA target
+                states[route].extra = {k: v.clone() for k, v in state.extra.items()}
+        ctx = kern.epoch_context(0)
+        draws = kern.draw(state.generator, batch, ctx)
+        res[kind] = {}
+        for part, real in (("full", batch), ("partial", STUDY_PARTIAL)):
+            what = f"{kind} step B={batch} with {real} real rows"
+            data = {"image": images,
+                    "weight": (torch.arange(batch, device="cuda") < real).float()}
+            reset_counts()
+            names, g_k, s_k = kern.gradients(state, data, ctx, draws)
+            launched = launch_counts()
+            if not any(launched.values()):
+                fail(f"{what}: the kernel route launched no kernel")
+            got = {"kernels": (g_k, s_k)}
+            for route, task in plain.items():
+                names_p, g, s = task.gradients(states[route], data, ctx, draws)
+                if names_p != names:
+                    fail(f"{what}: {route} trains {len(names_p)} tensors, kernels {len(names)}")
+                got[route] = (g, s)
+            if launch_counts() != launched:
+                fail(f"{what}: the plain routes launched kernels")
+            loss = {r: float(s["loss_sum"]) / float(s["weight_sum"]) for r, (_, s) in got.items()}
+            if not abs(loss["kernels"] - loss["plain"]) <= LOSS_RTOL * abs(loss["plain"]):
+                fail(f"{what}: loss {loss} (kernels vs plain, rtol {LOSS_RTOL})")
+            worst, worst_name = 0.0, ""
+            for k, a, b in zip(names, g_k, got["plain"][0]):
+                err = (a.float() - b.float()).abs().max().item()
+                lim = STEP_GRAD_REL * b.float().abs().max().item() + 1e-6
+                if err / lim > worst:
+                    worst, worst_name = err / lim, k
+                if not err <= lim:
+                    fail(f"{what} gradient {k}: kernels vs plain max abs err {err:.3e} "
+                         f"> {lim:.3e}")
+            g32 = got["plain_f32"][0]
+            dist = {r: rel_l2(got[r][0], g32) for r in ("kernels", "plain")}
+            print(f"  {what}: loss kernels {loss['kernels']:.7f}, plain {loss['plain']:.7f}, "
+                  f"plain f32 {loss['plain_f32']:.7f}; {len(names)} gradients, kernels vs "
+                  f"plain the worst at {worst:.3f} of its bound ({worst_name}); relative L2 "
+                  f"from plain f32: kernels {dist['kernels']:.3e}, plain bf16 "
+                  f"{dist['plain']:.3e}", flush=True)
+            res[kind][part] = {"loss": loss, "worst_share": worst,
+                               "rel_l2_from_f32": dist}
+        del kern, state, plain, states, got
+        torch.cuda.empty_cache()
+    print(json.dumps({"study_steps": res}), flush=True)
+    return res
+
+
+def rank_study_small() -> dict:
+    """Phase 26 (a): ``bash tools/torch_rank_study.sh`` as a process, on
+    the card, into a temporary directory at ``RANK_SMALL``'s scale, then
+    ``tools/torch_summarize_rank_study.py`` on it: every stage exits 0, both
+    pretrainings write ``best.ckpt``, and the summary has every k-NN, ridge,
+    mean-pool k-NN and probe row, each in [0, 1]. Prints each stage's wall
+    seconds. The study's CLIs run as processes of their own, each appending
+    its launch counters at exit to ``SSRL_LAUNCH_LOG``
+    (``ssrl_vit_mae_jepa_torch/scripts/__init__.py``); returns their sum,
+    in which each kernel of ``RANK_KERNELS`` launched at least once. Then
+    (b), ``study_steps`` on the config the study wrote."""
+    tmp = REPO / "build" / f"tmp_rank_{os.getpid()}"
+    out = tmp / "out"
+    bin_dir = tmp / "bin"
+    bin_dir.mkdir(parents=True)
+    stub = bin_dir / "python"  # the study calls `python`: this interpreter
+    stub.write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    stub.chmod(0o755)
+    env = {k: v for k, v in os.environ.items() if k != "SSRL_TORCH_DEVICE"}
+    launch_log = tmp / "launches.jsonl"
+    env.update(RANK_SMALL, SSRL_RANK_OUT=str(out), SSRL_RANK_DATA=str(tmp / "data"),
+               SSRL_LAUNCH_LOG=str(launch_log),
+               PATH=f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(["bash", str(REPO / "tools" / "torch_rank_study.sh")],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=900)
+        print(f"  bash tools/torch_rank_study.sh: exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        log = out / "study.log"
+        if proc.returncode != 0:
+            tail = log.read_text(errors="replace")[-4000:] if log.exists() else ""
+            fail(f"the rank study exited {proc.returncode}\n{proc.stderr[-2000:]}\n{tail}")
+        for name in ("mae", "jepa"):
+            ckpt = out / "outputs" / "pretrain" / f"rank_{name}" / "checkpoints" / "best.ckpt"
+            if not ckpt.is_file():
+                fail(f"the rank study wrote no {ckpt.relative_to(tmp)}")
+        summ = subprocess.run([sys.executable, str(REPO / "tools" /
+                                                   "torch_summarize_rank_study.py"), str(out)],
+                              cwd=REPO, capture_output=True, text=True, timeout=120)
+        if summ.returncode != 0:
+            fail(f"torch_summarize_rank_study.py exited {summ.returncode}\n{summ.stdout}\n"
+                 f"{summ.stderr}")
+        lines = summ.stdout.strip().splitlines()
+        stages, rows = json.loads(lines[0]), json.loads(lines[-1])
+        processes = [json.loads(ln) for ln in launch_log.read_text().splitlines()]
+        study_cfg = load_config(out / "study_cfg.yaml")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for stage, s in stages["stage_s"].items():
+        print(f"  {stage}: {s} s wall", flush=True)
+    print(f"  pretraining epochs: {json.dumps(stages['pretrain'])}", flush=True)
+    got = {k: (rows[k] if k != "probes" else {n: p.get("best_val_acc")
+                                              for n, p in rows[k].items()})
+           for k in RANK_ROWS}
+    for k, n in RANK_ROWS.items():
+        vals = [v for v in got[k].values() if v is not None]
+        if len(vals) != n or not all(0.0 <= v <= 1.0 for v in vals):
+            fail(f"rank study summary: {k} has {got[k]}, expected {n} rows in [0, 1]")
+    print(json.dumps({"rank_study_small": got}), flush=True)
+    launches = dict.fromkeys(launch_counts(), 0)
+    for proc_counts in processes:
+        for k, v in proc_counts["launches"].items():
+            launches[k] += v
+    print(f"  {len(processes)} CLI processes, launches: "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    missing = [k for k in RANK_KERNELS if not launches[k]]
+    if missing:
+        fail(f"the rank study launched no {missing}")
+    study_steps(study_cfg)
+    return launches
+
+
 def tp_cards(n: int) -> None:
     """``python3 chip_smoke.py --tp-cards N`` on a host with N cards: the
     build, then the flagship MAE, JEPA and full classifier steps (bf16,
@@ -4647,6 +4844,11 @@ def main() -> None:
         tp_res, counts = tensor_parallel(cfg)
         res.update(tp_res)
         add(counts)
+    with timed_phase(times, "26", "the texture rank study at a small scale: "
+                     "tools/torch_rank_study.sh (6,000 unlabeled, 1 epoch, B=2000), then "
+                     "tools/torch_summarize_rank_study.py; the MAE and JEPA steps at B=2000 "
+                     "and the partial batch, kernels against the plain route"):
+        add(rank_study_small())
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]

@@ -18,6 +18,7 @@ from pathlib import Path
 
 from ssrl_vit_mae_jepa_torch.parallel.multihost import is_main_process
 from ssrl_vit_mae_jepa_torch.scripts.utils import (
+    attn_impl,
     check_ckpt_backend,
     device,
     init_distributed,
@@ -67,7 +68,7 @@ def main(argv=None):
         {**cfg, "pretrain": {**cfg["pretrain"], **jepa_cfg}})
 
     trainer = Trainer(
-        JEPATask(model_cfg, jepa_cfg, device=dev),
+        JEPATask(model_cfg, jepa_cfg, device=dev, attn_impl=attn_impl()),
         max_epochs=jepa_cfg["total_epochs"],
         output_dir=output_dir,
         seed=cfg.get("seed", 73),

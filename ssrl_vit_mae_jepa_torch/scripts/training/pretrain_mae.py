@@ -18,6 +18,7 @@ from pathlib import Path
 
 from ssrl_vit_mae_jepa_torch.parallel.multihost import is_main_process
 from ssrl_vit_mae_jepa_torch.scripts.utils import (
+    attn_impl,
     check_ckpt_backend,
     device,
     init_distributed,
@@ -64,7 +65,7 @@ def main(argv=None):
 
     train_loader, val_loader = get_pretrain_dataloaders(cfg)
     trainer = Trainer(
-        MAETask(model_cfg, pre_cfg, device=dev),
+        MAETask(model_cfg, pre_cfg, device=dev, attn_impl=attn_impl()),
         max_epochs=pre_cfg["total_epochs"],
         output_dir=output_dir,
         seed=cfg.get("seed", 73),

@@ -18,6 +18,7 @@ from pathlib import Path
 
 from ssrl_vit_mae_jepa_torch.parallel.multihost import is_main_process
 from ssrl_vit_mae_jepa_torch.scripts.utils import (
+    attn_impl,
     check_ckpt_backend,
     device,
     init_distributed,
@@ -86,7 +87,7 @@ def main(argv=None):
 
     train_loader, val_loader = get_train_dataloaders(cfg)
 
-    task = ClassifierTask(model_cfg, train_cfg, device=dev)
+    task = ClassifierTask(model_cfg, train_cfg, device=dev, attn_impl=attn_impl())
     params_override = None
     if args.classifier_ckpt:
         print(f"Loading full classifier checkpoint: {args.classifier_ckpt}")

@@ -28,6 +28,7 @@ import torch
 
 DEVICE_ENV = "SSRL_TORCH_DEVICE"
 DEVICES = ("cuda", "cpu")
+ATTN_IMPL_ENV = "SSRL_TORCH_ATTN_IMPL"
 
 
 def device_type() -> str:
@@ -51,6 +52,14 @@ def device() -> str:
     if name == "cuda" and is_initialized():
         return f"cuda:{local_rank()}"
     return name
+
+
+def attn_impl() -> str:
+    """``$SSRL_TORCH_ATTN_IMPL``, ``auto`` unless set: the ``attn_impl`` of
+    the tasks the training CLIs build."""
+    from ssrl_vit_mae_jepa_torch.ops.attention import validate_impl
+
+    return validate_impl(os.environ.get(ATTN_IMPL_ENV, "auto"))
 
 
 def init_distributed() -> bool:

@@ -117,6 +117,26 @@ def test_pretrain_then_probe_writes_the_cli_layout(env, mae_run):
     assert snap["model"] == {**MODEL, "head": {**MODEL["head"]}}
 
 
+@pytest.mark.parametrize("cli", ["pretrain_mae", "pretrain_jepa", "train_mae"])
+def test_training_clis_take_their_route_from_the_environment(env, monkeypatch, cli):
+    """``SSRL_TORCH_ATTN_IMPL`` picks the route of a training CLI's blocks:
+    the kernels (``auto``) unless set, plain PyTorch with ``xla``, and an
+    unknown name is refused."""
+    monkeypatch.delenv(t_utils.ATTN_IMPL_ENV, raising=False)
+    assert t_utils.attn_impl() == "auto"
+    monkeypatch.setenv(t_utils.ATTN_IMPL_ENV, "kernels")
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        t_utils.attn_impl()
+    monkeypatch.setenv(t_utils.ATTN_IMPL_ENV, "xla")
+    cfg = _write_cfg(env["root"], f"tiny_{cli}_xla.yaml", pretrain={"total_epochs": 1},
+                     jepa={"total_epochs": 1}, train={"total_epochs": 1})
+    cli_main = {"pretrain_mae": t_pretrain_mae, "pretrain_jepa": t_pretrain_jepa,
+                "train_mae": t_train_mae}[cli].main
+    trainer = cli_main(["--config", str(cfg), "--output_dir_suffix", f"{cli}_xla"])
+    impls = {m.attn_impl for m in trainer.task.model.modules() if hasattr(m, "attn_impl")}
+    assert impls == {"xla"}
+
+
 def test_resume_goes_on_from_the_saved_epoch(env, mae_run, capsys):
     last = mae_run["pre"] / "checkpoints" / "last.ckpt"
     cfg = _write_cfg(env["root"], "tiny_3ep.yaml", pretrain={"total_epochs": 3})
