@@ -24,7 +24,15 @@ Phases (any failure exits nonzero; nothing is caught):
      kernels alone (``bf.gemm``, the wgmma + TMA kernel of
      ``csrc/gemm_sm90.cuh``) at the same shapes against ``gemm_ref``, with
      its device time beside ``torch.matmul``'s (a yardstick, never a route)
-     and its bound (a ``{"gemm_table": [...]}`` line);
+     and its bound (a ``{"gemm_table": [...]}`` line); then the LayerNorm
+     backward of ``csrc/common.cuh`` alone at the five geometries with a
+     backward: its four bf16 instantiations (``bf.ln_bwd``) and f32
+     (``bf.branch_ln_bwd``) against their plain versions (2e-2 / 1e-4 of
+     the largest magnitude), each a call with its device ms, device kernels
+     (one, a memset of its done counters aside), bound and the nearest
+     library call's device ms (``native_layer_norm_backward`` on the same x
+     and dy, mean and rstd from an untimed ``native_layer_norm``: no
+     residual gradient, no sum of gy);
   3b. the four attention entries of ``csrc/mha.cu``, forward and backward,
      at the encoder and decoder shapes (``mha_stacked`` also at the JEPA
      predictor's), against their plain versions on the card, with the
@@ -244,7 +252,9 @@ Phases (any failure exits nonzero; nothing is caught):
      1e-5, gradients 1e-4); (d) 3 replayed f32 MAE steps on block with the
      fused embed equal to 3 eager ones bit for bit.
   25. the tensor-parallel model axis: (a) the TP entries at the shard
-     widths against their plain versions, at bf16 and f32; (b, c) two ranks
+     widths against their plain versions, at bf16 and f32, each with its
+     CUDA-event and device ms a call (in a process of its own); (b, c) two
+     ranks
      in a (1, 2) grid sharing the card over ``gloo``, against one process,
      and a fit with a checkpoint and a resume.
   26. the texture rank study end to end at a small scale: ``bash
@@ -270,9 +280,9 @@ Phases (any failure exits nonzero; nothing is caught):
 With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
 phase 20 (b), ``--fused-replay OUT`` is phase 21 in a fresh process (the
 profiler of a process that ran phases 3-20 records some kernels in the
-wrong session, or loses them), and ``--f32-kernels 23|24 OUT`` phase 23 (a)
-or 24 (a) in a fresh process for the same reason, all started by the
-script itself; ``--dp-cards N`` on a host with
+wrong session, or loses them), ``--f32-kernels 23|24 OUT`` phase 23 (a)
+or 24 (a) and ``--tp-kernels OUT`` phase 25 (a) in a fresh process for the
+same reason, all started by the script itself; ``--dp-cards N`` on a host with
 N cards builds the kernels, runs phase 20 (b) with one process per card over
 ``nccl`` (then each rank's ms/step at B=768 a rank beside one card's) and
 (c) with N processes, and prints a ``{"dp_cards": ...}`` line before the
@@ -299,8 +309,9 @@ batch of 256 (``step`` "features"), ``*_reconstruction`` per
 ``reconstruct_batch`` of 8; every f32 kernel's bound is the f32 CUDA-core
 rate (the f32 training kernels per f32 step of ``step``). ``ms`` and
 the other times are CUDA-event means of the wrapper's call, host work
-included; ``device_ms`` and ``library_device_ms`` (attention and embed
-rows) are the summed durations of the device kernels one call launches;
+included; ``device_ms`` (also of the TP entries) and ``library_device_ms``
+(attention and embed rows) are the summed durations of the device kernels
+(and memsets) one call launches;
 the block and chain rows add ``split_device_ms`` (the split kernels on the
 same blocks) and ``kernel_launches`` / ``split_kernel_launches`` (device
 kernels a call), the MLP-half rows ``also_replaces`` (the chain's TPU
@@ -788,6 +799,78 @@ def check_kernels() -> dict:
             print(line + f"; fwd max abs err {fwd_err:.3e}", flush=True)
             del out_k, out_r, out_ns, leaves
     return {k: summarize(per[k], errs[k], STEP_CALLS) for k in KERNELS}
+
+
+# the LN backward alone (phase 3): variant -> (activation dtype, gy in f32,
+# dx also in f32); bytes an element it must move (x, gy, dx in the dtype,
+# dy f32; dx32 and an f32 gy 4 more each)
+LN_VARIANTS = {"bf16": (torch.bfloat16, False, False),
+               "bf16_gy32": (torch.bfloat16, True, False),
+               "bf16_dx32": (torch.bfloat16, False, True),
+               "bf16_gy32_dx32": (torch.bfloat16, True, True),
+               "f32": (torch.float32, False, False)}
+LN_GEOS = ("enc", "ctx", "dec", "pred", "cls")
+
+
+def ln_bytes(variant: str) -> int:
+    dt, gy32, dx32 = LN_VARIANTS[variant]
+    e = 4 if dt == torch.float32 else 2
+    return 3 * e + 4 + (2 if gy32 else 0) + (4 if dx32 else 0)
+
+
+def check_ln() -> None:
+    """Phase 3, last: the LayerNorm backward alone at each geometry with a
+    backward (B=768): its variants against their plain versions, device
+    ms, device kernels a call, bound and the nearest library call."""
+    for geo in LN_GEOS:
+        L, D, H = GEOMETRIES[geo]
+        M = BATCH * L
+        g = torch.Generator().manual_seed(L + D)
+        rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+        x32, s, b = (2.0 * rn(M, D) + 0.5).cuda(), (1.0 + 0.1 * rn(D)).cuda(), (0.1 * rn(D)).cuda()
+        dy, gy32 = rn(M, D).cuda(), rn(M, D).cuda()
+        parts = []
+        for variant, (dt, gy_f32, dx32) in LN_VARIANTS.items():
+            x = x32.to(dt)
+            gy = gy32 if gy_f32 or dt == torch.float32 else gy32.to(dt)
+            if dt == torch.float32:
+                kern = lambda: bf.branch_ln_bwd(x, s, dy, gy)  # noqa: E731
+                got, want = kern(), bf.ln_bwd_plain(x, s, dy, gy)
+                got, want = (got[0], *got[1]), (want[0], *want[1])
+            else:
+                kern = lambda: bf.ln_bwd(x, s, dy, gy, dx32=dx32)  # noqa: E731
+                k, r = kern(), bf.ln_bwd_full_plain(x, s, dy, gy)
+                got = (k[0],) + ((k[1],) if dx32 else ()) + tuple(k[2])
+                want = (r[0],) + ((r[1],) if dx32 else ()) + tuple(r[2])
+            rel = F32_BWD_REL if dt == torch.float32 else BWD_REL
+            err = 0.0
+            for name, k, r in zip(("dx", "dx32", "d_ln_s", "d_ln_b", "sum_gy") if dx32
+                                  else ("dx", "d_ln_s", "d_ln_b", "sum_gy"), got, want):
+                e_ = (k.float() - r.float()).abs().max().item()
+                if not e_ <= rel * r.float().abs().max().item() + 1e-6:
+                    fail(f"LN backward {variant}@{geo} {name}: max abs err {e_}")
+                err = max(err, e_)
+            ms = device_ms(kern)
+            one = lambda c: sum(n for k, n in c.items() if "ln_bwd_kernel" in k) == 1  # noqa: E731
+            kernels = {k: n for k, n in call_launches(kern, one, sessions=6).items()
+                       if not k.startswith("Memset")}
+            if sum(kernels.values()) != 1 or "ln_bwd_kernel" not in next(iter(kernels)):
+                fail(f"LN backward {variant}@{geo}: device kernels a call {kernels}")
+            bnd = ln_bytes(variant) * M * D / PEAK_BYTES * 1e3
+            parts.append(f"{variant} {ms:.4f} ms, {sum(kernels.values())} kernel, bound "
+                         f"{bnd:.4f} ({100 * bnd / ms:.0f}%), err {err:.2e}")
+        lib = []
+        for dt in (torch.bfloat16, torch.float32):
+            x, w, bb = x32.to(dt), s.to(dt), b.to(dt)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], w, bb, bf.LN_EPS)
+            dyx = dy.to(dt)
+            lib.append(device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                dyx, x, [D], mean, rstd, w, bb, [True, True, True])))
+        print(f"  LN backward@{geo} M={M} D={D} per call: " + "; ".join(parts)
+              + f"; nearest library call (native_layer_norm_backward: no residual "
+              f"gradient, no sum of gy, statistics given) bf16 {lib[0]:.4f}, f32 {lib[1]:.4f} ms",
+              flush=True)
+        del x32, dy, gy32
 
 
 def bound_f32(nbytes: float, flops: float):
@@ -3879,26 +3962,31 @@ def f32_chain_step(task_name: str) -> dict:
     return res
 
 
-def f32_kernels_process(phase: str) -> dict:
-    """Phase 23 (a) or 24 (a) in a process of its own (``chip_smoke.py
-    --f32-kernels``), as phase 21 runs: after the earlier phases' many
-    profiler sessions this process's profiler loses some calls' largest
-    kernels (SDPA's f32 backward read 0.58 of its 2.98 ms, the embed's f32
-    backward 0.01 of its 0.10, on an H100), so the device times of the f32
-    kernels and their yardsticks come from a fresh one. Its output goes to
+def kernels_process(phase: str, *args: str) -> dict:
+    """``chip_smoke.py *args OUT`` in a process of its own, as phase 21
+    runs: after the earlier phases' many profiler sessions (and CUDA-graph
+    captures) this process's profiler loses some calls' largest kernels
+    (SDPA's f32 backward read 0.58 of its 2.98 ms, the embed's f32 backward
+    0.01 of its 0.10) or, by phase 25, records no device time at all (on an
+    H100), so the device times come from a fresh one. Its output goes to
     ours; returns its kernel lines' entries."""
-    out = REPO / "build" / f"tmp_f32_{phase}_{os.getpid()}.json"
+    out = REPO / "build" / f"tmp_kernels_{phase.replace(' ', '_')}_{os.getpid()}.json"
     try:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--f32-kernels",
-                               phase, str(out)], cwd=REPO, timeout=600)
-        print(f"  phase {phase} (a)'s process: exit {proc.returncode} in "
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), *args, str(out)],
+                              cwd=REPO, timeout=600)
+        print(f"  phase {phase}'s process: exit {proc.returncode} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if proc.returncode != 0:
-            fail(f"phase {phase} (a)'s process exited {proc.returncode}")
+            fail(f"phase {phase}'s process exited {proc.returncode}")
         return json.loads(out.read_text())
     finally:
         out.unlink(missing_ok=True)
+
+
+def f32_kernels_process(phase: str) -> dict:
+    """Phase 23 (a) or 24 (a) in a process of its own (``--f32-kernels``)."""
+    return kernels_process(f"{phase} (a)", "--f32-kernels", phase)
 
 
 def f32_kernels_main(phase: str, out: pathlib.Path) -> None:
@@ -4077,10 +4165,14 @@ def tp_bounds(kind: str, L: int, D: int, w: int, dtype, stash: bool = True) -> d
             "ln_bwd": bnd(3 * act + f32, 12 * M * D)}
 
 
-def tp_entry(per: dict, errs: dict, key: str, geo: str, times: tuple, bnd: tuple,
+def tp_entry(per: dict, errs: dict, key: str, geo: str, fns: tuple, bnd: tuple,
              err: float) -> None:
-    per.setdefault(key, {})[geo] = {"ms": times[0], "plain_ms": times[1], "bound_ms": bnd[0],
-                                    "bound_by": bnd[1]}
+    """A TP entry's times at ``geo``: ``fns`` = (the kernel's call, the plain
+    version's), CUDA-event means of each and the kernel's device time."""
+    t = TP_TIMING
+    per.setdefault(key, {})[geo] = {"ms": cuda_ms(fns[0], **t), "plain_ms": cuda_ms(fns[1], **t),
+                                    "device_ms": device_ms(fns[0], iters=5),
+                                    "bound_ms": bnd[0], "bound_by": bnd[1]}
     errs[key] = max(errs.get(key, 0.0), err)
 
 
@@ -4101,11 +4193,11 @@ def check_tp_kernels(dtype) -> dict:
     magnitude, fed the kernel's own stash), the finish and the LN backward
     on the shards' sums against theirs, and the whole: the finished sum
     against the unsplit branch kernel's forward, the LN backward's dx
-    against its backward. Times per call of rank 0's shard."""
+    against its backward. Times per call of rank 0's shard, CUDA-event
+    means and device time."""
     f32 = dtype == torch.float32
     fwd_tol, bwd_rel = (F32_ATOL, F32_BWD_REL) if f32 else (FWD_ATOL, BWD_REL)
     per, errs = {}, {}
-    t = TP_TIMING
     for geo in TP_GEOS:
         L, D, H = GEOMETRIES[geo]
         grad = geo != "tgt"
@@ -4148,24 +4240,20 @@ def check_tp_kernels(dtype) -> dict:
                 if kind == "attn":  # rank 0's shard: times per call
                     with torch.no_grad():
                         tp_entry(per, errs, f"attn_branch_part_fwd{'' if grad else '_nograd'}",
-                                 geo, (cuda_ms(lambda: bf.attn_branch_partial(x, p, hl, grad),
-                                               **t),
-                                       cuda_ms(lambda: bf.attn_part_plain(x, p, hl), **t)),
-                                 bnds["fwd"], ferr)
+                                 geo, (lambda: bf.attn_branch_partial(x, p, hl, grad),
+                                       lambda: bf.attn_part_plain(x, p, hl)), bnds["fwd"], ferr)
                     if grad:
                         tp_entry(per, errs, "attn_branch_part_bwd", geo, (
-                            cuda_ms(lambda: bf.attn_branch_partial_bwd(x, p, a, dy, hl), **t),
-                            cuda_ms(lambda: bf.attn_part_bwd_plain(x, p, a, dy, hl), **t)),
-                            bnds["bwd"], berr)
+                            lambda: bf.attn_branch_partial_bwd(x, p, a, dy, hl),
+                            lambda: bf.attn_part_bwd_plain(x, p, a, dy, hl)), bnds["bwd"], berr)
                 else:
                     tp_entry(per, errs, "mlp_branch_part_fwd", key, (
-                        cuda_ms(lambda: bf.mlp_branch_partial(x, p), **t),
-                        cuda_ms(lambda: bf.mlp_part_plain(x, p), **t)), bnds["fwd"], ferr)
+                        lambda: bf.mlp_branch_partial(x, p), lambda: bf.mlp_part_plain(x, p)),
+                        bnds["fwd"], ferr)
                     if grad:
                         tp_entry(per, errs, "mlp_branch_part_bwd", key, (
-                            cuda_ms(lambda: bf.mlp_branch_partial_bwd(x, p, dy), **t),
-                            cuda_ms(lambda: bf.mlp_part_bwd_plain(x, p, dy), **t)),
-                            bnds["bwd"], berr)
+                            lambda: bf.mlp_branch_partial_bwd(x, p, dy),
+                            lambda: bf.mlp_part_bwd_plain(x, p, dy)), bnds["bwd"], berr)
             bias = params[5]
             out = bf.branch_finish(x, s, bias)
             out_r = bf.branch_finish_plain(x, s, bias)
@@ -4173,8 +4261,8 @@ def check_tp_kernels(dtype) -> dict:
             if not err <= fwd_tol:
                 fail(f"{what}: finish max abs err {err} > {fwd_tol}")
             tp_entry(per, errs, "branch_finish", key, (
-                cuda_ms(lambda: bf.branch_finish(x, s, bias), **t),
-                cuda_ms(lambda: bf.branch_finish_plain(x, s, bias), **t)), bnds["finish"], err)
+                lambda: bf.branch_finish(x, s, bias), lambda: bf.branch_finish_plain(x, s, bias)),
+                bnds["finish"], err)
             full_fn = bf.fused_attn_branch if kind == "attn" else bf.fused_mlp_branch
             extra = (H,) if kind == "attn" else ()
             leaves = [x.clone().requires_grad_(grad)] + [q.clone().requires_grad_(grad)
@@ -4193,9 +4281,8 @@ def check_tp_kernels(dtype) -> dict:
                            for n, k, r in zip(("dx", "d_ln_s", "d_ln_b", "d_bias"),
                                               (dx, *dln), (dx_r, *dln_r)))
                 tp_entry(per, errs, "branch_ln_bwd", key, (
-                    cuda_ms(lambda: bf.branch_ln_bwd(x, params[0], dys, dy), **t),
-                    cuda_ms(lambda: bf.ln_bwd_plain(x, params[0], dys, dy), **t)),
-                    bnds["ln_bwd"], lerr)
+                    lambda: bf.branch_ln_bwd(x, params[0], dys, dy),
+                    lambda: bf.ln_bwd_plain(x, params[0], dys, dy)), bnds["ln_bwd"], lerr)
                 gw = torch.autograd.grad(whole, leaves, dy)
                 wbe = tp_close(f"{what}: dx of the shards vs the whole branch", dx, gw[0],
                                bwd_rel)
@@ -4210,8 +4297,8 @@ def check_tp_kernels(dtype) -> dict:
     for k, v in per.items():
         calls = TP_NOGRAD_CALLS if k == "attn_branch_part_fwd_nograd" else TP_STEP_CALLS
         out[bf.dtype_key(dtype, k)] = summarize(v, errs[k], calls)
-        line = ", ".join(f"{g} {d['ms']:.3f} ms (plain {d['plain_ms']:.3f}, bound "
-                         f"{d['bound_ms']:.4f})" for g, d in v.items())
+        line = ", ".join(f"{g} {d['ms']:.3f} ms (device {d['device_ms']:.4f}, plain "
+                         f"{d['plain_ms']:.3f}, bound {d['bound_ms']:.4f})" for g, d in v.items())
         print(f"  {bf.dtype_key(dtype, k)} per call: {line}", flush=True)
     return out
 
@@ -4476,11 +4563,22 @@ def tp_steps(cfg: dict) -> dict:
     return launches
 
 
-def tensor_parallel(cfg: dict):
-    """Phase 25: (a) at bf16 and f32, then (b) and (c); returns the kernel
-    results and the launches."""
+def tp_kernels_main(out: pathlib.Path) -> None:
+    """``--tp-kernels OUT``: phase 25 (a) at bf16 and f32 on the kernels the
+    parent built, TF32 off; the kernel lines' entries as JSON in OUT."""
+    _build.load()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     res = check_tp_kernels(torch.bfloat16)
     res.update(check_tp_kernels(torch.float32))
+    out.write_text(json.dumps(res))
+
+
+def tensor_parallel(cfg: dict):
+    """Phase 25: (a) at bf16 and f32 in a process of its own
+    (``--tp-kernels``), then (b) and (c); returns the kernel results and the
+    launches."""
+    res = kernels_process("25 (a)", "--tp-kernels")
     return res, tp_steps(cfg)
 
 
@@ -4750,6 +4848,8 @@ def main() -> None:
         res = check_kernels()
         print("  the branch GEMM per product vs gemm_ref and torch.matmul", flush=True)
         print(json.dumps({"gemm_table": gemm_table()}), flush=True)
+        print("  the LayerNorm backward alone (csrc/common.cuh) vs plain versions", flush=True)
+        check_ln()
     with timed_phase(times, "3b", "attention kernels vs plain versions (B=768, bf16)"):
         res.update(check_attention())
     with timed_phase(times, "3c", "patch-embed kernels vs plain version (B=768, bf16)"):
@@ -4907,6 +5007,8 @@ if __name__ == "__main__":
         fused_replay_main(pathlib.Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--f32-kernels"]:
         f32_kernels_main(sys.argv[2], pathlib.Path(sys.argv[3]))
+    elif sys.argv[1:2] == ["--tp-kernels"]:
+        tp_kernels_main(pathlib.Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--dp-cards"]:
         dp_cards(int(sys.argv[2]))
     elif sys.argv[1:2] == ["--tp-worker"]:

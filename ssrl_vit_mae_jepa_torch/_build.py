@@ -54,6 +54,8 @@ _SIGNATURES = {
     "ssrl_branch_finish": (_I, [_P] * 4 + [_I] * 2 + [_P]),
     "ssrl_branch_ln_bwd_workspace": (_LL, [_I] * 2),
     "ssrl_branch_ln_bwd": (_I, [_P] * 7 + [_I] * 2 + [_P]),
+    # with gy32 and dx32: x, ln_s, dy, gy, gy32, dx, dx32, dln3, ws, M, D, stream
+    "ssrl_ln_bwd": (_I, [_P] * 9 + [_I] * 2 + [_P]),
     "ssrl_mha_fits": (_I, [_I] * 2),
     # L, d, bwd -> blocks per SM, warps a block, shared bytes, registers
     "ssrl_mha_occupancy": (_I, [_I] * 3 + [_PI] * 4),

@@ -96,7 +96,7 @@ BwdPlan bwd_plan(int B, int L, int D, int Da) {
   p.k_wqkv = ssrl::gemm_splitk(3 * Da, D, M, &s_wqkv);
   size_t part = (size_t)s_wp * D * Da;
   const size_t cands[3] = {(size_t)B * 3 * Da, (size_t)s_wqkv * 3 * Da * D,
-                           (size_t)ln_bwd_blocks(M) * 3 * D};
+                           ln_bwd_part_floats(M, D)};
   for (size_t x : cands) part = x > part ? x : part;
   p.part = part;
   p.tmp = (size_t)64 * 3 * D;
@@ -406,25 +406,36 @@ int ssrl_branch_finish(const void* x, const void* s, const void* b, void* out, i
 
 long long ssrl_branch_ln_bwd_workspace(int M, int D) {
   Carver c{nullptr};
-  c.take<float>((size_t)ln_bwd_blocks(M) * 3 * D);
-  c.take<float>((size_t)64 * 3 * D);
+  c.take<float>(ln_bwd_part_floats(M, D));
+  c.take<unsigned>(LNB_DONE);
   return (long long)c.off;
 }
 
 // dx = bf16(gy + LN'(dy)) from x [M][D] bf16, the f32 dy (the all-reduced
-// LN output gradient) and the bf16 branch output gradient gy; dln3 [3][D]
-// f32 = (d ln_s, d ln_b, sum gy): the LN backward of the branch kernels.
-int ssrl_branch_ln_bwd(const void* x, const void* ln_s, const void* dy, const void* gy,
-                       void* dx, void* dln3, void* ws, int M, int D, void* stream) {
+// LN output gradient) and the gradient gy at the branch output: bf16 gy, or
+// the f32 gy32 where that is set (the whole block's and the chain's); dx
+// also written as f32 into dx32 where that is set; dln3 [3][D] f32 = (d
+// ln_s, d ln_b, sum gy): the LN backward of the branch kernels, its four
+// instantiations alone for their checks.
+int ssrl_ln_bwd(const void* x, const void* ln_s, const void* dy, const void* gy,
+                const void* gy32, void* dx, void* dx32, void* dln3, void* ws, int M, int D,
+                void* stream) {
   if (M < 1 || D < 1 || D > 256) return (int)cudaErrorInvalidValue;
   Carver c{static_cast<char*>(ws)};
-  float* part = c.take<float>((size_t)ln_bwd_blocks(M) * 3 * D);
-  float* tmp = c.take<float>((size_t)64 * 3 * D);
+  float* part = c.take<float>(ln_bwd_part_floats(M, D));
+  float* tmp = c.take<float>(LNB_DONE);
   launch_ln_bwd(static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
-                static_cast<const float*>(dy), static_cast<const bf16*>(gy), nullptr,
-                static_cast<bf16*>(dx), nullptr, static_cast<float*>(dln3), part, tmp, M, D,
+                static_cast<const float*>(dy), static_cast<const bf16*>(gy),
+                static_cast<const float*>(gy32), static_cast<bf16*>(dx),
+                static_cast<float*>(dx32), static_cast<float*>(dln3), part, tmp, M, D,
                 static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// ssrl_ln_bwd with the bf16 gy and no f32 dx: the TP entries' LN backward.
+int ssrl_branch_ln_bwd(const void* x, const void* ln_s, const void* dy, const void* gy,
+                       void* dx, void* dln3, void* ws, int M, int D, void* stream) {
+  return ssrl_ln_bwd(x, ln_s, dy, gy, nullptr, dx, nullptr, dln3, ws, M, D, stream);
 }
 
 }  // extern "C"

@@ -32,8 +32,9 @@
 // or y2, z and h, from a forward that kept them, and start after them.
 // Weight gradients are TN products split over the B*L rows into f32
 // partials, then folded in one fixed order (gemm_f32_tn.cu); bias sums go
-// through common.cuh::reduce_rows; no atomics anywhere, so two calls give
-// the same bits and a CUDA-graph replay equals the eager step.
+// through common.cuh::reduce_rows or the LN backward's own fold; no atomic
+// adds a sum, so two calls give the same bits and a CUDA-graph replay
+// equals the eager step.
 //
 // What bounds it on the H100: the f32 products run on the CUDA cores (67
 // TFLOP/s, no tensor-core path without TF32). At B=768, L=145, D=192 a
@@ -50,10 +51,10 @@
 // port's widths (multiples of 48) pad little; the epilogue (bias, GELU, its
 // derivative, the residual) a template parameter, applied on the registers;
 // TN split over the B*L rows as far as fills the SMs once, its partials
-// folded in one fixed order. Around it: a warp-per-row LayerNorm pass
-// (forward, and a backward that also writes its column partials) and the
-// attention core of mha_f32.cu. Intermediates (y, qkv, a, z, h and their
-// gradients) go through device memory.
+// folded in one fixed order. Around it: a warp-per-row LayerNorm forward,
+// common.cuh's LayerNorm backward (one launch, its column sums folded in
+// it) and the attention core of mha_f32.cu. Intermediates (y, qkv, a, z, h
+// and their gradients) go through device memory.
 //
 // Split over a model axis (Megatron, as csrc/attn_branch.cu and
 // csrc/mlp_branch.cu split the bf16 branches): a shard runs qkv, the
@@ -82,7 +83,7 @@ using ssrl::gemm_tn_f32;
 using ssrl::gemm_tn_f32_part_floats;
 
 // ---------------------------------------------------------------------------
-// LayerNorm, one warp per row: the forward for any D, the backward for D <= 256
+// LayerNorm forward, one warp per row, any D (the backward: common.cuh)
 // ---------------------------------------------------------------------------
 
 __global__ void ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ s,
@@ -105,99 +106,18 @@ __global__ void ln_f32_kernel(const float* __restrict__ x, const float* __restri
   for (int c = lane; c < D; c += 32) yr[c] = (xr[c] - mu) * inv * s[c] + b[c];
 }
 
-// dx = gy + LN'(dy) from the f32 x, dy and gy, with the statistics of
-// ln_f32_kernel; per-block partial column sums of [dy * xhat | dy | gy] ->
-// part[blockIdx.x][3][D] (the LN scale and bias gradients and the branch
-// output's bias gradient).
-__global__ void ln_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ s,
-                                  const float* __restrict__ dy, const float* __restrict__ gy,
-                                  float* __restrict__ dx, float* __restrict__ part, int M,
-                                  int D, int rows_per_block) {
-  __shared__ float red[LN_WARPS][3][256];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float as[LN_MAXV], ab[LN_MAXV], ag[LN_MAXV];
-#pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) as[i] = ab[i] = ag[i] = 0.f;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(M, r0 + rows_per_block);
-  for (int row = r0 + warp; row < r1; row += LN_WARPS) {
-    const size_t base = (size_t)row * D;
-    float v[LN_MAXV], g0[LN_MAXV], d[LN_MAXV];
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < LN_MAXV; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < D ? x[base + c] : 0.f;
-      t += v[i];
-    }
-    const float mu = warp_sum(t) / (float)D;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < LN_MAXV; ++i) {
-      const float dv = (lane + 32 * i < D) ? v[i] - mu : 0.f;
-      q += dv * dv;
-    }
-    const float inv = 1.f / sqrtf(warp_sum(q) / (float)D + kLnEps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < LN_MAXV; ++i) {
-      const int c = lane + 32 * i;
-      if (c < D) {
-        v[i] = (v[i] - mu) * inv;  // xhat
-        d[i] = dy[base + c];
-        g0[i] = d[i] * s[c];
-      } else {
-        v[i] = d[i] = g0[i] = 0.f;
-      }
-      s1 += g0[i];
-      s2 += g0[i] * v[i];
-    }
-    const float m1 = warp_sum(s1) / (float)D;
-    const float m2 = warp_sum(s2) / (float)D;
-#pragma unroll
-    for (int i = 0; i < LN_MAXV; ++i) {
-      const int c = lane + 32 * i;
-      if (c < D) {
-        const float g = gy[base + c];
-        dx[base + c] = g + (g0[i] - m1 - v[i] * m2) * inv;
-        as[i] += d[i] * v[i];
-        ab[i] += d[i];
-        ag[i] += g;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int c = lane + 32 * i;
-    red[warp][0][c] = as[i];
-    red[warp][1][c] = ab[i];
-    red[warp][2][c] = ag[i];
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < 3 * D; j += blockDim.x) {
-    const int k = j / D, c = j - k * D;
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < LN_WARPS; ++w) t += red[w][k][c];
-    part[(size_t)blockIdx.x * 3 * D + j] = t;
-  }
-}
-
 void launch_ln(const float* x, const float* s, const float* b, float* y, int M, int D,
                cudaStream_t st) {
   ln_f32_kernel<<<cdiv(M, LN_WARPS), 32 * LN_WARPS, 0, st>>>(x, s, b, y, M, D);
 }
 
-// LN backward, then its partials reduced into out3 = [d scale | d bias | sum gy].
+// LN backward (common.cuh's one-launch design at f32, ln_f32_kernel's
+// statistics): dx, and out3 = [d scale | d bias | sum gy].
 cudaError_t launch_ln_bwd_f32(const float* x, const float* s, const float* dy,
                               const float* gy, float* dx, float* out3, float* part,
                               float* tmp, int M, int D, cudaStream_t st) {
-  const int nb = ln_bwd_blocks(M);
-  ln_bwd_f32_kernel<<<nb, 32 * LN_WARPS, 0, st>>>(x, s, dy, gy, dx, part, M, D,
-                                                  cdiv(M, nb));
-  SSRL_TRY(cudaGetLastError());
-  reduce_rows(part, nb, 3 * D, out3, tmp, st);
-  return cudaGetLastError();
+  return ln_bwd<float, false, false>(x, s, dy, gy, nullptr, dx, nullptr, out3, part, tmp, M,
+                                     D, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -253,7 +173,7 @@ size_t attn_bwd_carve(Carver& c, int B, int L, int D, int Da, bool kept, AttnBwd
   const int M = B * L;
   size_t part = gemm_tn_f32_part_floats(D, Da, M);
   const size_t cands[2] = {gemm_tn_f32_part_floats(3 * Da, D, M),
-                           (size_t)ln_bwd_blocks(M) * 3 * D};
+                           ln_bwd_part_floats(M, D)};
   for (size_t x : cands) part = x > part ? x : part;
   w->y1 = kept ? nullptr : c.take<float>((size_t)M * D);
   w->qkv = kept ? nullptr : c.take<float>((size_t)M * 3 * Da);
@@ -275,7 +195,7 @@ struct MlpBwdWs {
 size_t mlp_bwd_carve(Carver& c, int M, int D, int F, bool kept, MlpBwdWs* w) {
   size_t part = gemm_tn_f32_part_floats(D, F, M);  // dW2 (D, F), then dW1 (F, D)
   const size_t cands[2] = {gemm_tn_f32_part_floats(F, D, M),
-                           (size_t)ln_bwd_blocks(M) * 3 * D};
+                           ln_bwd_part_floats(M, D)};
   for (size_t x : cands) part = x > part ? x : part;
   w->y2 = kept ? nullptr : c.take<float>((size_t)M * D);
   w->z = kept ? nullptr : c.take<float>((size_t)M * F);
@@ -703,8 +623,8 @@ int ssrl_branch_finish_f32(const void* x, const void* s, const void* b, void* ou
 
 long long ssrl_branch_ln_bwd_f32_workspace(int M, int D) {
   Carver c{nullptr};
-  c.take<float>((size_t)ln_bwd_blocks(M) * 3 * D);
-  c.take<float>((size_t)64 * 3 * D);
+  c.take<float>(ln_bwd_part_floats(M, D));
+  c.take<unsigned>(LNB_DONE);
   return (long long)c.off;
 }
 
@@ -714,8 +634,8 @@ int ssrl_branch_ln_bwd_f32(const void* x, const void* ln_s, const void* dy, cons
                            void* dx, void* dln3, void* ws, int M, int D, void* stream) {
   if (M < 1 || D < 1 || D > 256) return (int)cudaErrorInvalidValue;
   Carver c{static_cast<char*>(ws)};
-  float* part = c.take<float>((size_t)ln_bwd_blocks(M) * 3 * D);
-  float* tmp = c.take<float>((size_t)64 * 3 * D);
+  float* part = c.take<float>(ln_bwd_part_floats(M, D));
+  float* tmp = c.take<float>(LNB_DONE);
   return (int)launch_ln_bwd_f32(static_cast<const float*>(x), static_cast<const float*>(ln_s),
                                 static_cast<const float*>(dy), static_cast<const float*>(g),
                                 static_cast<float*>(dx), static_cast<float*>(dln3), part, tmp, M,

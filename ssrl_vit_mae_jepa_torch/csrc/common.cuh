@@ -1,9 +1,10 @@
 // Shared device code for the transformer-branch kernels (sm_90a).
 //
 // The mma.sync / ldmatrix / cp.async helpers of the register-tiled kernels
-// (mha.cu, patch_embed.cu), a warp-per-row LayerNorm forward and backward,
-// and a deterministic two-pass column reduction that turns per-block f32
-// partial sums into weight and bias gradients. The branch kernels' GEMM is
+// (mha.cu, patch_embed.cu), a warp-per-row LayerNorm forward, the LayerNorm
+// backward (bf16 and f32, its column sums folded in its one launch), and a
+// deterministic two-pass column reduction that turns per-block f32 partial
+// sums into weight and bias gradients. The branch kernels' GEMM is
 // csrc/gemm.cuh (declarations) and csrc/gemm_sm90.cuh (wgmma + TMA).
 //
 // Numerics follow the TPU kernels in ssrl_vit_mae_jepa_tpu/ops/block_pallas.py
@@ -17,6 +18,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gemm.cuh"
 
@@ -155,6 +158,8 @@ __device__ __forceinline__ int ld_b(int r0, int c0, int ld, int lane) {
 
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // return the error of a launch sequence's step, if any
 #define SSRL_TRY(expr)                      \
   do {                                      \
@@ -245,106 +250,377 @@ __global__ void ln_fwd_kernel(const bf16* __restrict__ x,
   }
 }
 
-// dx = gy + LN'(dy), written as bf16 and, with DX32, also as f32 (dx32); gy
-// is the f32 gy32 with GY32, else the bf16 gy; per-block partial column sums
-// of [dy * xhat | dy | gy] -> part[blockIdx.x][3][D]. Compile-time flags, so
-// that the branch kernels' <false, false> is the plain bf16 kernel.
-template <bool GY32, bool DX32>
-__global__ void ln_bwd_kernel(const bf16* __restrict__ x,
-                              const float* __restrict__ s,
-                              const float* __restrict__ dy,
-                              const bf16* __restrict__ gy,
-                              const float* __restrict__ gy32,
-                              bf16* __restrict__ dx, float* __restrict__ dx32,
-                              float* __restrict__ part, int M, int D,
-                              int rows_per_block) {
-  __shared__ float red[LN_WARPS][3][256];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float as[LN_MAXV], ab[LN_MAXV], ag[LN_MAXV];
-#pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) as[i] = ab[i] = ag[i] = 0.f;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(M, r0 + rows_per_block);
-  for (int row = r0 + warp; row < r1; row += LN_WARPS) {
-    const size_t base = (size_t)row * D;
-    float v[LN_MAXV], g0[LN_MAXV], d[LN_MAXV];
-#pragma unroll
-    for (int i = 0; i < LN_MAXV; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < D ? bf(x[base + c]) : 0.f;
-    }
-    float mu, inv;
-    ln_stats(v, lane, D, &mu, &inv);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < LN_MAXV; ++i) {
-      const int c = lane + 32 * i;
-      if (c < D) {
-        v[i] = (v[i] - mu) * inv;  // xhat
-        d[i] = dy[base + c];
-        g0[i] = d[i] * s[c];
-      } else {
-        v[i] = d[i] = g0[i] = 0.f;
-      }
-      s1 += g0[i];
-      s2 += g0[i] * v[i];
-    }
-    const float m1 = warp_sum(s1) / (float)D;
-    const float m2 = warp_sum(s2) / (float)D;
-#pragma unroll
-    for (int i = 0; i < LN_MAXV; ++i) {
-      const int c = lane + 32 * i;
-      if (c < D) {
-        const float g = GY32 ? gy32[base + c] : bf(gy[base + c]);
-        const float r = g + (g0[i] - m1 - v[i] * m2) * inv;
-        dx[base + c] = tobf(r);
-        if (DX32) dx32[base + c] = r;
-        as[i] += d[i] * v[i];
-        ab[i] += d[i];
-        ag[i] += g;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int c = lane + 32 * i;
-    if (c < 256) {
-      red[warp][0][c] = as[i];
-      red[warp][1][c] = ab[i];
-      red[warp][2][c] = ag[i];
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < 3 * D; j += blockDim.x) {
-    const int k = j / D, c = j - k * D;
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < LN_WARPS; ++w) t += red[w][k][c];
-    part[(size_t)blockIdx.x * 3 * D + j] = t;
-  }
-}
-
-inline int ln_bwd_blocks(int M) {
-  int n = cdiv(M, LN_WARPS * 4);
-  return n < 1024 ? n : 1024;
-}
-
 inline void launch_ln_fwd(const bf16* x, const float* s, const float* b,
                           bf16* y, int M, int D, cudaStream_t st) {
   ln_fwd_kernel<<<cdiv(M, LN_WARPS), 32 * LN_WARPS, 0, st>>>(x, s, b, y, M, D);
 }
 
-// LN backward + reduction of its [ds | db | sum(gy)] partials into out3 (3*D).
+// ---------------------------------------------------------------------------
+// LayerNorm backward, D <= 256, bf16 or f32, in one launch:
+//   dx = gy + LN'(dy) (bf16 and, with DX32, also f32; or f32), and the column
+//   sums out3 = [sum dy * xhat | sum dy | sum gy] (d scale, d bias, and the
+//   branch output's bias gradient).
+// Replaces the LN backward that ends the TPU branch kernels
+// (ssrl_vit_mae_jepa_tpu/ops/block_pallas.py::_ln_bwd, :187, used at :611
+// and :648).
+//
+// What bounds it on the H100: bytes. It reads x, gy and the f32 dy and
+// writes dx once (10 B an element in bf16, 16 at f32) for ~20 flops an
+// element. The design moves them in 16-byte accesses with many rows in
+// flight, in one launch:
+//   - a thread owns 8 consecutive columns of a row (x, gy, dx one 16-byte
+//     access each in bf16, dy, s two), a row is G = ceil(D / 8) consecutive
+//     threads and a block of 256 holds RB = 256 / G rows side by side (at
+//     D = 144, 252 threads of 256 work, not 18 of each warp of 32);
+//   - a thread takes LNB_U rows a step (the block LNB_U RB) and loads
+//     them all before it reduces any; x-hat stays in registers;
+//   - a row's sums are a segmented scan over the warp (its threads are
+//     consecutive) plus, where the row straddles two warps, the second
+//     warp's piece through shared memory, one barrier a reduction; a step
+//     takes two: the sum of x, then together the sum of squares about the
+//     mean, of g0 = dy s and of g0 (x - mean), whose mean times 1 / std is
+//     that of g0 x-hat; two buffers in turn, so none between steps;
+//   - a thread sums its 8 columns over its rows in registers; the block
+//     folds them over its RB rows in shared memory and writes its partial;
+//     the last block of each group of LNB_GROUP to finish (a counter the
+//     host zeroes with a memset before the launch) folds the group's
+//     partials in block order, and the last group to finish folds the
+//     groups' in group order into out3. No atomics on the sums: every call
+//     gives the same bits, a CUDA-graph replay those of the eager call.
+// Statistics: two-pass f32, eps 1e-6; 1 / sqrt at f32 (ln_f32_kernel's),
+// rsqrt in bf16 (ln_stats'); dx rounded once. A width that is not a
+// multiple of 8, or a pointer not 16-byte aligned, takes the same kernel
+// with element loads (VEC false).
+// ---------------------------------------------------------------------------
+
+constexpr int LNB_THREADS = 256;
+constexpr int LNB_U = 2;                         // rows a thread takes a step
+constexpr int LNB_SM_BLOCKS = 2;                 // blocks an SM holds at once
+constexpr int LNB_MAX_BLOCKS = 132 * LNB_SM_BLOCKS;  // one wave on the 132 SMs
+constexpr int LNB_GROUP = 16;        // blocks whose partials one block folds
+// the done counters: one a group, one for the groups
+constexpr int LNB_DONE = (LNB_MAX_BLOCKS + LNB_GROUP - 1) / LNB_GROUP + 1;
+
+struct LnBwdPlan {
+  int G;       // threads a row: ceil(D / 8)
+  int RB;      // rows side by side in a block
+  int rpb;     // rows a block (the last may have fewer)
+  int blocks;  // the grid
+  int groups;  // cdiv(blocks, LNB_GROUP)
+};
+
+inline LnBwdPlan ln_bwd_plan(int M, int D) {
+  LnBwdPlan p;
+  p.G = (D + 7) / 8;
+  p.RB = LNB_THREADS / p.G;
+  const int steps = cdiv(M, p.RB * LNB_U);
+  const int nb = steps < 1 ? 1 : (steps < LNB_MAX_BLOCKS ? steps : LNB_MAX_BLOCKS);
+  p.rpb = M > nb ? cdiv(M, nb) : 1;
+  p.blocks = M > 0 ? cdiv(M, p.rpb) : 1;
+  p.groups = cdiv(p.blocks, LNB_GROUP);
+  return p;
+}
+
+// Floats of the backward's `part`: the blocks' partials, then the groups'.
+// Its `tmp` holds the groups + 1 <= LNB_DONE done counters.
+inline size_t ln_bwd_part_floats(int M, int D) {
+  const LnBwdPlan p = ln_bwd_plan(M, D);
+  return (size_t)(p.blocks + p.groups) * 3 * D;
+}
+
+// 8 values from p (n valid, the rest 0): one 16-byte load of bf16 or two of
+// f32 with VEC, else element loads.
+template <bool VEC>
+__device__ __forceinline__ void ld8(const bf16* p, int n, float (&v)[8]) {
+  if (VEC) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const bf16* h = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = bf(h[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? bf(p[j]) : 0.f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void ld8(const float* p, int n, float (&v)[8]) {
+  if (VEC) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = j < n ? p[j] : 0.f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void st8(bf16* p, int n, const float (&v)[8]) {
+  if (VEC) {
+    uint4 q;
+    q.x = pack_bf16(v[0], v[1]); q.y = pack_bf16(v[2], v[3]);
+    q.z = pack_bf16(v[4], v[5]); q.w = pack_bf16(v[6], v[7]);
+    *reinterpret_cast<uint4*>(p) = q;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < n) p[j] = tobf(v[j]);
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void st8(float* p, int n, const float (&v)[8]) {
+  if (VEC) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < n) p[j] = v[j];
+  }
+}
+
+// Where a thread sits in the block's rows, for the row sums.
+struct LnRowLane {
+  unsigned take;  // bit i: add the value of thread tid - 2^i (same row, same warp)
+  bool seg_end;   // the last thread of its row in its warp
+  int piece;      // 1 in the second warp of a row that straddles two
+  bool two;       // the row straddles two warps
+};
+
+__device__ __forceinline__ LnRowLane ln_row_lane(int tid, int G, int ri) {
+  LnRowLane r;
+  const int lane = tid & 31;
+  r.take = 0;
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    if (lane >= (1 << i) && (tid - (1 << i)) / G == ri) r.take |= 1u << i;
+  r.seg_end = lane == 31 || (tid + 1) / G != ri;
+  r.piece = (tid >> 5) != ((ri * G) >> 5);
+  r.two = ((ri * G) >> 5) != ((ri * G + G - 1) >> 5);
+  return r;
+}
+
+// v[u][0..N) summed over each row's G threads, in one fixed order (the
+// scan's, then the first warp's piece plus the second's); every thread of a
+// row ends with its totals. red: one buffer, [2 pieces][LNB_U][3][
+// LNB_THREADS]; the caller takes two in turn, so one barrier a call.
+template <int N>
+__device__ __forceinline__ void ln_row_sums(float (&v)[LNB_U][3], float* red,
+                                            const LnRowLane& rl, int ri, bool live) {
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+#pragma unroll
+    for (int u = 0; u < LNB_U; ++u)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float o = __shfl_up_sync(0xffffffffu, v[u][k], 1 << i);
+        if (rl.take >> i & 1u) v[u][k] += o;
+      }
+  constexpr int P = LNB_U * 3 * LNB_THREADS;  // one piece
+  if (live && rl.seg_end) {
+#pragma unroll
+    for (int u = 0; u < LNB_U; ++u)
+#pragma unroll
+      for (int k = 0; k < N; ++k) red[rl.piece * P + (u * 3 + k) * LNB_THREADS + ri] = v[u][k];
+  }
+  __syncthreads();
+  if (live) {
+#pragma unroll
+    for (int u = 0; u < LNB_U; ++u)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const int i = (u * 3 + k) * LNB_THREADS + ri;
+        v[u][k] = rl.two ? red[i] + red[P + i] : red[i];
+      }
+  }
+}
+
+// T: bf16 (x, gy, dx; gy32 the f32 gy with GY32, dx32 an f32 copy of dx
+// with DX32) or float (GY32, DX32 false).
+template <typename T, bool GY32, bool DX32, bool VEC>
+__global__ void __launch_bounds__(LNB_THREADS, LNB_SM_BLOCKS)
+ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ s,
+              const float* __restrict__ dy, const T* __restrict__ gy,
+              const float* __restrict__ gy32, T* __restrict__ dx, float* __restrict__ dx32,
+              float* __restrict__ part, unsigned* __restrict__ done, float* __restrict__ out3,
+              int M, int D, LnBwdPlan p) {
+  using G32 = typename std::conditional<GY32, float, T>::type;  // gy as it is stored
+  // ln_row_sums' two buffers; after the rows, the block's fold [RB][3][8G]
+  __shared__ float red[2 * 2 * LNB_U * 3 * LNB_THREADS];
+  __shared__ unsigned last;
+  constexpr int BUF = 2 * LNB_U * 3 * LNB_THREADS;
+  const int tid = threadIdx.x;
+  const int G = p.G, RB = p.RB;
+  const int ri = tid / G, c0 = 8 * (tid - ri * G);
+  const bool live = ri < RB;
+  const int n = live ? min(8, D - c0) : 0;
+  const LnRowLane rl = ln_row_lane(tid, G, ri);
+  const G32* gsrc;
+  if constexpr (GY32) gsrc = gy32;
+  else gsrc = gy;
+  const float invD = 1.f / (float)D;
+  float sc[8], as[8], ab[8], ag[8];
+  if (live) {
+    ld8<VEC>(s + c0, n, sc);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sc[j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) as[j] = ab[j] = ag[j] = 0.f;
+
+  const int r0 = blockIdx.x * p.rpb;
+  const int r1 = min(M, r0 + p.rpb);
+  for (int base = r0; base < r1; base += RB * LNB_U) {
+    float xv[LNB_U][8], dv[LNB_U][8], gv[LNB_U][8];
+    bool ok[LNB_U];
+#pragma unroll
+    for (int u = 0; u < LNB_U; ++u) {
+      const int r = base + u * RB + ri;
+      ok[u] = live && r < r1;
+      if (ok[u]) {
+        const size_t off = (size_t)r * D + c0;
+        ld8<VEC>(x + off, n, xv[u]);
+        ld8<VEC>(dy + off, n, dv[u]);
+        ld8<VEC>(gsrc + off, n, gv[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) xv[u][j] = dv[u][j] = gv[u][j] = 0.f;
+      }
+    }
+    // the mean
+    float t[LNB_U][3], mu[LNB_U];
+#pragma unroll
+    for (int u = 0; u < LNB_U; ++u) {
+      t[u][0] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) t[u][0] += xv[u][j];
+    }
+    ln_row_sums<1>(t, red, rl, ri, live);
+    // the sums of (x - mean)^2, g0 and g0 (x - mean)
+#pragma unroll
+    for (int u = 0; u < LNB_U; ++u) {
+      mu[u] = t[u][0] / (float)D;
+      t[u][0] = t[u][1] = t[u][2] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = (VEC || j < n) ? xv[u][j] - mu[u] : 0.f;
+        const float g0 = dv[u][j] * sc[j];
+        t[u][0] += d * d;
+        t[u][1] += g0;
+        t[u][2] += g0 * d;
+      }
+    }
+    ln_row_sums<3>(t, red + BUF, rl, ri, live);
+#pragma unroll
+    for (int u = 0; u < LNB_U; ++u) {
+      if (!ok[u]) continue;
+      const float var = t[u][0] / (float)D + kLnEps;
+      const float inv = sizeof(T) == 4 ? 1.f / sqrtf(var) : rsqrtf(var);
+      const float m1 = t[u][1] / (float)D, m2 = t[u][2] * invD * inv;
+      float r[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xh = (xv[u][j] - mu[u]) * inv;
+        const float g0 = dv[u][j] * sc[j];
+        r[j] = gv[u][j] + (g0 - m1 - xh * m2) * inv;
+        as[j] += dv[u][j] * xh;
+        ab[j] += dv[u][j];
+        ag[j] += gv[u][j];
+      }
+      const size_t off = (size_t)(base + u * RB + ri) * D + c0;
+      st8<VEC>(dx + off, n, r);
+      if (DX32) st8<VEC>(dx32 + off, n, r);
+    }
+  }
+  __syncthreads();  // red is free: the fold goes over it
+
+  // the block's partial: its rows' column sums, folded in row order
+  float* fold = red;  // [RB][3][8G]: at most 24 * LNB_THREADS floats
+  const int W = 8 * G;
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      fold[(ri * 3 + 0) * W + c0 + j] = as[j];
+      fold[(ri * 3 + 1) * W + c0 + j] = ab[j];
+      fold[(ri * 3 + 2) * W + c0 + j] = ag[j];
+    }
+  }
+  __syncthreads();
+  const int D3 = 3 * D;
+  for (int j = tid; j < D3; j += LNB_THREADS) {
+    const int k = j / D, c = j - k * D;
+    float a = 0.f;
+    for (int r = 0; r < RB; ++r) a += fold[(r * 3 + k) * W + c];
+    part[(size_t)blockIdx.x * D3 + j] = a;
+  }
+
+  // the last block of its group folds the group's partials in block order
+  const int g = blockIdx.x / LNB_GROUP;
+  const int b0 = g * LNB_GROUP, b1 = min(p.blocks, b0 + LNB_GROUP);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&done[g], 1u) == (unsigned)(b1 - b0 - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* gdst = p.groups == 1 ? out3 : part + (size_t)(p.blocks + g) * D3;
+  for (int j = tid; j < D3; j += LNB_THREADS) {
+    float a = 0.f;
+    for (int b = b0; b < b1; ++b) a += __ldcg(part + (size_t)b * D3 + j);
+    gdst[j] = a;
+  }
+  if (p.groups == 1) return;
+
+  // the last group to finish folds the groups' partials in group order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&done[p.groups], 1u) == (unsigned)(p.groups - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* gp = part + (size_t)p.blocks * D3;
+  for (int j = tid; j < D3; j += LNB_THREADS) {
+    float a = 0.f;
+    for (int q = 0; q < p.groups; ++q) a += __ldcg(gp + (size_t)q * D3 + j);
+    out3[j] = a;
+  }
+}
+
+// The LN backward of x [M][D] (D <= 256): part takes ln_bwd_part_floats(M,
+// D) floats, tmp the done counters (its first groups + 1 ints, zeroed here).
+template <typename T, bool GY32, bool DX32>
+cudaError_t ln_bwd(const T* x, const float* s, const float* dy, const T* gy,
+                   const float* gy32, T* dx, float* dx32, float* out3, float* part,
+                   float* tmp, int M, int D, cudaStream_t st) {
+  if (M < 1 || D < 1 || D > 256) return cudaErrorInvalidValue;
+  const LnBwdPlan p = ln_bwd_plan(M, D);
+  unsigned* done = reinterpret_cast<unsigned*>(tmp);
+  SSRL_TRY(cudaMemsetAsync(done, 0, (size_t)(p.groups + 1) * sizeof(unsigned), st));
+  const bool vec = D % 8 == 0 && aligned16(x) && aligned16(s) && aligned16(dy) &&
+                   aligned16(GY32 ? (const void*)gy32 : (const void*)gy) && aligned16(dx) &&
+                   (!DX32 || aligned16(dx32));
+  auto kernel = vec ? &ln_bwd_kernel<T, GY32, DX32, true> : &ln_bwd_kernel<T, GY32, DX32, false>;
+  kernel<<<p.blocks, LNB_THREADS, 0, st>>>(x, s, dy, gy, gy32, dx, dx32, part, done, out3, M,
+                                           D, p);
+  return cudaGetLastError();
+}
+
+// dx = gy + LN'(dy) in bf16 (and, with dx32 set, f32) from the bf16 gy or,
+// where gy32 is set, the f32 one; out3 (3*D) = [d scale | d bias | sum gy].
 inline void launch_ln_bwd(const bf16* x, const float* s, const float* dy,
                           const bf16* gy, const float* gy32, bf16* dx, float* dx32,
                           float* out3, float* part, float* tmp, int M, int D,
                           cudaStream_t st) {
-  const int nb = ln_bwd_blocks(M);
-  const int rpb = cdiv(M, nb);
-  auto kernel = gy32 ? (dx32 ? &ln_bwd_kernel<true, true> : &ln_bwd_kernel<true, false>)
-                     : (dx32 ? &ln_bwd_kernel<false, true> : &ln_bwd_kernel<false, false>);
-  kernel<<<nb, 32 * LN_WARPS, 0, st>>>(x, s, dy, gy, gy32, dx, dx32, part, M, D, rpb);
-  reduce_rows(part, nb, 3 * D, out3, tmp, st);
+  if (gy32)
+    dx32 ? ln_bwd<bf16, true, true>(x, s, dy, gy, gy32, dx, dx32, out3, part, tmp, M, D, st)
+         : ln_bwd<bf16, true, false>(x, s, dy, gy, gy32, dx, dx32, out3, part, tmp, M, D, st);
+  else
+    dx32 ? ln_bwd<bf16, false, true>(x, s, dy, gy, gy32, dx, dx32, out3, part, tmp, M, D, st)
+         : ln_bwd<bf16, false, false>(x, s, dy, gy, gy32, dx, dx32, out3, part, tmp, M, D, st);
 }
 
 // Bytes rounded up so that every carved buffer starts 256-byte aligned.

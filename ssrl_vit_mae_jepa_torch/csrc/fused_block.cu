@@ -62,7 +62,7 @@ AttnPlan attn_plan(int B, int L, int D) {
   p.k_wqkv = ssrl::gemm_splitk(3 * D, D, M, &s_wqkv);
   size_t part = (size_t)s_wp * D * D;
   const size_t cands[3] = {(size_t)B * 3 * D, (size_t)s_wqkv * 3 * D * D,
-                           (size_t)ln_bwd_blocks(M) * 3 * D};
+                           ln_bwd_part_floats(M, D)};
   for (size_t x : cands) part = x > part ? x : part;
   p.part = part;
   p.tmp = (size_t)64 * 3 * D;

@@ -382,8 +382,6 @@ cudaError_t launch_plan(const F32Args& p, int wm, int wn, bool vec, int splits,
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // NT and NN (measured on an H100 at the port's products, every block
 // shape timed): blocks of 128 rows by 96 columns (three an SM), unless they
 // would pad N by over 15% more than 128 x 144 blocks (two an SM) do, as at

@@ -521,8 +521,6 @@ __global__ void __maxnreg__(REGS) mha_f32_bwd_kernel(const Args a, int G, int ve
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 // 16-byte loads need d, every stride and every loaded base to be multiples
 // of 4 floats
 int vec_of(const Args& a, bool bwd) {

@@ -60,7 +60,7 @@ BwdPlan bwd_plan(int M, int D, int F) {
   p.k_w1 = ssrl::gemm_splitk(F, D, M, &s_w1);
   size_t part = (size_t)s_w2 * D * F;
   const size_t cands[3] = {(size_t)s_w1 * F * D, (size_t)cdiv(M, kGemmBM) * F,
-                           (size_t)ln_bwd_blocks(M) * 3 * D};
+                           ln_bwd_part_floats(M, D)};
   for (size_t x : cands) part = x > part ? x : part;
   p.part = part;
   p.tmp = (size_t)64 * (F > 3 * D ? F : 3 * D);

@@ -114,6 +114,9 @@ LAUNCHES = {
     "mlp_branch_part_bwd_f32": 0,
     "branch_finish_f32": 0,
     "branch_ln_bwd_f32": 0,
+    # the LN backward's four bf16 instantiations alone (``ln_bwd``), for
+    # their checks; never on a step
+    "ln_bwd": 0,
 }
 
 
@@ -808,9 +811,69 @@ def ln_bwd_plain(x, ln_scale, dy, gy):
     """(dx = gy + LN'(dy) in x's dtype, (d ln_s, d ln_b, sum gy)) from the
     all-reduced f32 ``dy`` and the branch output gradient ``gy`` as x's
     dtype holds it."""
+    dx, _, sums = ln_bwd_full_plain(x, ln_scale, dy, gy.to(x.dtype))
+    return dx, sums
+
+
+def ln_bwd_full_plain(x, ln_scale, dy, gy):
+    """The LN backward of every branch, block and chain backward: (dx in x's
+    dtype, dx in f32 before that rounding, (d ln_s, d ln_b, sum gy)). An f32
+    ``gy`` with a bf16 ``x`` (the whole block's and chain's gradient) enters
+    the residual and the sum as it is, any other as x's dtype holds it."""
     dx, ds, db = _ln_bwd(dy.float(), x, ln_scale)
-    g = gy.to(x.dtype).float()
-    return (g + dx).to(x.dtype), (ds, db, _rows(g).sum(0))
+    g = gy.float() if gy.dtype == torch.float32 else gy.to(x.dtype).float()
+    r = g + dx
+    return r.to(x.dtype), r, (ds, db, _rows(g).sum(0))
+
+
+#: the LN backward kernel's plan (csrc/common.cuh::ln_bwd_plan): threads a
+#: block, rows a thread takes a step, most blocks, blocks a group fold
+LNB_THREADS, LNB_U, LNB_MAX_BLOCKS, LNB_GROUP = 256, 2, 264, 16
+
+
+def ln_bwd_plan(M: int, D: int) -> dict:
+    """csrc/common.cuh::ln_bwd_plan: G threads a row, RB rows side by side in
+    a block, rpb rows a block, the grid, the groups whose partials the last
+    block of each folds."""
+    G = (D + 7) // 8
+    RB = LNB_THREADS // G
+    steps = -(-M // (RB * LNB_U))
+    nb = max(1, min(steps, LNB_MAX_BLOCKS))
+    rpb = -(-M // nb) if M > nb else 1
+    blocks = -(-M // rpb)
+    return {"G": G, "RB": RB, "rpb": rpb, "blocks": blocks, "groups": -(-blocks // LNB_GROUP)}
+
+
+def ln_colsum_blocked(v):
+    """Column sums of ``v`` [M, D] in the LN backward kernel's order: each
+    thread's rows ri, ri + RB, ... of its block's range one after another,
+    the block's RB row slots in order, the blocks of a group in order, the
+    groups in order."""
+    M, D = v.shape
+    p = ln_bwd_plan(M, D)
+    RB, rpb = p["RB"], p["rpb"]
+    parts = []
+    for b in range(p["blocks"]):
+        rows = v[b * rpb:min(M, (b + 1) * rpb)]
+        pad = -rows.shape[0] % RB
+        slots = torch.cat([rows, rows.new_zeros(pad, D)]).view(-1, RB, D)
+        acc = torch.zeros(RB, D, dtype=v.dtype)
+        for step in slots:  # a thread's rows in order
+            acc = acc + step
+        t = torch.zeros(D, dtype=v.dtype)
+        for r in range(RB):  # the block's row slots in order
+            t = t + acc[r]
+        parts.append(t)
+    groups = []
+    for g in range(p["groups"]):
+        t = torch.zeros(D, dtype=v.dtype)
+        for b in parts[g * LNB_GROUP:(g + 1) * LNB_GROUP]:
+            t = t + b
+        groups.append(t)
+    out = torch.zeros(D, dtype=v.dtype)
+    for t in groups:
+        out = out + t
+    return out if p["groups"] > 1 else groups[0]
 
 
 def _model_sum(t: torch.Tensor, axis) -> torch.Tensor:
@@ -1083,6 +1146,37 @@ def branch_ln_bwd(x, ln_scale, dy, gy):
         return ln_bwd_plain(x, ln_scale, dy, gy)
     return _ln_bwd_cuda(x.contiguous(), ln_scale.float().contiguous(), dy.float().contiguous(),
                         gy.to(x.dtype).contiguous())
+
+
+def ln_bwd(x, ln_scale, dy, gy, dx32: bool = False):
+    """The LN backward's four bf16 instantiations alone: (dx, dx in f32 or
+    None, (d ln_s, d ln_b, sum gy)); an f32 ``gy`` is taken as it is (the
+    f32 gradient of the whole block and the chain), any other as bf16.
+    A CUDA tensor launches the kernel (bf16 only), a CPU one runs
+    ``ln_bwd_full_plain``."""
+    if _route(x) == "cpu":
+        dx, d32, sums = ln_bwd_full_plain(x, ln_scale, dy, gy)
+        return dx, d32 if dx32 else None, sums
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ln_bwd takes bf16 activations on the card, not {x.dtype}")
+    x = x.contiguous()
+    D = x.shape[-1]
+    M = x.numel() // D
+    g32 = gy.float().contiguous() if gy.dtype == torch.float32 else None
+    gb = None if g32 is not None else gy.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    d32 = torch.empty(x.shape, dtype=torch.float32, device=x.device) if dx32 else None
+    dln3 = torch.empty((3, D), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    ws = _workspace(lib.ssrl_branch_ln_bwd_workspace(M, D), x)
+    LAUNCHES["ln_bwd"] += 1
+    _build.check(lib.ssrl_ln_bwd(
+        x.data_ptr(), ln_scale.float().contiguous().data_ptr(), dy.float().contiguous().data_ptr(),
+        gb.data_ptr() if gb is not None else None, g32.data_ptr() if g32 is not None else None,
+        dx.data_ptr(), d32.data_ptr() if d32 is not None else None, dln3.data_ptr(),
+        ws.data_ptr(), M, D, _stream(x),
+    ), "ln_bwd")
+    return dx, d32, (dln3[0], dln3[1], dln3[2])
 
 
 

@@ -26,8 +26,12 @@ whole block and the chain are held to the same bounds against their
 ``*_ref`` versions, which round at the kernel's own points.
 """
 
+import json
 import math
+import pathlib
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -1466,3 +1470,171 @@ def test_tp_entries_count_and_are_deterministic(cuda, dtype):
         a, b = pair
         for u, v in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(u, v)
+
+
+# the LN backward's variants: name -> (activation dtype, gy f32, dx in f32 too)
+LN_VARIANTS = {"bf16": (torch.bfloat16, False, False), "bf16_gy32": (torch.bfloat16, True, False),
+               "bf16_dx32": (torch.bfloat16, False, True),
+               "bf16_gy32_dx32": (torch.bfloat16, True, True), "f32": (torch.float32, False, False)}
+
+
+def _ln_inputs(M, D, variant, device):
+    dt, gy32, _ = LN_VARIANTS[variant]
+    g = torch.Generator().manual_seed(M + D)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x = (2.0 * rn(M, D) + 0.5).to(dt)
+    s = 1.0 + 0.1 * rn(D)
+    dy, gy = rn(M, D), rn(M, D)
+    gy = gy if gy32 or dt == torch.float32 else gy.to(dt)
+    return x.to(device), s.to(device), dy.to(device), gy.to(device)
+
+
+def _ln_call(variant):
+    """(the kernel, its plain version) of a variant, each returning (dx,
+    dx32 or None, (d ln_s, d ln_b, sum gy))."""
+    dt, _, dx32 = LN_VARIANTS[variant]
+    if dt == torch.float32:
+        def kern(x, s, dy, gy):
+            dx, sums = bf.branch_ln_bwd(x, s, dy, gy)
+            return dx, None, sums
+
+        def plain(x, s, dy, gy):
+            dx, sums = bf.ln_bwd_plain(x, s, dy, gy)
+            return dx, None, sums
+        return kern, plain
+
+    def plain(x, s, dy, gy):
+        dx, d32, sums = bf.ln_bwd_full_plain(x, s, dy, gy)
+        return dx, d32 if dx32 else None, sums
+    return (lambda x, s, dy, gy: bf.ln_bwd(x, s, dy, gy, dx32=dx32)), plain
+
+
+def _ln_outputs(out):
+    dx, d32, sums = out
+    return (dx,) + ((d32,) if d32 is not None else ()) + tuple(sums)
+
+
+LN_DS, LN_MS = [48, 96, 144, 192, 256], [1, 17, 4097, 28416]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", LN_MS)
+@pytest.mark.parametrize("D", LN_DS)
+@pytest.mark.parametrize("variant", list(LN_VARIANTS))
+def test_ln_bwd_matches_plain(cuda, variant, D, M):
+    """The LN backward kernel (``csrc/common.cuh::ln_bwd``: the four bf16
+    instantiations through ``ln_bwd``, f32 through ``branch_ln_bwd``)
+    against its plain version: dx (and its f32 form) and the three column
+    sums within test_tp_entries_match_plain's bounds (2e-2 of the largest
+    magnitude in bf16, 1e-4 at f32); a second call gives the same bits."""
+    dt = LN_VARIANTS[variant][0]
+    rel = 1e-4 if dt == torch.float32 else 2e-2
+    x, s, dy, gy = _ln_inputs(M, D, variant, cuda)
+    kern, plain = _ln_call(variant)
+    got, again = _ln_outputs(kern(x, s, dy, gy)), _ln_outputs(kern(x, s, dy, gy))
+    want = _ln_outputs(plain(x, s, dy, gy))
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (5 if LN_VARIANTS[variant][2] else 4)
+    names = ("dx",) + (("dx32",) if len(got) == 5 else ()) + ("d_ln_s", "d_ln_b", "sum_gy")
+    for name, k, r, k2 in zip(names, got, want, again):
+        assert k.dtype == r.dtype and k.shape == r.shape, name
+        ok, err = _within(k, r, rel)
+        assert ok, f"{name}: {err}"
+        assert torch.equal(k, k2), f"{name}: a second call differs"
+
+
+def ln_bwd_kernels_a_call():
+    """Print, as JSON, the device kernels (memsets aside) of one call of each
+    LN backward variant at each shape of test_ln_bwd_matches_plain, by the
+    profiler's names (run by test_ln_bwd_launches_one_kernel)."""
+    out = {}
+    for variant in LN_VARIANTS:
+        kern, _ = _ln_call(variant)
+        for D in LN_DS:
+            for M in LN_MS:
+                x, s, dy, gy = _ln_inputs(M, D, variant, "cuda")
+                for _ in range(6):  # a profiler session now and then records nothing
+                    names = _kernel_names(lambda: kern(x, s, dy, gy))
+                    if names:
+                        break
+                out[f"{variant}-{D}-{M}"] = {k: n for k, n in names.items()
+                                             if not k.startswith("Memset")}
+    print(json.dumps(out))
+
+
+@pytest.mark.cuda
+def test_ln_bwd_launches_one_kernel(cuda):
+    """Each LN backward variant launches one device kernel a call (the
+    memset of its done counters aside) at every shape of
+    test_ln_bwd_matches_plain, counted by the profiler's names in a process
+    of its own: in this file's process, after its CUDA-graph captures, the
+    profiler records no device activity (on an H100)."""
+    here = pathlib.Path(__file__).resolve().parent
+    code = (f"import sys; sys.path[:0] = [{str(here)!r}, {str(here.parent)!r}]; "
+            "import test_torch_cuda as t; t.ln_bwd_kernels_a_call()")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=here.parent)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(counts) == len(LN_VARIANTS) * len(LN_DS) * len(LN_MS)
+    for case, kernels in counts.items():
+        assert list(kernels.values()) == [1], (case, kernels)
+        assert "ln_bwd_kernel" in next(iter(kernels)), (case, kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 100, 255])
+def test_ln_bwd_takes_any_width(cuda, D):
+    """A width that is not a multiple of 8 (element loads, the same kernel)
+    and a tensor that is not 16-byte aligned give the plain version's
+    results, at bf16 and f32."""
+    for variant in ("bf16_gy32_dx32", "f32"):
+        x, s, dy, gy = _ln_inputs(333, D, variant, cuda)
+        kern, plain = _ln_call(variant)
+        rel = 1e-4 if variant == "f32" else 2e-2
+        for k, r in zip(_ln_outputs(kern(x, s, dy, gy)), _ln_outputs(plain(x, s, dy, gy))):
+            assert _within(k, r, rel)[0]
+    x, s, dy, gy = _ln_inputs(334, 96, "bf16", cuda)
+    xo, dyo, gyo = x.view(-1)[96:].view(333, 96), dy.view(-1)[96:].view(333, 96), gy[1:]
+    kern, plain = _ln_call("bf16")
+    assert xo.data_ptr() % 16 == 0 and dyo.data_ptr() % 16 == 0
+    xm = x.view(-1)[1:1 + 333 * 96].view(333, 96)  # 2-byte offset: element loads
+    for xx in (xo, xm):
+        for k, r in zip(_ln_outputs(kern(xx, s, dyo, gyo)), _ln_outputs(plain(xx, s, dyo, gyo))):
+            assert _within(k, r, 2e-2)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bf16_gy32_dx32", "f32"])
+def test_ln_bwd_graph_replay_is_eager(cuda, variant):
+    """A CUDA-graph replay of the LN backward (its memset and kernel
+    captured) gives the eager call's bits, replay after replay."""
+    x, s, dy, gy = _ln_inputs(28416, 144, variant, cuda)
+    kern, _ = _ln_call(variant)
+    eager = _ln_outputs(kern(x, s, dy, gy))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kern(x, s, dy, gy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern(x, s, dy, gy)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(_ln_outputs(out), eager):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 144, 192, 256])
+def test_branch_finish_is_plain(cuda, D):
+    """The finish ``bf16(x + bf16(s + b))`` equals ``branch_finish_plain``
+    bit for bit at ragged row counts."""
+    g = torch.Generator().manual_seed(D)
+    for M in (1, 17, 4097):
+        x = torch.randn(M, D, generator=g).bfloat16().to(cuda)
+        s = (3.0 * torch.randn(M, D, generator=g)).to(cuda)
+        b = (0.1 * torch.randn(D, generator=g)).bfloat16().to(cuda)
+        assert torch.equal(bf.branch_finish(x, s, b), bf.branch_finish_plain(x, s, b))
