@@ -4,7 +4,8 @@ pretraining steps, then the classifier stage and the engine under it, then
 the port's CLIs, then the lineage paths of the step and data parallelism,
 then the bench's steady-state mode (the step as a CUDA-graph replay), then
 checkpoint fidelity, then f32 training on every route, then the
-tensor-parallel model axis, then the texture rank study at a small scale.
+tensor-parallel model axis, then the texture rank study at a small scale,
+then the walkthrough example end to end.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit::
@@ -275,7 +276,15 @@ Phases (any failure exits nonzero; nothing is caught):
      (bf16, xla) on the card from the same weights and draws, the loss
      within 2e-2 and each gradient within 10% of the plain one's largest
      magnitude (phase 4's bounds), with each route's relative L2 distance
-     from the plain route at f32 and a ``{"study_steps": ...}`` line.
+     from the plain route at f32 and a ``{"study_steps": ...}`` line;
+  27. ``python examples/torch_walkthrough.py`` as a process on the card at
+     its demo scale (a synthetic STL-10 of 400 / 200 / 1000 images, 3
+     epochs at B=64, work directory under ``build/``): exit 0, every MAE
+     and probe epoch's train and val loss finite, the MAE's ``best.ckpt``
+     with finite weights, test metrics and a finite masked-patch PSNR; its
+     launches, from that one process through ``SSRL_LAUNCH_LOG``, include
+     every kernel of ``RANK_KERNELS`` (rows 1-5 on auto, rows 3-4 at f32
+     in the reconstruction); a ``{"walkthrough": ...}`` line.
 
 With arguments: ``--dp-worker DIR BACKEND timed|untimed`` is one rank of
 phase 20 (b), ``--fused-replay OUT`` is phase 21 in a fresh process (the
@@ -321,6 +330,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import ctypes
 import json
@@ -4756,6 +4766,73 @@ def rank_study_small() -> dict:
     return launches
 
 
+# phase 27: examples/torch_walkthrough.py at its demo scale (a synthetic
+# STL-10 of 400 / 200 / 1000 images, 3 epochs at B=64): MAE pretraining and
+# the frozen probe on auto (rows 1-5), the reconstruction on the f32 branch:
+# the kernels of RANK_KERNELS
+WALK_EPOCH = re.compile(r"^Epoch \d+: .* - (\{.*\})$", re.M)
+WALK_PSNR = re.compile(r"masked-patch PSNR: (\S+) dB \(MSE (\S+)\)")
+
+
+def walkthrough() -> dict:
+    """Phase 27: ``python examples/torch_walkthrough.py`` as a process on the
+    card (``SSRL_TORCH_DEVICE`` unset), its work directory a temporary one
+    under ``build/``. It must exit 0 with every epoch's train and val loss
+    finite (3 MAE and 3 probe epochs), write the MAE's ``best.ckpt``, print
+    test metrics and a finite PSNR. Its launch counters come from that one
+    process (``SSRL_LAUNCH_LOG``, one line from ``torch_walkthrough.py``),
+    and each kernel of ``RANK_KERNELS`` launched at least once."""
+    tmp = REPO / "build" / f"tmp_walk_{os.getpid()}"
+    tmp.mkdir(parents=True)
+    launch_log = tmp / "launches.jsonl"
+    env = {k: v for k, v in os.environ.items() if k != "SSRL_TORCH_DEVICE"}
+    env["SSRL_LAUNCH_LOG"] = str(launch_log)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "examples" / "torch_walkthrough.py"),
+                               "--workdir", str(tmp / "w")],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print(f"  python examples/torch_walkthrough.py: exit {proc.returncode} in "
+              f"{wall:.1f} s", flush=True)
+        if proc.returncode != 0:
+            fail(f"the walkthrough exited {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                 f"{proc.stderr[-3000:]}")
+        best = tmp / "w" / "pretrain" / "checkpoints" / "best.ckpt"
+        if not best.is_file():
+            fail("the walkthrough wrote no pretrain/checkpoints/best.ckpt")
+        ckpt = load_checkpoint(best)
+        if not all(torch.isfinite(v).all() for v in model_state(ckpt).values()):
+            fail("the walkthrough's best.ckpt holds non-finite weights")
+        processes = [json.loads(ln) for ln in launch_log.read_text().splitlines()]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = proc.stdout
+    epochs = [ast.literal_eval(m) for m in WALK_EPOCH.findall(out)]
+    losses = [e[k] for e in epochs for k in ("train_loss", "val_loss")]
+    if len(epochs) != 6 or not all(math.isfinite(x) for x in losses):
+        fail(f"the walkthrough's epochs: {epochs}")
+    test = re.search(r"^test metrics: (\{.*\})$", out, re.M)
+    psnr = WALK_PSNR.search(out)
+    if test is None or psnr is None:
+        fail(f"the walkthrough printed no test metrics or PSNR\n{out[-2000:]}")
+    test = ast.literal_eval(test.group(1))
+    psnr, mse = float(psnr.group(1)), float(psnr.group(2))
+    if not (math.isfinite(psnr) and mse > 0 and 0.0 <= test["test_acc"] <= 1.0):
+        fail(f"the walkthrough's PSNR {psnr}, MSE {mse}, test metrics {test}")
+    if [p["cli"] for p in processes] != ["torch_walkthrough.py"]:
+        fail(f"launch log lines: {[p['cli'] for p in processes]}")
+    launches = dict.fromkeys(launch_counts(), 0)
+    launches.update(processes[0]["launches"])
+    missing = [k for k in RANK_KERNELS if not launches[k]]
+    if missing:
+        fail(f"the walkthrough launched no {missing}")
+    print(json.dumps({"walkthrough": {
+        "wall_s": round(wall, 1), "epoch_losses": losses, "test": test, "psnr": psnr,
+        "mse": mse, "launches": {k: v for k, v in launches.items() if v}}}), flush=True)
+    return launches
+
+
 def tp_cards(n: int) -> None:
     """``python3 chip_smoke.py --tp-cards N`` on a host with N cards: the
     build, then the flagship MAE, JEPA and full classifier steps (bf16,
@@ -4949,6 +5026,9 @@ def main() -> None:
                      "tools/torch_summarize_rank_study.py; the MAE and JEPA steps at B=2000 "
                      "and the partial batch, kernels against the plain route"):
         add(rank_study_small())
+    with timed_phase(times, "27", "examples/torch_walkthrough.py on the card at its demo scale: "
+                     "MAE pretraining, the frozen probe, the test, the reconstruction"):
+        add(walkthrough())
 
     rows = [(k, f"ssrl_vit_mae_jepa_torch/csrc/{src}", replaces)
             for k, (src, replaces, _) in KERNELS.items()]

@@ -5,8 +5,9 @@ The port's own copy of ``ssrl_vit_mae_jepa_tpu/runtime/native.py``. The
 source is built with ``g++`` on first use into ``build/native/`` beside the
 package (a path ``.gitignore`` lists), named by a hash of the source, and
 renamed into place atomically so concurrent builds are safe. Without a
-compiler :func:`gather_nhwc` takes the numpy path, as the JAX package's
-does. This is host code, not a kernel of the card.
+compiler, or with ``SSRL_DISABLE_NATIVE=1`` (read at the first call),
+:func:`gather_nhwc` takes the numpy path, as the JAX package's does. This is
+host code, not a kernel of the card.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
+    if os.environ.get("SSRL_DISABLE_NATIVE") == "1":
+        return None
     so = _so_path()
     if not so.exists() and not _build(so):
         return None

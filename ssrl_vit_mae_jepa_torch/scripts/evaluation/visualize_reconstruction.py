@@ -61,7 +61,9 @@ def reconstruct_batch(cfg, checkpoint, images_u8, mask_ratio=0.75,
     if masks is None:
         masks = random_token_mask(torch.Generator(dev).manual_seed(MASK_SEED), B, L,
                                   num_masked_tokens(L, mask_ratio))
-    idx_keep, idx_mask = (torch.as_tensor(np.array(m)).long().to(dev) for m in masks)
+    # drawn masks are tensors on ``dev``; a caller's may be numpy or JAX arrays
+    idx_keep, idx_mask = ((m if isinstance(m, torch.Tensor) else torch.as_tensor(np.asarray(m)))
+                          .long().to(dev) for m in masks)
     pred, target = mae(images, idx_keep, idx_mask)
 
     patches = patchify(images, p)  # (B, N, p·p·3)

@@ -1638,3 +1638,33 @@ def test_branch_finish_is_plain(cuda, D):
         s = (3.0 * torch.randn(M, D, generator=g)).to(cuda)
         b = (0.1 * torch.randn(D, generator=g)).bfloat16().to(cuda)
         assert torch.equal(bf.branch_finish(x, s, b), bf.branch_finish_plain(x, s, b))
+
+
+@pytest.mark.cuda
+def test_reconstruct_batch_draws_its_masks_on_the_card(cuda, tmp_path, monkeypatch):
+    """``reconstruct_batch`` with no masks given draws them on the card (as
+    the walkthrough and the CLI call it) and equals the call given those
+    masks from the CPU: the drawn CUDA masks are not converted through
+    numpy."""
+    from ssrl_vit_mae_jepa_torch.models.mae import mae_from_config
+    from ssrl_vit_mae_jepa_torch.ops.masking import num_masked_tokens, random_token_mask
+    from ssrl_vit_mae_jepa_torch.scripts.evaluation import visualize_reconstruction as vrec
+    from ssrl_vit_mae_jepa_torch.utils.interop import export_reference_weights
+
+    monkeypatch.delenv("SSRL_TORCH_DEVICE", raising=False)
+    cfg = {"model": {"general": {"image_size": 96, "patch_size": 8, "in_chans": 3},
+                     "encoder": {"embed_dim": 48, "depth": 2, "num_heads": 4},
+                     "decoder": {"decoder_embed_dim": 32, "decoder_depth": 1,
+                                 "decoder_num_heads": 4}}}
+    model = mae_from_config(cfg["model"], dtype=torch.float32)
+    model.init_weights(torch.Generator().manual_seed(0))
+    ckpt = export_reference_weights(tmp_path / "vit-mae.pt", model.state_dict())
+    images = torch.randint(0, 256, (4, 96, 96, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1)).numpy()
+    got = vrec.reconstruct_batch(cfg, ckpt, images)
+    L = model.sequence_length
+    masks = random_token_mask(torch.Generator(cuda).manual_seed(vrec.MASK_SEED), 4, L,
+                              num_masked_tokens(L, 0.75))
+    want = vrec.reconstruct_batch(cfg, ckpt, images, masks=[m.cpu() for m in masks])
+    assert math.isfinite(got["psnr"]) and got["mse"] > 0
+    assert got["psnr"] == want["psnr"] and got["mse"] == want["mse"]

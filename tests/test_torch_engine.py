@@ -138,6 +138,20 @@ def test_native_gather_matches_numpy(data):
         t_native.gather_nhwc(ds._raw, np.array([45]))
 
 
+def test_disable_native_forces_the_numpy_gather(data, monkeypatch):
+    """``SSRL_DISABLE_NATIVE=1`` skips the library, as in the JAX package."""
+    monkeypatch.setenv("SSRL_DISABLE_NATIVE", "1")
+    monkeypatch.setattr(t_native, "_lib", None)
+    monkeypatch.setattr(t_native, "_tried", False)
+    monkeypatch.setattr(t_native, "_build", lambda so: pytest.fail("built"))
+    ds = t_stl10.STL10(data, split="unlabeled")
+    idx = np.array([4, 0, 44, 4, 17])
+    want = np.ascontiguousarray(np.asarray(ds._raw[idx]).transpose(0, 3, 2, 1))
+    assert not t_native.native_available()
+    got = t_native.gather_nhwc(ds._raw, idx)
+    assert got.dtype == np.uint8 and got.tobytes() == want.tobytes()
+
+
 def _jepa_task():
     cfg = {"total_epochs": 4, "warmup_epochs": 1, "batch_size": 4, "base_learning_rate": 1e-2,
            "predictor_embed_dim": 32, "predictor_depth": 1, "predictor_num_heads": 4}

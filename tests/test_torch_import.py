@@ -139,3 +139,24 @@ def test_step_profile_needs_a_gpu():
                  "('jax', 'flax', 'optax', 'ssrl_vit_mae_jepa_tpu')))"])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("script", ["examples/torch_walkthrough.py",
+                                    "tools/torch_pretrain_curves.py"])
+def test_entry_scripts_import_only_the_port(script):
+    """Every import statement of the port's entry scripts (at the top and
+    inside functions) names torch-side modules only; each port module they
+    name is JAX-free by ``test_port_imports_no_jax``."""
+    import ast
+    import importlib.util
+
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "ssrl_vit_mae_jepa_tpu", "scripts"}
+    names = []
+    for node in ast.walk(ast.parse((REPO / script).read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert names and not {n.split(".")[0] for n in names} & banned, names
+    port = [n for n in names if n.startswith("ssrl_vit_mae_jepa_torch")]
+    assert port and all(importlib.util.find_spec(n) is not None for n in port), port
